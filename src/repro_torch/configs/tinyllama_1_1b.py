@@ -1,0 +1,15 @@
+"""tinyllama-1.1b — llama2-arch small dense GQA [arXiv:2401.02385]."""
+from repro_torch.configs.base import ModelConfig, DENSE
+
+CONFIG = ModelConfig(
+    name="tinyllama-1.1b",
+    family=DENSE,
+    num_layers=22,
+    d_model=2048,
+    num_heads=32,
+    num_kv_heads=4,
+    d_ff=5632,
+    vocab_size=32000,
+    rope_theta=10000.0,
+    source="arXiv:2401.02385",
+)

@@ -1,0 +1,141 @@
+"""Shared KV Attention (paper §III.A, Fig. 2a) — the core contribution.
+
+Port of the reference ``core/shared_attention.py``. N concurrent query
+groups routed to the same shared chunk are gathered into one (N x d) query
+matrix and attended against the chunk's KV in one GEMM:
+
+    route -> dispatch_plan -> scatter Q to (chunks, capacity, ...)
+          -> per-chunk GEMM attention (the ``shared_chunk_attention`` kernel)
+          -> gather partial (O, LSE) back per (group, k)
+          -> LSE-merge over the k selected chunks (the ``lse_merge`` kernel).
+
+On a CUDA tensor both steps launch the hand-written kernels; on the CPU
+the same wrappers take their plain versions. The kernel keeps the softmax
+probabilities in fp32 through PV, as the TPU kernel does (the reference's
+jnp path casts them to v.dtype first).
+
+``shared_attention_gather_ref`` is the per-request gather oracle (what a
+non-batched system does), plain PyTorch.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch import obs
+from repro_torch.core import router as router_lib
+from repro_torch.kernels import ops
+
+NEG_INF = -1e30
+
+
+class SharedPartial(NamedTuple):
+    out: torch.Tensor     # (G, Q, H, D)
+    lse: torch.Tensor     # (G, Q, H) fp32; -1e30 where nothing attended
+
+
+def _record_dispatch(rec: Optional[obs.DeviceRecorder], qmask: torch.Tensor,
+                     keep: torch.Tensor, layer_idx: Optional[int]) -> None:
+    """Dispatch-density metrics, queued as device tensors (no sync): the
+    fraction of (chunk, capacity) slots filled, and how many (group, k)
+    routes fell off the capacity cliff, overall and per layer."""
+    if rec is None:
+        return
+    util = qmask.float().mean()
+    dropped = (~keep).sum()
+    rec.observe("moska/dispatch_capacity_utilization", util,
+                obs.FRACTION_EDGES)
+    if layer_idx is not None:
+        rec.observe(f"moska/dispatch_capacity_utilization_by_layer/"
+                    f"L{layer_idx}", util, obs.FRACTION_EDGES)
+        rec.inc(f"moska/dropped_queries_by_layer/L{layer_idx}", dropped)
+    rec.inc("moska/dispatched_queries", keep.sum())
+    rec.inc("moska/dropped_queries", dropped)
+
+
+def shared_attention_batched(
+    q: torch.Tensor,                 # (G, Q, H, D) query groups (Q=1 decode)
+    layer_store_k: torch.Tensor,     # (E, C, KH, D)
+    layer_store_v: torch.Tensor,     # (E, C, KH, D)
+    routing: router_lib.Routing,
+    *,
+    capacity: Optional[int] = None,
+    capacity_factor: float = 2.0,
+    layer_idx: Optional[int] = None,
+    rec: Optional[obs.DeviceRecorder] = None,
+) -> SharedPartial:
+    """Batched Shared KV Attention over routed chunks."""
+    G, Q, H, D = q.shape
+    E = layer_store_k.shape[0]
+    K = routing.chunk_ids.shape[1]
+    if capacity is None:
+        capacity = router_lib.required_capacity(G, K, E, capacity_factor)
+    capacity = min(capacity, G * K)
+
+    flat, pos, keep = router_lib.dispatch_plan(routing.chunk_ids, E,
+                                               capacity)
+    # slot (chunk, pos) -> row chunk * capacity + pos of a flat buffer with
+    # one extra trash row: dropped routes land there, which realises the
+    # reference's scatter mode="drop" without a host sync
+    trash = E * capacity
+    lin = torch.where(keep, flat * capacity + pos,
+                      torch.full_like(pos, trash))
+    q_slots = q.repeat_interleave(K, dim=0)                # (G*K, Q, H, D)
+    qd = q.new_zeros((trash + 1, Q, H, D))
+    qd[lin] = q_slots
+    qmask = torch.zeros(trash + 1, dtype=torch.bool, device=q.device)
+    qmask[lin] = keep
+    qmask = qmask[:trash].view(E, capacity)
+    _record_dispatch(rec, qmask, keep, layer_idx)
+
+    # the kernel takes (E, cap, H, D): fold the per-group query dim into cap
+    od, lsed = ops.shared_chunk_attention(
+        qd[:trash].view(E, capacity * Q, H, D),
+        layer_store_k.contiguous(), layer_store_v.contiguous(),
+        qmask.repeat_interleave(Q, dim=1).contiguous())
+
+    # gather partials back per (group, k); dropped routes read row 0 and
+    # are then masked (the reference's gather mode="fill")
+    src = torch.where(keep, lin, torch.zeros_like(lin))
+    o_bk = od.reshape(trash, Q, H, D)[src]                 # (G*K, Q, H, D)
+    l_bk = lsed.reshape(trash, Q, H)[src]
+    o_bk = torch.where(keep[:, None, None, None], o_bk,
+                       torch.zeros_like(o_bk))
+    l_bk = torch.where(keep[:, None, None], l_bk,
+                       torch.full_like(l_bk, NEG_INF))
+
+    # LSE-merge over the K selected chunks: partials (K, G*Q, H, ...)
+    outs = o_bk.view(G, K, Q * H, D).transpose(0, 1).reshape(K, G * Q, H, D)
+    lses = l_bk.view(G, K, Q * H).transpose(0, 1).reshape(K, G * Q, H)
+    out, lse = ops.lse_merge(outs.contiguous(), lses.contiguous())
+    return SharedPartial(out.reshape(G, Q, H, D).to(q.dtype),
+                         lse.reshape(G, Q, H))
+
+
+def shared_attention_gather_ref(
+    q: torch.Tensor,                 # (G, Q, H, D)
+    layer_store_k: torch.Tensor,     # (E, C, KH, D)
+    layer_store_v: torch.Tensor,
+    routing: router_lib.Routing,
+) -> SharedPartial:
+    """Per-request chunk gather + attention. Semantically identical to the
+    batched path when no capacity drops occur; memory-bound (each request
+    re-reads its chunks) — the baseline MoSKA's GEMM batching beats."""
+    G, Q, H, D = q.shape
+    E, C, KH, _ = layer_store_k.shape
+    K = routing.chunk_ids.shape[1]
+    scale = 1.0 / math.sqrt(D)
+    ksel = layer_store_k[routing.chunk_ids].reshape(G, K * C, KH, D)
+    vsel = layer_store_v[routing.chunk_ids].reshape(G, K * C, KH, D)
+    qg = q.reshape(G, Q, KH, H // KH, D)
+    s = torch.einsum("gqkhd,gskd->gqkhs", qg.float(), ksel.float()) * scale
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    o = torch.einsum("gqkhs,gskd->gqkhd", p.to(vsel.dtype).float(),
+                     vsel.float())
+    o = o / l.clamp_min(1e-37)[..., None]
+    lse = (m + torch.log(l.clamp_min(1e-37))).reshape(G, Q, H)
+    return SharedPartial(o.reshape(G, Q, H, D).to(q.dtype), lse)

@@ -1,0 +1,102 @@
+"""Shared KV chunk store — the persistent, massively-reused corpus KV.
+
+Port of the reference ``core/shared_kv.py``. Layout (stacked over layers;
+the decoder loop takes one slice per layer):
+    k, v : (L, n_chunks, chunk_size, kv_heads, head_dim)   post-RoPE keys
+    emb  : (L, n_chunks, kv_heads, head_dim)               router embeddings
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+
+class SharedKVStore(NamedTuple):
+    k: torch.Tensor            # (L, E, C, KH, D), or int8 when quantized
+    v: torch.Tensor            # (L, E, C, KH, D)
+    emb: torch.Tensor          # (L, E, KH, D) mean-key chunk embeddings
+    # absolute corpus position of the first token of each chunk
+    chunk_positions: torch.Tensor    # (E,) int32
+    # int8 scales per (layer, chunk, token, kv head); None => unquantized
+    k_scale: Optional[torch.Tensor] = None   # (L, E, C, KH) f32
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+    def dequantize_layer(self, i: int):
+        """Return (k, v) of layer i in compute dtype (bf16 when quantized)."""
+        if not self.quantized:
+            return self.k[i], self.v[i]
+        bf = torch.bfloat16
+        k = self.k[i].to(bf) * self.k_scale[i][..., None].to(bf)
+        v = self.v[i].to(bf) * self.v_scale[i][..., None].to(bf)
+        return k, v
+
+    @property
+    def num_layers(self) -> int:
+        return self.k.shape[0]
+
+    @property
+    def num_chunks(self) -> int:
+        return self.k.shape[1]
+
+    @property
+    def chunk_size(self) -> int:
+        return self.k.shape[2]
+
+    @property
+    def total_tokens(self) -> int:
+        return self.num_chunks * self.chunk_size
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self
+                   if t is not None)
+
+    def layer(self, i: int) -> "SharedKVStore":
+        return SharedKVStore(self.k[i], self.v[i], self.emb[i],
+                             self.chunk_positions)
+
+
+def chunk_embeddings(k_chunks: torch.Tensor) -> torch.Tensor:
+    """Training-free router embeddings: mean key per chunk.
+
+    k_chunks: (..., E, C, KH, D) -> (..., E, KH, D)
+    """
+    return k_chunks.float().mean(dim=-3).to(k_chunks.dtype)
+
+
+def _quantize(x: torch.Tensor):
+    """(..., D) -> int8 values + per-row f32 scale."""
+    xf = x.float()
+    scale = (xf.abs().amax(dim=-1) / 127.0).clamp_min(1e-8)
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def build_store(k: torch.Tensor, v: torch.Tensor, chunk_size: int,
+                start_position: int = 0,
+                quantize: bool = False) -> SharedKVStore:
+    """Chunk a (L, S, KH, D) corpus KV into a SharedKVStore.
+
+    Keys are post-RoPE at absolute positions ``start_position + [0, S)``;
+    S must be a multiple of chunk_size. The chunk views share k/v's memory.
+    """
+    L, S, KH, D = k.shape
+    if S % chunk_size:
+        raise ValueError(f"corpus length {S} not a multiple of chunk_size "
+                         f"{chunk_size}")
+    E = S // chunk_size
+    kc = k.reshape(L, E, chunk_size, KH, D)
+    vc = v.reshape(L, E, chunk_size, KH, D)
+    emb = chunk_embeddings(kc)
+    pos = start_position + torch.arange(E, dtype=torch.int32,
+                                        device=k.device) * chunk_size
+    if not quantize:
+        return SharedKVStore(kc, vc, emb, pos)
+    kq, ks = _quantize(kc)
+    vq, vs = _quantize(vc)
+    return SharedKVStore(kq, vq, emb, pos, ks, vs)

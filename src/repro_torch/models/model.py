@@ -1,0 +1,51 @@
+"""Model facade: one API over the family implementations.
+
+Port of the reference ``models/model.py``; this slice carries the dense
+family. Other families (SSM, hybrid, enc-dec, VLM, MoE) and the paged
+cache come in later slices of the port.
+
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device).manual_seed(0), device)
+    cache = model.init_cache(batch_size, max_seq, device=device)
+    logits, cache = model.prefill(params, tokens, cache, store=...)
+    logits, cache = model.decode_step(params, tokens, cache, store=...)
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import DENSE, ModelConfig
+from repro_torch.kvcache.cache import init_kv_cache
+from repro_torch.models import dense
+
+
+class Model:
+    def __init__(self, cfg: ModelConfig):
+        if cfg.family != DENSE or cfg.moe.enabled:
+            raise NotImplementedError(
+                f"family {cfg.family!r} is ported in a later slice of the "
+                "port; this slice serves the dense family")
+        self.cfg = cfg
+
+    def init(self, generator: torch.Generator, device=None) -> dense.DenseLM:
+        return dense.init_params(self.cfg, generator, device)
+
+    def init_cache(self, batch: int, max_seq: int, dtype=torch.bfloat16,
+                   device=None):
+        cfg = self.cfg
+        return init_kv_cache(cfg.num_layers, batch, max_seq,
+                             cfg.num_kv_heads, cfg.head_dim, dtype, device)
+
+    def prefill(self, params, tokens, cache, store=None, start_pos: int = 0,
+                true_len=None, rec=None):
+        return dense.prefill(self.cfg, params, tokens, cache, store=store,
+                             start_pos=start_pos, true_len=true_len, rec=rec)
+
+    def decode_step(self, params, tokens, cache, store=None, positions=None,
+                    rec=None):
+        return dense.decode_step(self.cfg, params, tokens, cache, store=store,
+                                 positions=positions, rec=rec)
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    return Model(cfg)

@@ -1,0 +1,166 @@
+"""Card tests of the port: each hand-written CUDA kernel against its plain
+PyTorch version on the same CUDA tensors, over the shape and dtype sweeps
+of ``tests/test_kernels.py``, plus a dense decode step on the card against
+the same step on the CPU.
+
+These tests need an NVIDIA card with the CUDA toolkit; elsewhere they skip.
+This file imports no JAX, so it also runs where JAX is not installed:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
+"""
+import copy
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core.shared_kv import build_store
+from repro_torch.kernels import ops, ref
+from repro_torch.kvcache.cache import init_kv_cache
+from repro_torch.models import dense
+
+pytestmark = pytest.mark.gpu
+
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the CUDA kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(gen, shape, dtype, device, scale=1.0):
+    x = torch.from_numpy(gen.standard_normal(shape).astype(np.float32))
+    return (x * scale).to(device=device, dtype=dtype)
+
+
+def _close(got, want, tol):
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,cap,H,KH,D,C", [
+    (3, 8, 4, 2, 32, 64),
+    (2, 16, 8, 8, 64, 128),
+    (1, 4, 2, 1, 16, 32),
+    (4, 8, 6, 2, 64, 48),       # C not a multiple of the 64-key tile
+    (2, 8, 4, 4, 128, 256),
+    (2, 40, 16, 2, 64, 100),    # several row tiles per (chunk, kv head)
+])
+def test_shared_chunk_attention_kernel(cuda, dtype, E, cap, H, KH, D, C):
+    g = np.random.default_rng(0)
+    qd = _randn(g, (E, cap, H, D), dtype, cuda)
+    k = _randn(g, (E, C, KH, D), dtype, cuda)
+    v = _randn(g, (E, C, KH, D), dtype, cuda)
+    qm = torch.from_numpy(g.random((E, cap)) < 0.7).to(cuda)
+    n0 = ops.shared_chunk_attention.launches
+    o1, l1 = ops.shared_chunk_attention(qd, k, v, qm)
+    torch.cuda.synchronize()
+    assert ops.shared_chunk_attention.launches == n0 + 1
+    o2, l2 = ref.shared_chunk_attention_ref(qd, k, v, qm)
+    _close(o1, o2, TOL[dtype])
+    _close(l1, l2, TOL[dtype])
+    assert o1.dtype == dtype and l1.dtype == torch.float32
+    assert bool((l1[~qm] < -1e29).all()) and bool((o1[~qm] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KH,D,S", [
+    (4, 8, 2, 32, 100),
+    (2, 4, 4, 64, 256),
+    (3, 2, 1, 16, 33),
+    (1, 16, 8, 128, 512),
+    (5, 32, 4, 64, 300),        # tinyllama's grouping, G = 8
+])
+def test_decode_attention_kernel(cuda, dtype, B, H, KH, D, S):
+    g = np.random.default_rng(1)
+    q = _randn(g, (B, H, D), dtype, cuda)
+    k = _randn(g, (B, S, KH, D), dtype, cuda)
+    v = _randn(g, (B, S, KH, D), dtype, cuda)
+    lens = torch.from_numpy(g.integers(1, S + 1, B).astype(np.int32)).to(cuda)
+    o1, l1 = ops.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    o2, l2 = ref.decode_attention_ref(q, k, v, lens)
+    _close(o1, o2, TOL[dtype])
+    _close(l1, l2, TOL[dtype])
+
+
+def test_decode_attention_kernel_rejects_window(cuda):
+    q = torch.zeros((1, 2, 16), device=cuda)
+    k = torch.zeros((1, 4, 1, 16), device=cuda)
+    with pytest.raises(NotImplementedError):
+        ops.decode_attention(q, k, k, torch.ones(1, dtype=torch.int32,
+                                                 device=cuda), window=2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P,N,H,D", [(2, 64, 4, 32), (3, 7, 2, 16),
+                                     (4, 128, 8, 64), (8, 64, 32, 64)])
+def test_lse_merge_kernel(cuda, dtype, P, N, H, D):
+    g = np.random.default_rng(2)
+    outs = _randn(g, (P, N, H, D), dtype, cuda)
+    lses = _randn(g, (P, N, H), torch.float32, cuda, scale=3.0)
+    lses[:, 0] = -1e30                      # a row no partial attended
+    lses[0, 1] = float("-inf")              # a genuine -inf sentinel
+    o1, l1 = ops.lse_merge(outs, lses)
+    torch.cuda.synchronize()
+    o2, l2 = ref.lse_merge_ref(outs, lses)
+    _close(o1, o2, TOL[dtype])
+    _close(l1, l2, 2e-5)
+    assert bool((l1[0] == -1e30).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,H,KH,D,E", [
+    (8, 8, 2, 32, 16), (5, 4, 4, 16, 7), (128, 8, 8, 64, 512),
+    (64, 32, 4, 64, 32),
+])
+def test_router_scores_kernel(cuda, dtype, G, H, KH, D, E):
+    g = np.random.default_rng(3)
+    q = _randn(g, (G, H, D), dtype, cuda)
+    emb = _randn(g, (E, KH, D), dtype, cuda)
+    s1 = ops.router_scores(q, emb)
+    torch.cuda.synchronize()
+    _close(s1, ref.router_scores_ref(q, emb), 2e-5)
+
+
+def test_dense_decode_step_card_matches_cpu(cuda):
+    """Prefill + one MoSKA decode step of a reduced fp32 model with G = 4:
+    the card (kernels) and the CPU (plain versions) give the same logits."""
+    base = get_config("llama3-8b").reduced()
+    cfg = dataclasses.replace(base, dtype="float32", num_kv_heads=1,
+                              moska=dataclasses.replace(base.moska,
+                                                        top_k_chunks=3))
+    params = dense.init_params(cfg, torch.Generator().manual_seed(0))
+    g = np.random.default_rng(4)
+    corpus = torch.from_numpy(g.integers(0, cfg.vocab_size, (1, 384)))
+    prompts = torch.from_numpy(g.integers(0, cfg.vocab_size, (3, 20)))
+
+    def run(device):
+        p = copy.deepcopy(params).to(device)
+
+        def cache(batch, max_seq):
+            return init_kv_cache(cfg.num_layers, batch, max_seq,
+                                 cfg.num_kv_heads, cfg.head_dim,
+                                 torch.float32, device)
+
+        cc = cache(1, 384)
+        dense.prefill(cfg, p, corpus.to(device), cc)
+        store = build_store(cc.k[:, 0], cc.v[:, 0], cfg.moska.chunk_size)
+        c = cache(3, 32)
+        lg, _ = dense.prefill(cfg, p, prompts.to(device), c, store=store,
+                              start_pos=384)
+        lg2, _ = dense.decode_step(cfg, p, lg.argmax(-1), c, store=store)
+        return lg.cpu(), lg2.cpu()
+
+    n0 = ops.launch_counts()
+    on_card = run(cuda)
+    assert all(ops.launch_counts()[k] > n0[k] for k in n0)
+    on_cpu = run(torch.device("cpu"))
+    for a, b in zip(on_card, on_cpu):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
