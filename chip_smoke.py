@@ -10,21 +10,38 @@ Phases, each printed as it runs; any failure exits non-zero:
   2. check  hold each kernel against its plain PyTorch version on the card,
             at the main path's shapes and at one ragged shape, in bf16
             (tolerance 2e-2) and fp32 (2e-5), the bounds of
-            ``tests/test_kernels.py``.
+            ``tests/test_kernels.py``; and the paged decode kernel against
+            the slotted one on the same logical cache, bit for bit.
   3. serve  ``repro_torch.launch.serve.main``: tinyllama-1.1b at full width
             and depth, random weights from a seed, a 65,536-token shared
             corpus (32 chunks of 2,048; top-8 routing), 128 requests of 256
             prompt tokens and 32 new tokens on 64 slots. Every kernel's
             launch count must equal what the layer and step counts predict.
+  3b. paged the same model, weights and corpus through ``ServingEngine``
+            with ``kv_layout="paged"`` (pages of 16 tokens): 128 requests of
+            250 prompt tokens (the second 64 repeat the first 64's prompts:
+            prefix hits and copy-on-write), then 2 prompts of 1,000 tokens
+            (past max_seq 512: chunked prefill). Launch counts as predicted,
+            with ``paged_decode_attention`` on every decode step and no
+            ``decode_attention``; the first 128 generations equal a slotted
+            engine's on the same stream. Then the chunked prefill's logits
+            against a single-shot prefill of the same 1,000 tokens.
+  3c. q8    an int8 store built from the registered store's K/V: prefill of
+            64 prompts and 32 decode steps through ``dense.prefill`` /
+            ``dense.decode_step``, all shared attention in
+            ``shared_chunk_attention_q8``; first-step logits within 0.1 of
+            the bf16 store's.
   4. agree  one decode step of 8 slots on the card, and the same step on the
             CPU (plain versions) from copies of the same weights, store and
-            cache, in fp32: logits within 1e-3 and equal greedy tokens.
+            cache, in fp32: logits within 1e-3 and equal greedy tokens; the
+            same over an int8 store, and as a paged step.
   5. time   each kernel, its plain version and, where one exists, the one
             PyTorch call that computes the same function (``library_ms``),
             at the decode step's shapes, with CUDA events and the L2 cache
             flushed before every launch.
   6. profile one decode step at the served shapes under torch.profiler:
-            device time by kernel, and the device's idle share.
+            device time by kernel, and the device's idle share; then one
+            paged decode step.
 
 It then prints the kernels' JSON line, the card's name and power limit, and,
 as the last line, the device JSON. Without a card it exits 1 and prints no
@@ -32,12 +49,14 @@ result.
 """
 from __future__ import annotations
 
+import collections
 import copy
 import dataclasses
 import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -56,10 +75,15 @@ SPIN_CYCLES = 1_000_000          # ~0.5 ms at the H100's 1.98 GHz boost clock
 # the main path's workload
 ARCH = "tinyllama-1.1b"
 REQUESTS, NEW_TOKENS, SLOTS, PROMPT = 128, 32, 64, 256
+CORPUS = 65536                   # shared corpus tokens: 32 chunks of 2,048
 SERVE_ARGV = ["--arch", ARCH, "--full", "--device", "cuda",
-              "--corpus-tokens", "65536", "--requests", str(REQUESTS),
+              "--corpus-tokens", str(CORPUS), "--requests", str(REQUESTS),
               "--slots", str(SLOTS), "--max-seq", "512",
               "--prompt-len", str(PROMPT), "--new-tokens", str(NEW_TOKENS)]
+
+# the paged phase's stream: prompts end mid-page, and two exceed max_seq
+PAGED_PROMPT, LONG_PROMPT, BLOCK = 250, 1000, 16
+M_PAGES = 512 // BLOCK                 # table width of a 512-token slot
 
 SOURCES = {
     "shared_chunk_attention": ("src/repro_torch/kernels/csrc/shared_chunk_attn.cu",
@@ -70,7 +94,18 @@ SOURCES = {
                   "src/repro/kernels/lse_merge.py:41"),
     "router_scores": ("src/repro_torch/kernels/csrc/router_score.cu",
                       "src/repro/kernels/router_score.py:31"),
+    "paged_decode_attention": (
+        "src/repro_torch/kernels/csrc/paged_decode_attn.cu",
+        "src/repro/kernels/paged_decode_attn.py:96"),
+    "shared_chunk_attention_q8": (
+        "src/repro_torch/kernels/csrc/shared_chunk_attn.cu",
+        "src/repro/kernels/shared_chunk_attn.py:188"),
 }
+
+
+def plain_versions():
+    from repro_torch.kernels import ref
+    return {name: getattr(ref, f"{name}_ref") for name in SOURCES}
 
 
 def say(*parts) -> None:
@@ -96,11 +131,12 @@ def path_inputs(cfg, dtype, dev, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
     H, KH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     C, K = cfg.moska.chunk_size, cfg.moska.top_k_chunks
-    E = 65536 // C
+    E = CORPUS // C
 
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
 
+    from repro_torch.core.shared_kv import _quantize
     cap = router.required_capacity(SLOTS, K, E, cfg.moska.query_capacity_factor)
     ids = router.top_k(torch.rand((SLOTS, E), generator=g, device=dev), K)[1]
     _, pos, keep = router.dispatch_plan(ids, E, cap)
@@ -110,6 +146,13 @@ def path_inputs(cfg, dtype, dev, seed=0):
     lens = torch.randint(PROMPT + 1, PROMPT + 33, (SLOTS,), generator=g,
                          device=dev, dtype=torch.int32)
     lses = torch.randn((K, SLOTS, H), generator=g, device=dev) * 3
+    # 64 slots' tables over a pool of 64 * 32 pages plus the null page, in
+    # scrambled order, so no slot's pages are contiguous
+    n_pages = SLOTS * M_PAGES + 1
+    table = (torch.randperm(n_pages - 1, generator=g, device=dev) + 1
+             ).view(SLOTS, M_PAGES).to(torch.int32)
+    kq, ks = _quantize(torch.randn((E, C, KH, D), generator=g, device=dev))
+    vq, vs = _quantize(torch.randn((E, C, KH, D), generator=g, device=dev))
     return {
         "shared_chunk_attention": (randn(E, cap, H, D), randn(E, C, KH, D),
                                    randn(E, C, KH, D), qmask),
@@ -117,6 +160,11 @@ def path_inputs(cfg, dtype, dev, seed=0):
                              randn(SLOTS, 512, KH, D), lens),
         "lse_merge": (randn(K, SLOTS, H, D), lses),
         "router_scores": (randn(SLOTS, H, D), randn(E, KH, D, scale=0.2)),
+        "paged_decode_attention": (randn(SLOTS, H, D),
+                                   randn(n_pages, BLOCK, KH, D),
+                                   randn(n_pages, BLOCK, KH, D), table, lens),
+        "shared_chunk_attention_q8": (randn(E, cap, H, D), kq, vq, ks, vs,
+                                      qmask),
     }
 
 
@@ -127,8 +175,14 @@ def ragged_inputs(dtype, dev, seed=1):
     def randn(*shape):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
 
+    from repro_torch.core.shared_kv import _quantize
     lses = torch.randn((3, 7, 2), generator=g, device=dev) * 3
     lses[:, 0] = -1e30                     # a row no partial attended
+    # kv_len 1, and lengths that are multiples of neither 16 nor 64
+    table = (torch.randperm(29, generator=g, device=dev)[:24] + 1
+             ).view(3, 8).to(torch.int32)
+    kq, ks = _quantize(torch.randn((3, 100, 2, 32), generator=g, device=dev))
+    vq, vs = _quantize(torch.randn((3, 100, 2, 32), generator=g, device=dev))
     return {
         "shared_chunk_attention": (randn(3, 37, 6, 32), randn(3, 100, 2, 32),
                                    randn(3, 100, 2, 32),
@@ -140,7 +194,27 @@ def ragged_inputs(dtype, dev, seed=1):
                                           device=dev)),
         "lse_merge": (randn(3, 7, 2, 16), lses),
         "router_scores": (randn(5, 4, 16), randn(7, 2, 16)),
+        "paged_decode_attention": (randn(3, 8, 128), randn(30, 16, 2, 128),
+                                   randn(30, 16, 2, 128), table,
+                                   torch.tensor([1, 37, 100],
+                                                dtype=torch.int32,
+                                                device=dev)),
+        "shared_chunk_attention_q8": (randn(3, 37, 6, 32), kq, vq, ks, vs,
+                                      torch.rand((3, 37), generator=g,
+                                                 device=dev) < 0.7),
     }
+
+
+def slotted_view(q, k_pool, v_pool, table, lens):
+    """The slotted decode kernel's inputs holding the same logical cache as
+    the paged inputs: each slot's pages in order, zeros past its length."""
+    B, M = table.shape
+    _, bs, KH, D = k_pool.shape
+    live = (torch.arange(M * bs, device=q.device)[None, :, None, None]
+            < lens[:, None, None, None])
+    k, v = (torch.where(live, p[table.long()].view(B, M * bs, KH, D), 0)
+            for p in (k_pool, v_pool))
+    return q, k.contiguous(), v.contiguous(), lens
 
 
 # ---------------------------------------------------------------------------
@@ -159,15 +233,20 @@ def phase_build():
 def phase_check(cfg, dev):
     """max |kernel - plain| per kernel over the path's shapes in bf16 (the
     number the kernels' JSON line reports) and every check's pass/fail."""
-    from repro_torch.kernels import ops, ref
-    plain = {"shared_chunk_attention": ref.shared_chunk_attention_ref,
-             "decode_attention": ref.decode_attention_ref,
-             "lse_merge": ref.lse_merge_ref,
-             "router_scores": ref.router_scores_ref}
+    from repro_torch.kernels import ops
+    plain = plain_versions()
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
         for label, inputs in (("path", path_inputs(cfg, dtype, dev)),
                               ("ragged", ragged_inputs(dtype, dev))):
+            paged = inputs["paged_decode_attention"]
+            got = ops.paged_decode_attention(*paged)
+            want = ops.decode_attention(*slotted_view(*paged))
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            say(f"[check] paged == slotted decode kernel {label:6s} "
+                f"{str(dtype)[6:]:8s} bitwise={same}")
+            check(same, ("paged vs slotted decode kernel", label, dtype))
             for name, args in inputs.items():
                 got = getattr(ops, name)(*args)
                 torch.cuda.synchronize()
@@ -187,6 +266,19 @@ def phase_check(cfg, dev):
     return errs
 
 
+def expected_launches(L, steps, routed, unique,
+                      shared="shared_chunk_attention"):
+    """Launch counts a run must show: per layer, every call with a routed
+    shared partial (decode step, bucketed prefill, prefill chunk) launches
+    router_scores and the shared kernel once and lse_merge twice (K-chunk
+    merge, unique + shared merge); every decode step also launches the
+    unique decode kernel of its layout once."""
+    want = dict.fromkeys(SOURCES, 0)
+    want.update({"router_scores": L * routed, "lse_merge": 2 * L * routed,
+                 shared: L * routed, unique: L * steps})
+    return want
+
+
 def phase_serve(cfg, argv=SERVE_ARGV, requests=REQUESTS,
                 new_tokens=NEW_TOKENS):
     from repro_torch.kernels import ops
@@ -199,16 +291,15 @@ def phase_serve(cfg, argv=SERVE_ARGV, requests=REQUESTS,
     # per layer: a decode step launches each kernel once and lse_merge twice
     # (K-chunk merge, unique + shared merge); a routed prefill launches all
     # but decode_attention
-    want = {"shared_chunk_attention": L * (steps + prefills),
-            "decode_attention": L * steps,
-            "lse_merge": 2 * L * (steps + prefills),
-            "router_scores": L * (steps + prefills)}
+    want = expected_launches(L, steps, routed=steps + prefills,
+                             unique="decode_attention")
     say(f"[serve] launches {json.dumps(counts)}")
     say(f"[serve] expected {json.dumps(want)}")
     check(summary["finished"] == requests, ("finished", summary["finished"]))
     check(summary["tokens"] == requests * new_tokens,
           ("tokens", summary["tokens"]))
-    check(all(n > 0 for n in counts.values()), ("a kernel never ran", counts))
+    check(all(counts[k] > 0 for k, n in want.items() if n),
+          ("a kernel of the path never ran", counts))
     check(counts == want, ("launch counts", counts, want))
     say(f"[serve] finished={summary['finished']} tokens={summary['tokens']} "
         f"tokens_per_s={summary['tokens_per_s']:.1f} "
@@ -218,12 +309,189 @@ def phase_serve(cfg, argv=SERVE_ARGV, requests=REQUESTS,
     return counts
 
 
-def phase_agree(cfg, dev, corpus_len=32768):
-    """One decode step of 8 slots on the card and on the CPU, fp32. The
-    32,768-token corpus is 16 chunks, so top-8 routing still selects."""
-    from repro_torch.core.shared_kv import SharedKVStore, build_store
+def phase_paged(cfg, dev):
+    """Phase 3's model, weights (seed 0) and corpus, served with the paged
+    layout through ``ServingEngine``: 64 prompts of 250 tokens, the same 64
+    again (prefix hits, copy-on-write of the partial tail page), then 2
+    prompts of 1,000 tokens (chunked prefill). The first 128 are served
+    again on a slotted engine; their generations must be equal. Returns
+    (paged run's launch counts, params, the registered store)."""
+    from repro_torch import obs
     from repro_torch.data.pipeline import CorpusSpec, synthesize_corpus
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+
+    params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0),
+                                   dev)
+    corpus = synthesize_corpus(CorpusSpec("domain-0", CORPUS, cfg.vocab_size,
+                                          seed=0))
+    rng = np.random.default_rng(0)
+    half = [rng.integers(0, cfg.vocab_size, PAGED_PROMPT).tolist()
+            for _ in range(REQUESTS // 2)]
+    longs = [rng.integers(0, cfg.vocab_size, LONG_PROMPT).tolist()
+             for _ in range(2)]
+
+    def serve(layout, prompts):
+        reg = obs.MetricsRegistry()
+        prev = obs.set_registry(reg)
+        try:
+            eng = ServingEngine(cfg, params, EngineConfig(
+                max_slots=SLOTS, max_seq=512, cache_dtype=torch.bfloat16,
+                kv_layout=layout, block_size=BLOCK))
+            eng.register_corpus("domain-0", corpus)
+            for prompt in prompts:
+                eng.submit(prompt, NEW_TOKENS, corpus_id="domain-0")
+            ops.reset_launches()
+            done = eng.run()
+            counts = ops.launch_counts()
+        finally:
+            obs.set_registry(prev)
+        c = {name: int(reg.counter(name).value) for name in (
+            "engine/decode_steps", "engine/prefills", "engine/prefill_chunks",
+            "engine/chunked_prefills", "kvcache/prefix_hits",
+            "kvcache/cow_copies", "kvcache/blocks_appended",
+            "kvcache/pool_growths", "moska/dropped_queries")}
+        c["hbm_high_water_bytes"] = int(
+            reg.gauge("engine/hbm_high_water_bytes").value)
+        c["decode_step_p50_s"] = float(np.median(eng.metrics["decode_step_s"]))
+        c["tokens_per_s"] = reg.gauge("engine/last_run_tokens_per_s").value
+        say(f"[paged] {layout}: {json.dumps(c)}")
+        check(len(done) == len(prompts) and
+              all(len(r.generated) == NEW_TOKENS for r in done),
+              (layout, "unfinished requests"))
+        return eng, c, counts, {r.uid: r.generated for r in done}
+
+    eng, c, counts, gens = serve("paged", half + half + longs)
+    store = eng.stores["domain-0"]
+    del eng
+    L = cfg.num_layers
+    steps = c["engine/decode_steps"]
+    routed = (steps + c["engine/prefills"] - c["engine/chunked_prefills"]
+              + c["engine/prefill_chunks"])
+    want = expected_launches(L, steps, routed, unique="paged_decode_attention")
+    say(f"[paged] launches {json.dumps(counts)}")
+    say(f"[paged] expected {json.dumps(want)}")
+    check(c["kvcache/prefix_hits"] >= REQUESTS // 2 and
+          c["kvcache/cow_copies"] >= REQUESTS // 2, ("prefix sharing", c))
+    check(c["engine/chunked_prefills"] == 2, ("chunked prefills", c))
+    check(counts == want, ("paged launch counts", counts, want))
+    torch.cuda.empty_cache()
+
+    eng, c_s, _, gens_s = serve("slotted", half + half)
+    del eng
+    torch.cuda.empty_cache()
+    same = all(gens[u] == gens_s[u] for u in gens_s)
+    say(f"[paged] first {REQUESTS} generations equal the slotted engine's: "
+        f"{same} (dropped queries paged={c['moska/dropped_queries']} "
+        f"slotted={c_s['moska/dropped_queries']}); hbm_high_water_bytes "
+        f"paged={c['hbm_high_water_bytes']} "
+        f"slotted={c_s['hbm_high_water_bytes']}; decode_step_p50_s "
+        f"paged={c['decode_step_p50_s']:.4f} "
+        f"slotted={c_s['decode_step_p50_s']:.4f}")
+    check(same, "paged generations differ from slotted")
+    chunked_vs_single_shot(cfg, params, store, longs[0], dev)
+    return counts, params, store
+
+
+def chunked_vs_single_shot(cfg, params, store, prompt, dev):
+    """Last-token logits of a 1,000-token prompt prefilled in 128-token
+    chunks, against one bucket-padded prefill of the same tokens: within
+    2e-2 of the largest logit (other contraction shapes, bf16)."""
+    from repro_torch.kvcache.cache import init_kv_cache
+    from repro_torch.models import dense
+
+    n, C, V = len(prompt), 128, -(-len(prompt) // 128) * 128
+    start = store.total_tokens
+    toks = torch.zeros((1, V), dtype=torch.long, device=dev)
+    toks[0, :n] = torch.tensor(prompt, device=dev)
+
+    def cache():
+        return init_kv_cache(cfg.num_layers, 1, V, cfg.num_kv_heads,
+                             cfg.head_dim, torch.bfloat16, dev)
+
+    ctx = cache()
+    for s0 in range(0, n, C):
+        lc, ctx = dense.prefill_chunk(cfg, params, toks[:, s0:s0 + C], ctx,
+                                      store=store, start_pos=start,
+                                      chunk_len=min(C, n - s0))
+    ls, _ = dense.prefill(cfg, params, toks, cache(), store=store,
+                          start_pos=start, true_len=n)
+    err = float((lc - ls).abs().max())
+    scale = float(ls.abs().max())
+    say(f"[paged] chunked vs single-shot prefill of {n} tokens: last-token "
+        f"logits max_abs_err={err:.3e}, |logits| max={scale:.3f} "
+        f"(bound {2e-2 * scale:.3e}); greedy equal="
+        f"{bool((lc.argmax(-1) == ls.argmax(-1)).all())}")
+    check(err <= 2e-2 * scale, ("chunked vs single-shot prefill", err))
+
+
+def phase_q8(cfg, dev, params, store):
+    """The registered store's K/V quantized to int8 (per token and kv head):
+    one prefill of 64 prompts and 32 decode steps at full width, every
+    shared partial through ``shared_chunk_attention_q8``. Then the first
+    step again over the int8 and over the bf16 store, from the same cache:
+    with the served top-8 routing (reported: a small change in one layer's
+    output can flip a later layer's routing for a few rows) and with every
+    chunk routed, where the logits must agree within 0.1 (the bound of
+    ``tests/test_kernels.py``'s int8 end-to-end test). Returns the run's
+    launch counts."""
+    from repro_torch.core.shared_kv import build_store
+    from repro_torch.kernels import ops
     from repro_torch.kvcache.cache import KVCache, init_kv_cache
+    from repro_torch.models import dense
+
+    L, E, C, KH, D = store.k.shape
+    q8 = build_store(store.k.reshape(L, E * C, KH, D),
+                     store.v.reshape(L, E * C, KH, D), C, quantize=True)
+    batch = SLOTS
+    prompts = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (batch, PROMPT))).to(dev)
+    cache = init_kv_cache(L, batch, 512, KH, D, torch.bfloat16, dev)
+    ops.reset_launches()
+    logits, _ = dense.prefill(cfg, params, prompts, cache, store=q8,
+                              start_pos=q8.total_tokens)
+    tok0 = logits.argmax(-1)
+    before = KVCache(*(t.clone() for t in cache))
+    tok = tok0
+    for _ in range(NEW_TOKENS):
+        lg, _ = dense.decode_step(cfg, params, tok, cache, store=q8)
+        tok = lg.argmax(-1)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want = expected_launches(L, NEW_TOKENS, routed=NEW_TOKENS + 1,
+                             unique="decode_attention",
+                             shared="shared_chunk_attention_q8")
+    say(f"[q8] launches {json.dumps(counts)}")
+    say(f"[q8] expected {json.dumps(want)}")
+    check(counts == want, ("q8 launch counts", counts, want))
+    del cache
+
+    every = dataclasses.replace(cfg, moska=dataclasses.replace(
+        cfg.moska, top_k_chunks=E))
+    for label, c in (("top-8 routing", cfg), ("every chunk routed", every)):
+        lq, lf = (dense.decode_step(c, params, tok0, KVCache(
+            *(t.clone() for t in before)), store=st)[0] for st in (q8, store))
+        err = float((lq - lf).abs().max())
+        ok = torch.allclose(lq, lf, rtol=0.1, atol=0.1)
+        rows = int(torch.isclose(lq, lf, rtol=0.1, atol=0.1).all(-1).sum())
+        say(f"[q8] first step, {label}: int8 store ({q8.nbytes} B) vs bf16 "
+            f"store ({store.nbytes} B) logits max_abs_err={err:.3e}, "
+            f"|logits| max={float(lf.abs().max()):.3f}, rows within "
+            f"rtol=atol=0.1: {rows}/{batch}, greedy equal on "
+            f"{int((lq.argmax(-1) == lf.argmax(-1)).sum())}/{batch}")
+    check(ok, ("int8 vs bf16 store logits, every chunk routed", err))
+    return counts
+
+
+def phase_agree(cfg, dev, corpus_len=32768):
+    """One decode step of 8 slots on the card and on the CPU, fp32: over
+    the store, over the store quantized to int8, and as a paged step. The
+    32,768-token corpus is 16 chunks, so top-8 routing still selects."""
+    from repro_torch.core.shared_kv import build_store
+    from repro_torch.data.pipeline import CorpusSpec, synthesize_corpus
+    from repro_torch.kvcache.cache import init_kv_cache
+    from repro_torch.kvcache.paged import PagedKVCache
     from repro_torch.models import dense
 
     cfg = dataclasses.replace(cfg, dtype="float32")
@@ -249,19 +517,47 @@ def phase_agree(cfg, dev, corpus_len=32768):
 
     cpu = torch.device("cpu")
     params_cpu = copy.deepcopy(params).to(cpu)
-    store_cpu = SharedKVStore(*[t.to(cpu) if t is not None else None
-                                for t in store])
-    uc_cpu = KVCache(*[t.to(cpu, copy=True) for t in uc])
-    lg_card, _ = dense.decode_step(cfg, params, tokens, uc, store=store)
-    lg_card = lg_card.cpu()
-    lg_cpu, _ = dense.decode_step(cfg, params_cpu, tokens.cpu(), uc_cpu,
-                                  store=store_cpu)
-    err = float((lg_card - lg_cpu).abs().max())
-    same = bool((lg_card.argmax(-1) == lg_cpu.argmax(-1)).all())
-    say(f"[agree] 8-slot fp32 decode step, card vs cpu: logits max_abs_err="
-        f"{err:.3e} (tol {E2E_TOL:g}), |logits| max={float(lg_cpu.abs().max()):.3f}, "
-        f"greedy tokens equal={same}")
-    check(err <= E2E_TOL and same, ("card vs cpu decode step", err, same))
+
+    def on(device, tensors):
+        return type(tensors)(*[t.to(device, copy=True) if t is not None
+                               else None for t in tensors])
+
+    def agree(label, step):
+        """step(params, tokens, cache, store, device) -> logits; each side
+        gets its own copy of the prefilled cache."""
+        lg_card = step(params, tokens, on(dev, uc), dev).cpu()
+        lg_cpu = step(params_cpu, tokens.cpu(), on(cpu, uc), cpu)
+        err = float((lg_card - lg_cpu).abs().max())
+        same = bool((lg_card.argmax(-1) == lg_cpu.argmax(-1)).all())
+        say(f"[agree] 8-slot fp32 {label}, card vs cpu: logits max_abs_err="
+            f"{err:.3e} (tol {E2E_TOL:g}), |logits| max="
+            f"{float(lg_cpu.abs().max()):.3f}, greedy tokens equal={same}")
+        check(err <= E2E_TOL and same, (f"card vs cpu {label}", err, same))
+
+    q8 = build_store(cc.k[:, 0], cc.v[:, 0], cfg.moska.chunk_size,
+                     quantize=True)
+    stores = {dev: (store, q8), cpu: (on(cpu, store), on(cpu, q8))}
+    agree("decode step", lambda p, t, c, d: dense.decode_step(
+        cfg, p, t, c, store=stores[d][0])[0])
+    agree("decode step over an int8 store", lambda p, t, c, d:
+          dense.decode_step(cfg, p, t, c, store=stores[d][1])[0])
+
+    # the same cache in scrambled pages of 16 tokens
+    M = M_PAGES
+    table = (torch.from_numpy(np.random.default_rng(1).permutation(B * M))
+             .view(B, M).to(torch.int32) + 1)
+
+    def paged_step(p, t, c, d):
+        L, _, _, KH, D = c.k.shape
+        pool = PagedKVCache(*(torch.zeros((L, B * M + 1, BLOCK, KH, D),
+                                          device=d) for _ in range(2)))
+        tbl = table.to(d)
+        pool.k[:, tbl.long()] = c.k.view(L, B, M, BLOCK, KH, D)
+        pool.v[:, tbl.long()] = c.v.view(L, B, M, BLOCK, KH, D)
+        return dense.decode_step_paged(cfg, p, t, pool, tbl, c.length,
+                                       c.offset, store=stores[d][0])[0]
+
+    agree("paged decode step", paged_step)
 
 
 def _time_ms(fn, n=30):
@@ -295,23 +591,26 @@ def _bound(name, args):
     def nb(t):
         return t.numel() * t.element_size()
 
-    if name == "shared_chunk_attention":
-        qd, k, v, qmask = args
+    if name in ("shared_chunk_attention", "shared_chunk_attention_q8"):
+        qd, k, v, qmask = args[:3] + args[-1:]
         E, cap, H, D = qd.shape
         C, KH = k.shape[1], k.shape[2]
         valid = int(qmask.sum())
         active = int(qmask.any(dim=1).sum())       # chunks with a query
-        byts = (valid * H * D * qd.element_size()
-                + 2 * active * C * KH * D * k.element_size()
+        # K/V (and the int8 store's f32 scales) of the chunks with a query
+        per_token = 2 * KH * (D * k.element_size() + 4 * (len(args) == 6))
+        byts = (valid * H * D * qd.element_size() + active * C * per_token
                 + nb(qmask) + nb(qd) + E * cap * H * 4)
         ops_ = 4 * valid * H * C * D
-    elif name == "decode_attention":
-        q, k, v, lens = args
+    elif name in ("decode_attention", "paged_decode_attention"):
+        q, k, lens = args[0], args[1], args[-1]
         B, H, D = q.shape
-        KH = k.shape[2]
-        tokens = int(lens.clamp(max=k.shape[1]).sum())
+        KH = k.shape[-2]
+        paged = name == "paged_decode_attention"
+        cap = args[3].shape[1] * k.shape[1] if paged else k.shape[1]
+        tokens = int(lens.clamp(max=cap).sum())
         byts = (2 * nb(q) + 2 * tokens * KH * D * k.element_size()
-                + nb(lens) + B * H * 4)
+                + nb(lens) + B * H * 4 + (nb(args[3]) if paged else 0))
         ops_ = 4 * tokens * H * D
     elif name == "lse_merge":
         outs, lses = args
@@ -354,12 +653,41 @@ def _library_call(name, args):
     return None
 
 
+def _two_calls(name, args):
+    """No one PyTorch call computes the paged or the int8 kernel's function:
+    each needs a gather or a dequantization first. These are the two-call
+    comparisons (gather + SDPA, dequantize + SDPA), timed as one; None for
+    the other kernels."""
+    if name == "paged_decode_attention":
+        q, k_pool, v_pool, table, lens = args
+        B, M = table.shape
+        _, bs, KH, D = k_pool.shape
+        mask = (torch.arange(M * bs, device=q.device)[None]
+                < lens[:, None])[:, None, None]
+
+        def gather_sdpa():
+            k, v = (p[table.long()].view(B, M * bs, KH, D).transpose(1, 2)
+                    for p in (k_pool, v_pool))
+            return F.scaled_dot_product_attention(
+                q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)
+        return gather_sdpa
+    if name == "shared_chunk_attention_q8":
+        qd, k, v, ks, vs, _ = args
+        q4 = qd.transpose(1, 2).contiguous()
+
+        def dequant_sdpa():
+            k4, v4 = ((x.to(qd.dtype) * s[..., None].to(qd.dtype))
+                      .transpose(1, 2) for x, s in ((k, ks), (v, vs)))
+            return F.scaled_dot_product_attention(q4, k4, v4,
+                                                  enable_gqa=True)
+        return dequant_sdpa
+    return None
+
+
 def phase_time(cfg, dev, counts, errs):
-    from repro_torch.kernels import ops, ref
-    plain = {"shared_chunk_attention": ref.shared_chunk_attention_ref,
-             "decode_attention": ref.decode_attention_ref,
-             "lse_merge": ref.lse_merge_ref,
-             "router_scores": ref.router_scores_ref}
+    """``counts``: each kernel's launches in the run of its path."""
+    from repro_torch.kernels import ops
+    plain = plain_versions()
     rows = []
     for name, args in path_inputs(cfg, torch.bfloat16, dev, seed=2).items():
         kern = getattr(ops, name)
@@ -378,6 +706,12 @@ def phase_time(cfg, dev, counts, errs):
             f"library_ms={lib_ms if lib_ms is None else round(lib_ms, 4)} "
             f"bound_ms={bound_ms:.4f} ({bound_by}) "
             f"shapes={[tuple(a.shape) for a in args]}")
+        two = _two_calls(name, args)
+        if two is not None:
+            label = ("gather + SDPA" if name == "paged_decode_attention"
+                     else "dequantize + SDPA")
+            say(f"[time] {name:24s} two-call comparison ({label}, not one "
+                f"library call) ms={_time_ms(two):.4f}")
     return rows
 
 
@@ -385,10 +719,12 @@ def phase_profile(cfg, dev):
     """Device time of one decode step at the served shapes, by kernel, from
     torch.profiler: 64 slots holding 256..287 tokens, a 32-chunk store of
     random K/V (values change routing, not the work), bf16. Also the step's
-    wall time unprofiled, and the device's idle share of the profiled step."""
-    from torch.profiler import ProfilerActivity, profile
+    wall time unprofiled, and the device's idle share of the profiled step.
+    The same for one paged decode step over the same cache in pages; the
+    two steps' unprofiled walls are taken in turns."""
     from repro_torch.core.shared_kv import build_store
     from repro_torch.kvcache.cache import init_kv_cache
+    from repro_torch.kvcache.paged import PagedKVCache
     from repro_torch.models import dense
 
     g = torch.Generator(device=dev).manual_seed(3)
@@ -398,14 +734,14 @@ def phase_profile(cfg, dev):
     def randn(*shape):
         return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
 
-    store = build_store(randn(L, 65536, KH, D), randn(L, 65536, KH, D),
+    store = build_store(randn(L, CORPUS, KH, D), randn(L, CORPUS, KH, D),
                         cfg.moska.chunk_size)
     cache = init_kv_cache(L, SLOTS, 512, KH, D, torch.bfloat16, dev)
     cache.k.copy_(randn(*cache.k.shape))
     cache.v.copy_(randn(*cache.v.shape))
     cache.length.copy_(torch.randint(PROMPT, PROMPT + 32, (SLOTS,),
                                      generator=g, device=dev))
-    cache.offset.fill_(65536)
+    cache.offset.fill_(CORPUS)
     tokens = torch.randint(0, cfg.vocab_size, (SLOTS,), generator=g,
                            device=dev)
 
@@ -413,15 +749,54 @@ def phase_profile(cfg, dev):
         cache.length.clamp_(max=PROMPT + 32)      # stay inside the slab
         dense.decode_step(cfg, params, tokens, cache, store=store)
 
-    for _ in range(3):
-        step()
+    # the same cache in scrambled pages, for one paged decode step
+    M = M_PAGES
+    table = (torch.randperm(SLOTS * M, generator=g, device=dev) + 1
+             ).view(SLOTS, M).to(torch.int32)
+    pool = PagedKVCache(*(torch.zeros((L, SLOTS * M + 1, BLOCK, KH, D),
+                                      dtype=torch.bfloat16, device=dev)
+                          for _ in range(2)))
+    pool.k[:, table.long()] = cache.k.view(L, SLOTS, M, BLOCK, KH, D)
+    pool.v[:, table.long()] = cache.v.view(L, SLOTS, M, BLOCK, KH, D)
+    lens = cache.length.clone()
+    offs = cache.offset.clone()
+    steps = {"decode step": step,
+             "paged decode step": lambda: dense.decode_step_paged(
+                 cfg, params, tokens, pool, table, lens, offs, store=store)}
+
+    # unprofiled walls in turns (A B, B A, ...): the host is shared, and
+    # its speed drifts more than the two steps differ
+    for fn in list(steps.values()) * 3:
+        fn()
     torch.cuda.synchronize()
-    walls = []
-    for _ in range(5):
-        t0 = time.perf_counter()
+    walls = {label: [] for label in steps}
+    for r in range(8):
+        for label in (list(steps) if r % 2 == 0 else list(steps)[::-1]):
+            t0 = time.perf_counter()
+            steps[label]()
+            torch.cuda.synchronize()
+            walls[label].append(time.perf_counter() - t0)
+    for label, fn in steps.items():
+        _profile_step(label, fn, float(np.median(walls[label])))
+
+
+def _profile_step(label, step, wall):
+    """One profiled run of ``step`` (its unprofiled median ``wall`` given):
+    device time by kernel, the device's idle share, the host operations
+    that took the most host time, and every call in the step that made the
+    host wait for the card (``torch.cuda.set_sync_debug_mode``)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
         step()
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    syncs = collections.Counter(
+        f"{Path(w.filename).name}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+    say(f"[profile] {label}: {sum(syncs.values())} synchronizing calls "
+        f"{json.dumps(dict(syncs))}")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -431,14 +806,19 @@ def phase_profile(cfg, dev):
     kernels = [e for e in prof.key_averages()
                if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in kernels)
-    say(f"[profile] decode step, 64 slots, unprofiled wall "
-        f"median={sorted(walls)[2] * 1e3:.2f} ms; profiled wall="
+    say(f"[profile] {label}, 64 slots, unprofiled wall (8 runs in turns) "
+        f"median={wall * 1e3:.2f} ms; profiled wall="
         f"{prof_wall * 1e3:.2f} ms, device busy={busy_us / 1e3:.2f} ms, "
-        f"idle share={1 - busy_us / 1e6 / prof_wall:.3f}, "
+        f"idle share={1 - busy_us / 1e6 / prof_wall:.3f} "
+        f"(of the unprofiled wall {1 - busy_us / 1e6 / wall:.3f}), "
         f"{sum(e.count for e in kernels)} kernel launches")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         say(f"[profile] {e.self_device_time_total / 1e3:9.3f} ms "
             f"{e.count:5d}x  {e.key[:90]}")
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    for e in host[:8]:
+        say(f"[profile] host {e.self_cpu_time_total / 1e3:9.3f} ms "
+            f"{e.count:5d}x  {e.key[:80]}")
 
 
 def main() -> int:
@@ -456,6 +836,13 @@ def main() -> int:
     phase_build()
     errs = phase_check(cfg, dev)
     counts = phase_serve(cfg)
+    torch.cuda.empty_cache()
+    paged_counts, params, store = phase_paged(cfg, dev)
+    counts["paged_decode_attention"] = paged_counts["paged_decode_attention"]
+    q8_counts = phase_q8(cfg, dev, params, store)
+    counts["shared_chunk_attention_q8"] = \
+        q8_counts["shared_chunk_attention_q8"]
+    del params, store
     torch.cuda.empty_cache()
     phase_agree(cfg, dev)
     torch.cuda.empty_cache()

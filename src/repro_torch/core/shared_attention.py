@@ -12,7 +12,10 @@ matrix and attended against the chunk's KV in one GEMM:
 On a CUDA tensor both steps launch the hand-written kernels; on the CPU
 the same wrappers take their plain versions. The kernel keeps the softmax
 probabilities in fp32 through PV, as the TPU kernel does (the reference's
-jnp path casts them to v.dtype first).
+jnp path casts them to v.dtype first). An int8 store (``k_scale`` and
+``v_scale`` given) goes to the ``shared_chunk_attention_q8`` kernel, which
+dequantizes the int8 K/V in its loads: no dequantized copy of the store
+is made.
 
 ``shared_attention_gather_ref`` is the per-request gather oracle (what a
 non-batched system does), plain PyTorch.
@@ -64,9 +67,12 @@ def shared_attention_batched(
     capacity: Optional[int] = None,
     capacity_factor: float = 2.0,
     layer_idx: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,   # (E, C, KH) f32: int8 store
+    v_scale: Optional[torch.Tensor] = None,
     rec: Optional[obs.DeviceRecorder] = None,
 ) -> SharedPartial:
-    """Batched Shared KV Attention over routed chunks."""
+    """Batched Shared KV Attention over routed chunks. With ``k_scale``
+    and ``v_scale`` the store is int8 and the output is in q's dtype."""
     G, Q, H, D = q.shape
     E = layer_store_k.shape[0]
     K = routing.chunk_ids.shape[1]
@@ -91,10 +97,14 @@ def shared_attention_batched(
     _record_dispatch(rec, qmask, keep, layer_idx)
 
     # the kernel takes (E, cap, H, D): fold the per-group query dim into cap
-    od, lsed = ops.shared_chunk_attention(
-        qd[:trash].view(E, capacity * Q, H, D),
-        layer_store_k.contiguous(), layer_store_v.contiguous(),
-        qmask.repeat_interleave(Q, dim=1).contiguous())
+    qd = qd[:trash].view(E, capacity * Q, H, D)
+    kv = (layer_store_k.contiguous(), layer_store_v.contiguous())
+    qmask_d = qmask.repeat_interleave(Q, dim=1).contiguous()
+    if k_scale is None:
+        od, lsed = ops.shared_chunk_attention(qd, *kv, qmask_d)
+    else:
+        od, lsed = ops.shared_chunk_attention_q8(
+            qd, *kv, k_scale.contiguous(), v_scale.contiguous(), qmask_d)
 
     # gather partials back per (group, k); dropped routes read row 0 and
     # are then masked (the reference's gather mode="fill")

@@ -31,8 +31,12 @@ _i = ctypes.c_int
 SIGNATURES = {
     "moska_shared_chunk_attn": [_p, _p, _p, _p, _p, _p,
                                 _i, _i, _i, _i, _i, _i, _i, _p],
+    "moska_shared_chunk_attn_q8": [_p, _p, _p, _p, _p, _p, _p, _p,
+                                   _i, _i, _i, _i, _i, _i, _i, _p],
     "moska_decode_attn": [_p, _p, _p, _p, _p, _p,
                           _i, _i, _i, _i, _i, _i, _p],
+    "moska_paged_decode_attn": [_p, _p, _p, _p, _p, _p, _p,
+                                _i, _i, _i, _i, _i, _i, _i, _p],
     "moska_lse_merge": [_p, _p, _p, _p, _i, ctypes.c_long, _i, _i, _p],
     "moska_router_scores": [_p, _p, _p, _i, _i, _i, _i, _i, _i, _p],
 }

@@ -1,8 +1,14 @@
 // Online-softmax attention of a tile of query rows against one
 // (sequence, kv head) of K/V, staged through shared memory in key tiles.
 // Used by shared_chunk_attn.cu (rows = dispatched queries x group heads,
-// keys = one shared chunk) and decode_attn.cu (rows = the group heads of
-// one request, keys = its unique cache up to kv_len).
+// keys = one shared chunk, bf16/fp32 or int8 with scales), decode_attn.cu
+// (rows = the group heads of one request, keys = its unique cache up to
+// kv_len) and paged_decode_attn.cu (the same keys, read from pool pages
+// through a block table).
+//
+// Where a K/V element comes from is a loader policy (StridedKV, PagedKV,
+// Q8KV below): load(pos, d, k, v) returns key and value element (pos, d)
+// as fp32. The loader is the only thing that differs between the kernels.
 //
 // All arithmetic is fp32: Q, K and V are widened on their way into shared
 // memory, scores and probabilities stay fp32 through the PV product (the
@@ -55,16 +61,65 @@ __device__ __forceinline__ TileSmem carve_smem(float* base) {
   return t;
 }
 
+// K/V of one sequence whose position p, dim d element sits at
+// k[p * stride + d] (a slotted cache row or a shared chunk, kv head
+// applied to the base pointers).
+template <typename T>
+struct StridedKV {
+  const T* __restrict__ k;
+  const T* __restrict__ v;
+  long stride;
+  __device__ __forceinline__ void load(int pos, int d, float& kx,
+                                       float& vx) const {
+    kx = to_f(k[pos * stride + d]);
+    vx = to_f(v[pos * stride + d]);
+  }
+};
+
+// K/V of one request in a page pool (N, bs, KH, D): position p lives in
+// page table[p / bs] at row p % bs (kv head applied to the base pointers).
+template <typename T>
+struct PagedKV {
+  const T* __restrict__ k;
+  const T* __restrict__ v;
+  const int32_t* __restrict__ table;  // this request's row of the table
+  int bs;
+  long page_stride;                   // bs * KH * D
+  long row_stride;                    // KH * D
+  __device__ __forceinline__ void load(int pos, int d, float& kx,
+                                       float& vx) const {
+    const long o = (long)table[pos / bs] * page_stride +
+                   (long)(pos % bs) * row_stride + d;
+    kx = to_f(k[o]);
+    vx = to_f(v[o]);
+  }
+};
+
+// int8 K/V of one sequence with one f32 scale per (position, kv head):
+// element (p, d) is k[p * stride + d] * k_scale[p * scale_stride],
+// dequantized in fp32 on its way into shared memory.
+struct Q8KV {
+  const int8_t* __restrict__ k;
+  const int8_t* __restrict__ v;
+  const float* __restrict__ k_scale;
+  const float* __restrict__ v_scale;
+  long stride;                        // KH * D
+  long scale_stride;                  // KH
+  __device__ __forceinline__ void load(int pos, int d, float& kx,
+                                       float& vx) const {
+    kx = (float)k[pos * stride + d] * k_scale[pos * scale_stride];
+    vx = (float)v[pos * stride + d] * v_scale[pos * scale_stride];
+  }
+};
+
 // Attend `rows` query rows (already in sm.q, fp32, unscaled) to keys
-// [0, n) of a K/V sequence whose position p, dim d element sits at
-// base[p * stride + d]. Positions past n in the last tile get score
-// kNegInf and a zero V row, so they carry exactly zero weight. On return
-// acc holds the unnormalised output and sm.m / sm.l the row max and
-// denominator. Every thread of the block must call it.
-template <typename T, int D>
+// [0, n) of the K/V sequence `kv` reads. Positions past n in the last
+// tile get score kNegInf and a zero V row, so they carry exactly zero
+// weight. On return acc holds the unnormalised output and sm.m / sm.l the
+// row max and denominator. Every thread of the block must call it.
+template <int D, typename KV>
 __device__ __forceinline__ void attend_rows(
-    const TileSmem& sm, int rows, const T* __restrict__ kbase,
-    const T* __restrict__ vbase, long stride, int n, float scale,
+    const TileSmem& sm, int rows, const KV& kv, int n, float scale,
     float (&acc)[acc_per_thread<D>()]) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -85,10 +140,7 @@ __device__ __forceinline__ void attend_rows(
       const int j = i / D, d = i % D;
       const int pos = t0 + j;
       float kx = 0.f, vx = 0.f;
-      if (pos < n) {
-        kx = to_f(kbase[pos * stride + d]);
-        vx = to_f(vbase[pos * stride + d]);
-      }
+      if (pos < n) kv.load(pos, d, kx, vx);
       sm.k[j * (D + 1) + d] = kx;
       sm.v[j * D + d] = vx;
     }
@@ -140,6 +192,23 @@ __device__ __forceinline__ void attend_rows(
     }
     __syncthreads();
   }
+}
+
+// Decode epilogue: the rows are the G contiguous heads of one (request,
+// kv head); normalise and write out[r * D + d] and lse[r].
+template <typename T, int D>
+__device__ __forceinline__ void store_group_rows(
+    const TileSmem& sm, int rows, const float (&acc)[acc_per_thread<D>()],
+    T* __restrict__ out, float* __restrict__ lse) {
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int a = 0; a < acc_per_thread<D>(); ++a) {
+    const int i = tid + a * kThreads;
+    if (i < rows * D)
+      out[i] = from_f<T>(acc[a] / fmaxf(sm.l[i / D], 1e-37f));
+  }
+  for (int r = tid; r < rows; r += kThreads)
+    lse[r] = sm.m[r] + logf(fmaxf(sm.l[r], 1e-37f));
 }
 
 }  // namespace moska

@@ -38,16 +38,9 @@ __global__ void __launch_bounds__(kThreads)
   // attend_rows synchronises before it reads sm.q
   float acc[acc_per_thread<D>()];
   const long kv0 = (long)b * S * KH * D + (long)kh * D;
-  attend_rows<T, D>(sm, G, k + kv0, v + kv0, (long)KH * D, n, scale, acc);
-
-#pragma unroll
-  for (int a = 0; a < acc_per_thread<D>(); ++a) {
-    const int i = tid + a * kThreads;
-    if (i < G * D)
-      out[q0 + i] = from_f<T>(acc[a] / fmaxf(sm.l[i / D], 1e-37f));
-  }
-  for (int r = tid; r < G; r += kThreads)
-    lse[(long)b * H + kh * G + r] = sm.m[r] + logf(fmaxf(sm.l[r], 1e-37f));
+  const StridedKV<T> kv{k + kv0, v + kv0, (long)KH * D};
+  attend_rows<D>(sm, G, kv, n, scale, acc);
+  store_group_rows<T, D>(sm, G, acc, out + q0, lse + (long)b * H + kh * G);
 }
 
 template <typename T, int D>

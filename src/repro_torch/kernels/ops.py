@@ -97,6 +97,46 @@ def shared_chunk_attention(qd: torch.Tensor, k: torch.Tensor,
     return out, lse
 
 
+def shared_chunk_attention_q8(qd: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, k_scale: torch.Tensor,
+                              v_scale: torch.Tensor, qmask: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``shared_chunk_attention`` over an int8 store, dequantized in the
+    kernel. qd: (E, cap, H, D) fp32 or bf16; k/v: (E, C, KH, D) int8;
+    k_scale/v_scale: (E, C, KH) fp32; qmask: (E, cap) bool. Returns (out
+    (E, cap, H, D) in qd.dtype, lse (E, cap, H) fp32)."""
+    if _on_cpu(qd):
+        return ref.shared_chunk_attention_q8_ref(qd, k, v, k_scale, v_scale,
+                                                 qmask)
+    name = "shared_chunk_attention_q8"
+    E, cap, H, D = qd.shape
+    _, C, KH, _ = k.shape
+    if k.shape != (E, C, KH, D) or v.shape != k.shape or H % KH:
+        raise ValueError(f"{name}: shapes qd {tuple(qd.shape)} "
+                         f"k {tuple(k.shape)} v {tuple(v.shape)}")
+    if k_scale.shape != (E, C, KH) or v_scale.shape != k_scale.shape:
+        raise ValueError(f"{name}: scales {tuple(k_scale.shape)} "
+                         f"{tuple(v_scale.shape)} != {(E, C, KH)}")
+    if qmask.shape != (E, cap):
+        raise ValueError(f"{name}: qmask {tuple(qmask.shape)} != {(E, cap)}")
+    _head_dim(name, D)
+    code = _code(name, qd)
+    _check(name, qd.dtype, qd.device, qd=qd)
+    _check(name, torch.int8, qd.device, k=k, v=v)
+    _check(name, torch.float32, qd.device, k_scale=k_scale, v_scale=v_scale)
+    _check(name, torch.bool, qd.device, qmask=qmask)
+    out = torch.empty_like(qd)
+    lse = torch.empty((E, cap, H), dtype=torch.float32, device=qd.device)
+    if out.numel() == 0 or C == 0:
+        raise ValueError(f"{name}: empty input")
+    _raise_on(name, library().moska_shared_chunk_attn_q8(
+        _ptr(qd), _ptr(k), _ptr(v), _ptr(k_scale), _ptr(v_scale),
+        _ptr(qmask), _ptr(out), _ptr(lse), E, cap, H, KH, D, C, code,
+        _stream()))
+    shared_chunk_attention_q8.launches += 1
+    return out, lse
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_len: torch.Tensor, window: int = 0
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -131,6 +171,53 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _ptr(q), _ptr(k), _ptr(v), _ptr(kv_len), _ptr(out), _ptr(lse),
         B, H, KH, D, S, code, _stream()))
     decode_attention.launches += 1
+    return out, lse
+
+
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, table: torch.Tensor,
+                           kv_len: torch.Tensor, window: int = 0
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``decode_attention`` with the K/V in a page pool. q: (B, H, D);
+    k_pool/v_pool: (N, bs, KH, D); table: (B, M) int32 page ids in
+    [0, N); kv_len: (B,) int32. Returns (out (B, H, D) in q.dtype,
+    lse (B, H) fp32). The kernel has no sliding window: ``window > 0`` on
+    a CUDA tensor raises."""
+    if _on_cpu(q):
+        return ref.paged_decode_attention_ref(q, k_pool, v_pool, table,
+                                              kv_len, window=window)
+    name = "paged_decode_attention"
+    if window:
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel has no sliding window (window={window})")
+    B, H, D = q.shape
+    N, bs, KH, _ = k_pool.shape
+    if k_pool.shape != (N, bs, KH, D) or v_pool.shape != k_pool.shape \
+            or H % KH:
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)} "
+                         f"k_pool {tuple(k_pool.shape)} "
+                         f"v_pool {tuple(v_pool.shape)}")
+    if H // KH > _MAX_GROUP:
+        raise ValueError(f"{name}: {H // KH} query heads per kv head > "
+                         f"{_MAX_GROUP}")
+    if table.dim() != 2 or table.shape[0] != B or table.shape[1] < 1:
+        raise ValueError(f"{name}: table {tuple(table.shape)} is not "
+                         f"({B}, M >= 1)")
+    if kv_len.shape != (B,):
+        raise ValueError(f"{name}: kv_len {tuple(kv_len.shape)} != {(B,)}")
+    _head_dim(name, D)
+    code = _code(name, q)
+    _check(name, q.dtype, q.device, q=q, k_pool=k_pool, v_pool=v_pool)
+    _check(name, torch.int32, q.device, table=table, kv_len=kv_len)
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        raise ValueError(f"{name}: empty input")
+    _raise_on(name, library().moska_paged_decode_attn(
+        _ptr(q), _ptr(k_pool), _ptr(v_pool), _ptr(table), _ptr(kv_len),
+        _ptr(out), _ptr(lse), B, H, KH, D, bs, table.shape[1], code,
+        _stream()))
+    paged_decode_attention.launches += 1
     return out, lse
 
 
@@ -180,7 +267,7 @@ def router_scores(q: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
 
 
 KERNELS = (shared_chunk_attention, decode_attention, lse_merge,
-           router_scores)
+           router_scores, paged_decode_attention, shared_chunk_attention_q8)
 for _fn in KERNELS:
     _fn.launches = 0
 

@@ -12,6 +12,8 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kvcache.paged import gather_layer
+
 NEG_INF = -1e30
 
 
@@ -70,6 +72,31 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = o / l.clamp_min(1e-37)[..., None]
     lse = m + torch.log(l.clamp_min(1e-37))
     return o.reshape(B, H, D).to(q.dtype), lse.reshape(B, H)
+
+
+def shared_chunk_attention_q8_ref(qd: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, k_scale: torch.Tensor,
+                                  v_scale: torch.Tensor, qmask: torch.Tensor
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``shared_chunk_attention_ref`` over an int8 store: k/v (E, C, KH, D)
+    int8 are dequantized in fp32 with their (E, C, KH) f32 scales first.
+    Returns (out in qd.dtype, lse fp32)."""
+    kd = k.float() * k_scale.float()[..., None]
+    vd = v.float() * v_scale.float()[..., None]
+    return shared_chunk_attention_ref(qd, kd, vd, qmask)
+
+
+def paged_decode_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                               v_pool: torch.Tensor, table: torch.Tensor,
+                               kv_len: torch.Tensor, window: int = 0
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Paged unique-KV decode: gather the pages ``table`` (B, M) names out
+    of the pools (N, bs, KH, D) into a contiguous (B, M * bs, KH, D) view,
+    then ``decode_attention_ref``. Returns (out (B, H, D) in q.dtype,
+    lse (B, H) fp32)."""
+    k = gather_layer(k_pool, table)
+    v = gather_layer(v_pool, table)
+    return decode_attention_ref(q, k, v, kv_len, window=window)
 
 
 def lse_merge_ref(outs: torch.Tensor, lses: torch.Tensor

@@ -1,6 +1,8 @@
 """Serving launcher: the MoSKA engine over a shared corpus, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --kv-layout paged --block-size 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         --full --corpus-tokens 65536 --requests 128 --slots 64 \\
         --max-seq 512 --prompt-len 256 --new-tokens 32
@@ -47,6 +49,17 @@ def main(argv=None) -> dict:
     ap.add_argument("--prefill-buckets", default="auto", metavar="SPEC",
                     help="'auto' (default), 'none' (exact lengths), or a "
                          "comma-separated bucket list, e.g. '16,32,64'")
+    ap.add_argument("--kv-layout", default="slotted",
+                    choices=["slotted", "paged"],
+                    help="unique-KV layout: 'slotted' (per-slot max_seq "
+                         "slab) or 'paged' (block pool + block tables; "
+                         "bit-identical generations, less HBM)")
+    ap.add_argument("--block-size", type=int, default=16,
+                    help="tokens per KV page (paged layout; must divide "
+                         "max-seq)")
+    ap.add_argument("--num-blocks", type=int, default=None,
+                    help="fixed page-pool size (paged layout; default: "
+                         "grow on demand)")
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="dump the metrics registry (JSON; .lp/.txt for "
                          "line protocol) at exit")
@@ -85,7 +98,9 @@ def main(argv=None) -> dict:
         params = build_model(cfg).init(gen, device)
         eng = ServingEngine(cfg, params, EngineConfig(
             max_slots=args.slots, max_seq=args.max_seq,
-            prefill_buckets=buckets, cache_dtype=torch_dtype(cfg.dtype)))
+            prefill_buckets=buckets, cache_dtype=torch_dtype(cfg.dtype),
+            kv_layout=args.kv_layout, block_size=args.block_size,
+            num_blocks=args.num_blocks))
 
     exporter = None
     if args.metrics_flush_every:
@@ -126,7 +141,7 @@ def main(argv=None) -> dict:
         "prefill_buckets": list(eng.prefill_buckets or ()),
         "decode_cache_bytes_copied":
             reg.gauge("engine/decode_cache_bytes_copied").value,
-        "kv_layout": "slotted",
+        "kv_layout": args.kv_layout,
         "hbm_high_water_bytes":
             reg.gauge("engine/hbm_high_water_bytes").value,
         "peak_device_memory_bytes": (torch.cuda.max_memory_allocated(device)
@@ -134,6 +149,13 @@ def main(argv=None) -> dict:
         "kernel_launches": ops.launch_counts(),
         "wave": wave_stats(done),
     }
+    if args.kv_layout == "paged":
+        for name in ("kvcache/prefix_hits", "kvcache/cow_copies",
+                     "kvcache/blocks_appended", "kvcache/pool_growths",
+                     "engine/chunked_prefills"):
+            summary[name.split("/")[1]] = int(reg.counter(name).value)
+        summary["block_capacity"] = int(
+            reg.gauge("kvcache/block_capacity").value)
     if exporter is not None:
         summary["metrics_flushes"] = exporter.flushes
     print(json.dumps(summary, indent=1))

@@ -5,15 +5,21 @@ transformer with RoPE, GQA attention and a SwiGLU FFN. Parameters live in
 a :class:`DenseLM` module (an ``nn.ModuleList`` of layers); the layers run
 as a Python loop. When a ``SharedKVStore`` is attached, each layer routes
 its queries over that layer's shared chunks and merges the batched shared
-partial with the unique partial (``core/moska_attention.py``).
+partial with the unique partial (``core/moska_attention.py``). An int8
+store reaches the shared attention as int8 plus its scales (the
+``shared_chunk_attention_q8`` kernel dequantizes in its loads).
 
-Caches are written in place: ``prefill`` and ``decode_step`` return the
-cache they were given, updated.
+Two unique-KV layouts: the slotted slab (``prefill``, ``decode_step``)
+and the paged pool (``decode_step_paged``, whose unique partial is the
+``paged_decode_attention`` kernel reading pages through the block table;
+``prefill_chunk`` prefills prompts past ``max_seq`` in pieces against a
+growing scratch context). Caches and pools are written in place: every
+entry point returns the cache it was given, updated.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -22,8 +28,11 @@ from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import moska_attention as MA
 from repro_torch.core import router as router_lib
+from repro_torch.core import shared_attention as sa
 from repro_torch.core.shared_kv import SharedKVStore
+from repro_torch.kernels import ops
 from repro_torch.kvcache.cache import KVCache, append_token, write_prefix
+from repro_torch.kvcache.paged import PagedKVCache, append_layer
 from repro_torch.models import layers as L
 
 
@@ -118,25 +127,75 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 # layer bodies
 # ---------------------------------------------------------------------------
 
-def _attn_out_proj(o: torch.Tensor, lp: DenseLayer) -> torch.Tensor:
-    """o: (B, S, H, D) or (B, H, D) -> project back to d_model."""
-    return o.reshape(*o.shape[:-2], -1) @ lp.attn["wo"]
+def _qkv_rope(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
+              positions: torch.Tensor):
+    """Pre-norm QKV projection with RoPE on q and k. x: (B, S, d);
+    positions: (S,) or (B, S). Returns q (B, S, H, D), k, v (B, S, KH, D)."""
+    h = L.rms_norm(x, lp.ln1["scale"], cfg.rms_eps)
+    q, k, v = L.qkv_project(h, lp.attn, cfg.num_heads, cfg.num_kv_heads,
+                            cfg.head_dim)
+    return (L.apply_rope(q, positions, cfg.rope_theta),
+            L.apply_rope(k, positions, cfg.rope_theta), v)
 
 
-def _shared_layer(store: SharedKVStore, i: int, dtype: torch.dtype):
-    """Layer i's store slices; an int8 store is dequantized to the
-    activation dtype first."""
-    sk, sv, semb = store.k[i], store.v[i], store.emb[i]
+def _attn_out_mlp(cfg: ModelConfig, x: torch.Tensor, o: torch.Tensor,
+                  lp: DenseLayer) -> torch.Tensor:
+    """Residual output projection of the attention o ((B, S, H, D) or
+    (B, H, D)), then the residual SwiGLU block."""
+    x = x + o.reshape(*o.shape[:-2], -1) @ lp.attn["wo"]
+    h2 = L.rms_norm(x, lp.ln2["scale"], cfg.rms_eps)
+    return x + L.swiglu_mlp(h2, lp.mlp)
+
+
+class SharedLayer(NamedTuple):
+    """Layer i's slices of a shared store; scales only for an int8 store
+    (the int8 K/V are not dequantized here: the kernel does it)."""
+    k: torch.Tensor                       # (E, C, KH, D)
+    v: torch.Tensor
+    emb: torch.Tensor                     # (E, KH, D)
+    k_scale: Optional[torch.Tensor]       # (E, C, KH) f32, or None
+    v_scale: Optional[torch.Tensor]
+
+    def context(self, routing) -> MA.MoskaLayerContext:
+        return MA.MoskaLayerContext(self.k, self.v, routing, self.k_scale,
+                                    self.v_scale)
+
+
+def _shared_layer(store: SharedKVStore, i: int) -> SharedLayer:
     if store.quantized:
-        sk = sk.to(dtype) * store.k_scale[i][..., None].to(dtype)
-        sv = sv.to(dtype) * store.v_scale[i][..., None].to(dtype)
-    return sk, sv, semb
+        return SharedLayer(store.k[i], store.v[i], store.emb[i],
+                           store.k_scale[i], store.v_scale[i])
+    return SharedLayer(store.k[i], store.v[i], store.emb[i], None, None)
+
+
+def _pooled_queries(q: torch.Tensor, n_valid: Optional[int],
+                    rb: int) -> torch.Tensor:
+    """Mean-pool (B, S, H, D) queries in blocks of ``rb`` for routing,
+    leaving positions >= ``n_valid`` (bucket or chunk padding) out."""
+    B, S, H, D = q.shape
+    nb = S // rb
+    if n_valid is None:
+        return q.reshape(B * nb, rb, H, D).mean(dim=1)
+    valid = (torch.arange(S, device=q.device) < n_valid).to(q.dtype)
+    qs = (q * valid[None, :, None, None]).reshape(B, nb, rb, H, D)
+    cnt = valid.reshape(nb, rb).sum(dim=1).clamp_min(1.0)
+    return (qs.sum(dim=2) / cnt[None, :, None, None]).reshape(B * nb, H, D)
+
+
+def _decode_context(cfg: ModelConfig, q: torch.Tensor,
+                    shared: Optional[SharedLayer]
+                    ) -> Optional[MA.MoskaLayerContext]:
+    """Route each request's decode query (B, H, D) over the layer's chunks."""
+    if shared is None:
+        return None
+    return shared.context(router_lib.route(q, shared.emb,
+                                           cfg.moska.top_k_chunks))
 
 
 def _layer_prefill(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
                    positions: torch.Tensor, kc: torch.Tensor,
-                   vc: torch.Tensor, shared, q_offset: int,
-                   true_len: Optional[int] = None,
+                   vc: torch.Tensor, shared: Optional[SharedLayer],
+                   q_offset: int, true_len: Optional[int] = None,
                    layer_idx: Optional[int] = None,
                    rec: Optional[obs.DeviceRecorder] = None) -> torch.Tensor:
     """Prefill layer: causal attention + cache write + optional MoSKA path.
@@ -146,67 +205,103 @@ def _layer_prefill(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
     so routing (and every real row's output) matches the exact-length
     prefill; pad rows compute values the caller discards.
     """
-    h = L.rms_norm(x, lp.ln1["scale"], cfg.rms_eps)
-    q, k, v = L.qkv_project(h, lp.attn, cfg.num_heads, cfg.num_kv_heads,
-                            cfg.head_dim)
-    q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
+    q, k, v = _qkv_rope(cfg, x, lp, positions)
     write_prefix(kc, vc, k, v)
 
     if shared is not None:
-        sk, sv, semb = shared
-        B, S, H, D = q.shape
-        rb = min(128, S)
-        nb = S // rb
-        if true_len is None:
-            pooled = q.reshape(B * nb, rb, H, D).mean(dim=1)
-        else:
-            valid = (torch.arange(S, device=q.device) < true_len).to(q.dtype)
-            qs = (q * valid[None, :, None, None]).reshape(B, nb, rb, H, D)
-            cnt = valid.reshape(nb, rb).sum(dim=1).clamp_min(1.0)
-            pooled = (qs.sum(dim=2) /
-                      cnt[None, :, None, None]).reshape(B * nb, H, D)
-        routing = router_lib.route(pooled, semb, cfg.moska.top_k_chunks)
-        ctx = MA.MoskaLayerContext(sk, sv, routing)
+        rb = min(128, q.shape[1])
+        routing = router_lib.route(_pooled_queries(q, true_len, rb),
+                                   shared.emb, cfg.moska.top_k_chunks)
         o = MA.moska_prefill_attention(
-            q, k, v, ctx, cfg.moska, q_offset=q_offset,
+            q, k, v, shared.context(routing), cfg.moska, q_offset=q_offset,
             window=cfg.attn_window, route_block=rb, layer_idx=layer_idx,
             rec=rec)
     else:
         o = L.flash_attention(q, k, v, causal=True, q_offset=q_offset,
                               kv_offset=q_offset, window=cfg.attn_window)
-    x = x + _attn_out_proj(o, lp)
-    h2 = L.rms_norm(x, lp.ln2["scale"], cfg.rms_eps)
-    return x + L.swiglu_mlp(h2, lp.mlp)
+    return _attn_out_mlp(cfg, x, o, lp)
 
 
 def _layer_decode(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
                   positions: torch.Tensor, kc: torch.Tensor,
-                  vc: torch.Tensor, lengths: torch.Tensor, shared,
+                  vc: torch.Tensor, lengths: torch.Tensor,
+                  shared: Optional[SharedLayer],
                   layer_idx: Optional[int] = None,
                   rec: Optional[obs.DeviceRecorder] = None) -> torch.Tensor:
     """Decode layer: one token per request. x: (B, d); positions: (B,)
     absolute position of the new token; the new K/V are appended to the
     layer's cache slices in place."""
-    h = L.rms_norm(x, lp.ln1["scale"], cfg.rms_eps)
-    q, k, v = L.qkv_project(h[:, None], lp.attn, cfg.num_heads,
-                            cfg.num_kv_heads, cfg.head_dim)
-    q = L.apply_rope(q, positions[:, None], cfg.rope_theta)[:, 0]  # (B,H,D)
-    k = L.apply_rope(k, positions[:, None], cfg.rope_theta)[:, 0]
-    append_token(kc, vc, k, v[:, 0], lengths)
-    new_len = lengths + 1
-
-    ctx = None
-    if shared is not None:
-        sk, sv, semb = shared
-        routing = router_lib.route(q, semb, cfg.moska.top_k_chunks)
-        ctx = MA.MoskaLayerContext(sk, sv, routing)
-    o = MA.moska_decode_attention(q, kc, vc, new_len, ctx, cfg.moska,
+    q, k, v = (t[:, 0] for t in _qkv_rope(cfg, x[:, None], lp,
+                                          positions[:, None]))
+    append_token(kc, vc, k, v, lengths)
+    o = MA.moska_decode_attention(q, kc, vc, lengths + 1,
+                                  _decode_context(cfg, q, shared), cfg.moska,
                                   window=cfg.attn_window,
                                   layer_idx=layer_idx, rec=rec)
-    x = x + _attn_out_proj(o, lp)
-    h2 = L.rms_norm(x, lp.ln2["scale"], cfg.rms_eps)
-    return x + L.swiglu_mlp(h2, lp.mlp)
+    return _attn_out_mlp(cfg, x, o, lp)
+
+
+def _layer_decode_paged(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
+                        positions: torch.Tensor, kp: torch.Tensor,
+                        vp: torch.Tensor, table: torch.Tensor,
+                        lengths: torch.Tensor, shared: Optional[SharedLayer],
+                        layer_idx: Optional[int] = None,
+                        rec: Optional[obs.DeviceRecorder] = None
+                        ) -> torch.Tensor:
+    """Paged decode layer: ``_layer_decode``'s math with the unique KV in a
+    page pool. kp/vp: (N, bs, KH, D) one layer's pages, written in place;
+    table: (B, M) int32; lengths: (B,). The new token is scattered into its
+    page, then the ``paged_decode_attention`` kernel reads each request's
+    pages through the table (no gathered copy) and its partial is merged
+    with the routed shared partial, as the slotted layer merges the
+    ``decode_attention`` partial."""
+    q, k, v = (t[:, 0] for t in _qkv_rope(cfg, x[:, None], lp,
+                                          positions[:, None]))
+    append_layer(kp, k, table, lengths)
+    append_layer(vp, v, table, lengths)
+    o_u, lse_u = ops.paged_decode_attention(q, kp, vp, table, lengths + 1,
+                                            window=cfg.attn_window)
+    o = MA.moska_decode_merge(q, o_u, lse_u, _decode_context(cfg, q, shared),
+                              cfg.moska, layer_idx=layer_idx, rec=rec)
+    return _attn_out_mlp(cfg, x, o, lp)
+
+
+def _layer_prefill_chunk(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
+                         positions: torch.Tensor, kc: torch.Tensor,
+                         vc: torch.Tensor, base: int, chunk_len: int,
+                         shared: Optional[SharedLayer], start_pos: int,
+                         layer_idx: Optional[int] = None,
+                         rec: Optional[obs.DeviceRecorder] = None
+                         ) -> torch.Tensor:
+    """One chunk of a long prompt against the growing context view.
+
+    x: (B, C, d) chunk activations (right-padded; ``chunk_len`` real);
+    kc/vc: (B, V, KH, D) scratch context holding ``base`` earlier tokens;
+    the chunk's fresh keys are written at ``base`` (in place) and causal
+    attention runs over the whole view with ``kv_len = base + chunk_len``.
+    """
+    q, k, v = _qkv_rope(cfg, x, lp, positions)
+    B, C, H, D = q.shape
+    # the reference's dynamic_update_slice clamps the start into the view
+    b0 = max(0, min(base, kc.shape[1] - C))
+    kc[:, b0:b0 + C] = k.to(kc.dtype)
+    vc[:, b0:b0 + C] = v.to(vc.dtype)
+    attn = dict(causal=True, q_offset=start_pos + base, kv_offset=start_pos,
+                kv_len=base + chunk_len, window=cfg.attn_window)
+    if shared is None:
+        return _attn_out_mlp(cfg, x, L.flash_attention(q, kc, vc, **attn),
+                             lp)
+    rb = min(128, C)
+    routing = router_lib.route(_pooled_queries(q, chunk_len, rb),
+                               shared.emb, cfg.moska.top_k_chunks)
+    o_u, lse_u = L.flash_attention(q, kc, vc, return_lse=True, **attn)
+    part = sa.shared_attention_batched(
+        q.reshape(B * (C // rb), rb, H, D), shared.k, shared.v, routing,
+        capacity_factor=cfg.moska.query_capacity_factor, layer_idx=layer_idx,
+        k_scale=shared.k_scale, v_scale=shared.v_scale, rec=rec)
+    o, _ = L.merge_partial_attention([o_u, part.out.reshape(B, C, H, D)],
+                                     [lse_u, part.lse.reshape(B, C, H)])
+    return _attn_out_mlp(cfg, x, o, lp)
 
 
 # ---------------------------------------------------------------------------
@@ -238,7 +333,7 @@ def prefill(cfg: ModelConfig, params: DenseLM, tokens: torch.Tensor,
     positions = start_pos + torch.arange(S, device=x.device)
     use_store = store is not None and cfg.moska.enabled
     for i, lp in enumerate(params.layers):
-        sh = _shared_layer(store, i, x.dtype) if use_store else None
+        sh = _shared_layer(store, i) if use_store else None
         x = _layer_prefill(cfg, x, lp, positions, cache.k[i], cache.v[i], sh,
                            start_pos, true_len=true_len, layer_idx=i,
                            rec=rec)
@@ -262,9 +357,67 @@ def decode_step(cfg: ModelConfig, params: DenseLM, tokens: torch.Tensor,
         positions = cache.positions                        # absolute (RoPE)
     use_store = store is not None and cfg.moska.enabled
     for i, lp in enumerate(params.layers):
-        sh = _shared_layer(store, i, x.dtype) if use_store else None
+        sh = _shared_layer(store, i) if use_store else None
         x = _layer_decode(cfg, x, lp, positions, cache.k[i], cache.v[i],
                           cache.length, sh, layer_idx=i, rec=rec)
     logits = _logits(cfg, params, x)
     cache.length.add_(1)
+    return logits, cache
+
+
+@torch.no_grad()
+def decode_step_paged(cfg: ModelConfig, params: DenseLM,
+                      tokens: torch.Tensor, pool: PagedKVCache,
+                      table: torch.Tensor, lengths: torch.Tensor,
+                      offsets: torch.Tensor,
+                      store: Optional[SharedKVStore] = None,
+                      rec: Optional[obs.DeviceRecorder] = None
+                      ) -> Tuple[torch.Tensor, PagedKVCache]:
+    """One decode step over the paged unique-KV pool.
+
+    tokens: (B,); pool: pages (L, N, bs, KH, D), written in place; table:
+    (B, M) int32 block tables; lengths/offsets: (B,) int32 — the device
+    copy of the host-side ``SlotTables`` length/offset vectors. Returns
+    (logits (B, V) fp32, pool). The caller advances lengths (``tick``).
+    """
+    x = params.embed["embed"][tokens]                      # (B, d)
+    positions = offsets + lengths                          # absolute (RoPE)
+    use_store = store is not None and cfg.moska.enabled
+    for i, lp in enumerate(params.layers):
+        sh = _shared_layer(store, i) if use_store else None
+        x = _layer_decode_paged(cfg, x, lp, positions, pool.k[i], pool.v[i],
+                                table, lengths, sh, layer_idx=i, rec=rec)
+    return _logits(cfg, params, x), pool
+
+
+@torch.no_grad()
+def prefill_chunk(cfg: ModelConfig, params: DenseLM, tokens: torch.Tensor,
+                  cache: KVCache, store: Optional[SharedKVStore] = None,
+                  start_pos: int = 0, chunk_len: Optional[int] = None,
+                  rec: Optional[obs.DeviceRecorder] = None
+                  ) -> Tuple[torch.Tensor, KVCache]:
+    """Process one chunk of a long prompt; call repeatedly to prefill
+    prompts past the largest bucket.
+
+    tokens: (B, C) the chunk, right-padded; ``chunk_len`` is the number of
+    real tokens in it. ``cache`` is the scratch context (L, B, V, KH, D)
+    already holding ``cache.length`` earlier tokens; it is extended in
+    place by ``chunk_len``. Returns (logits at the chunk's last real
+    token, cache). Numerically equivalent to the single-shot prefill
+    (allclose), not bitwise (other contraction shapes).
+    """
+    x = params.embed["embed"][tokens]
+    B, C, _ = x.shape
+    base = int(cache.length[0])
+    chunk_len = C if chunk_len is None else int(chunk_len)
+    positions = start_pos + base + torch.arange(C, device=x.device)
+    use_store = store is not None and cfg.moska.enabled
+    for i, lp in enumerate(params.layers):
+        sh = _shared_layer(store, i) if use_store else None
+        x = _layer_prefill_chunk(cfg, x, lp, positions, cache.k[i],
+                                 cache.v[i], base, chunk_len, sh, start_pos,
+                                 layer_idx=i, rec=rec)
+    logits = _logits(cfg, params, x[:, chunk_len - 1])
+    cache.length.add_(chunk_len)
+    cache.offset.fill_(start_pos)
     return logits, cache

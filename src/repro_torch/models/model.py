@@ -1,21 +1,27 @@
 """Model facade: one API over the family implementations.
 
 Port of the reference ``models/model.py``; this slice carries the dense
-family. Other families (SSM, hybrid, enc-dec, VLM, MoE) and the paged
-cache come in later slices of the port.
+family, with the slotted and the paged unique-KV layouts. Other families
+(SSM, hybrid, enc-dec, VLM, MoE) come in later slices of the port.
 
     model = build_model(cfg)
     params = model.init(torch.Generator(device).manual_seed(0), device)
     cache = model.init_cache(batch_size, max_seq, device=device)
     logits, cache = model.prefill(params, tokens, cache, store=...)
     logits, cache = model.decode_step(params, tokens, cache, store=...)
+    pool = model.init_paged_cache(num_blocks, block_size, device=device)
+    logits, pool = model.decode_step_paged(params, tokens, pool, table,
+                                           lengths, offsets, store=...)
+    logits, ctx = model.prefill_chunk(params, chunk, ctx, store=...,
+                                      start_pos=..., chunk_len=...)
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import DENSE, ModelConfig
+from repro_torch.configs.base import DENSE, MOE, VLM, ModelConfig
 from repro_torch.kvcache.cache import init_kv_cache
+from repro_torch.kvcache.paged import init_paged_kv_cache
 from repro_torch.models import dense
 
 
@@ -45,6 +51,35 @@ class Model:
                     rec=None):
         return dense.decode_step(self.cfg, params, tokens, cache, store=store,
                                  positions=positions, rec=rec)
+
+    # -- paged KV layout (dense-family only) ---------------------------
+    def _require_paged(self, what: str):
+        if self.cfg.family not in (DENSE, VLM, MOE):
+            raise NotImplementedError(
+                f"{what} requires the paged KV layout, which only the "
+                f"dense-family caches support (family={self.cfg.family!r}; "
+                "use kv_layout='slotted')")
+
+    def init_paged_cache(self, num_blocks: int, block_size: int,
+                         dtype=torch.bfloat16, device=None):
+        self._require_paged("init_paged_cache")
+        cfg = self.cfg
+        return init_paged_kv_cache(cfg.num_layers, num_blocks, block_size,
+                                   cfg.num_kv_heads, cfg.head_dim, dtype,
+                                   device)
+
+    def decode_step_paged(self, params, tokens, pool, table, lengths,
+                          offsets, store=None, rec=None):
+        self._require_paged("decode_step_paged")
+        return dense.decode_step_paged(self.cfg, params, tokens, pool, table,
+                                       lengths, offsets, store=store, rec=rec)
+
+    def prefill_chunk(self, params, tokens, cache, store=None, start_pos=0,
+                      chunk_len=None, rec=None):
+        self._require_paged("prefill_chunk")
+        return dense.prefill_chunk(self.cfg, params, tokens, cache,
+                                   store=store, start_pos=start_pos,
+                                   chunk_len=chunk_len, rec=rec)
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -1,28 +1,46 @@
 """MoSKA serving engine: continuous batching over slot-based decode waves.
 
-Port of the slotted path of the reference ``serving/engine.py``:
+Port of the reference ``serving/engine.py`` without its host memory tier
+and async pipeline (the reference engine with ``host_pool_blocks=0,
+spec_append=False, overlap_waves=False`` is the exact counterpart):
 
   register_corpus()  — precompute a domain corpus' KV once (prefill) and
                        chunk it into a SharedKVStore, persistent across
                        requests (the Shared-KV node state).
   submit()/run()     — the scheduler admits requests into B slots; each
-                       admission prefills into a fresh slot cache and is
-                       written into the batch cache in place; each decode
+                       admission prefills the prompt and writes its KV
+                       into the unique-KV cache in place; each decode
                        wave runs one step where every layer routes and
                        batches shared attention across all concurrent
                        slots (the GEMM) and LSE-merges it with per-slot
                        unique attention.
 
-The (L, B, S, KH, D) unique-KV batch cache is allocated once, kept on the
-device across ``run()`` calls and updated in place (so
-``engine/decode_cache_bytes_copied`` reads 0). Prompt lengths are rounded
-up to a small bucket set; pad positions are left out of routing and
-logits, so a bucketed prefill computes what the exact-length one would.
-Device-side dispatch metrics are read back once per wave, after the token
-readback. The paged layout is ported in a later slice.
+Slotted layout (the default): the (L, B, S, KH, D) unique-KV batch cache
+is allocated once, kept on the device across ``run()`` calls and updated
+in place (so ``engine/decode_cache_bytes_copied`` reads 0). Prompt lengths
+are rounded up to a small bucket set; pad positions are left out of
+routing and logits, so a bucketed prefill computes what the exact-length
+one would. Device-side dispatch metrics are read back once per wave,
+after the token readback.
+
+Paged layout (``EngineConfig(kv_layout="paged")``): unique KV lives in a
+pool of ``block_size``-token pages mapped through per-slot block tables
+(``repro_torch.kvcache``). Admission allocates only the prompt's blocks,
+decode appends pages on demand, and identical prompts over one corpus
+share pages copy-on-write (an LRU prefix cache keyed by corpus content and
+prompt), so the same ``mem_budget_bytes`` admits more concurrent requests.
+Each decode step's unique attention is the ``paged_decode_attention``
+kernel, reading pages through the tables. Generations are bit-identical to
+the slotted layout. Prompts longer than ``max_seq`` are served by chunked
+prefill (``prefill_chunk``-token pieces against a growing scratch
+context). When the free list runs short, cold prefix entries are dropped
+first, then the pool grows by ``max_seq / block_size`` pages at a time
+(unless ``num_blocks`` fixes its size).
 """
 from __future__ import annotations
 
+import collections
+import hashlib
 import time
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
@@ -34,7 +52,11 @@ from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.scheduler import Request, Scheduler, SchedulerConfig
 from repro_torch.core.shared_kv import SharedKVStore, build_store
+from repro_torch.kvcache.block_table import (SlotTables, blocks_for,
+                                             validate_block_size)
 from repro_torch.kvcache.cache import KVCache, write_slot_prefix
+from repro_torch.kvcache.paged import (BlockPool, PagedKVCache, copy_block,
+                                       grow_paged_kv_cache, write_blocks)
 from repro_torch.models.model import build_model
 
 #: smallest prefill bucket; "auto" buckets are powers of two from here up
@@ -100,19 +122,26 @@ class EngineConfig:
     cache_dtype: Any = torch.bfloat16
     # "auto" | None (exact lengths) | explicit bucket sequence
     prefill_buckets: Union[str, Sequence[int], None] = "auto"
-    # "slotted": one (L, B, max_seq, KH, D) slab; "paged" is a later slice
+    # -- paged KV layout ------------------------------------------------
+    # "slotted": one (L, B, max_seq, KH, D) slab, every slot pays max_seq.
+    # "paged": block-pool unique KV with per-slot block tables
+    # (dense-family caches only); bit-identical generations, less memory.
     kv_layout: str = "slotted"
+    block_size: int = 16        # tokens per page; must divide max_seq
+    # fixed pool size in blocks (incl. the reserved null block); None =
+    # start small and grow on demand (hbm_high_water_bytes tracks demand)
+    num_blocks: Optional[int] = None
+    # chunk length for prompts past max_seq (a multiple of 128 keeps the
+    # shared-attention route blocks aligned with the single-shot prefill)
+    prefill_chunk: int = 128
+    # cache completed prompts' pages and remap them (copy-on-write) into
+    # later requests with an identical (corpus-content, prompt) key; LRU-
+    # evicted under pool pressure
+    share_prefix_blocks: bool = True
 
 
 class ServingEngine:
     def __init__(self, cfg: ModelConfig, params, engine_cfg: EngineConfig):
-        if engine_cfg.kv_layout == "paged":
-            raise NotImplementedError(
-                "kv_layout='paged' (block pool + paged_decode_attention) is "
-                "ported in a later slice of the port")
-        if engine_cfg.kv_layout != "slotted":
-            raise ValueError(f"unknown kv_layout {engine_cfg.kv_layout!r} "
-                             "(expected 'slotted')")
         self.cfg = cfg
         self.ecfg = engine_cfg
         self.model = build_model(cfg)
@@ -124,11 +153,19 @@ class ServingEngine:
             mem_budget_bytes=engine_cfg.mem_budget_bytes,
             unique_bytes_per_token=cfg.kv_bytes_per_token,
             max_seq=engine_cfg.max_seq,
-            kv_layout=engine_cfg.kv_layout))
+            kv_layout=engine_cfg.kv_layout,
+            block_size=engine_cfg.block_size))
         self.scheduler.set_store_evictor(self._on_store_evicted)
         self._buckets = resolve_prefill_buckets(engine_cfg.prefill_buckets,
                                                 engine_cfg.max_seq)
         self._cache: Optional[KVCache] = None   # persistent batch cache
+        self._paged = engine_cfg.kv_layout == "paged"
+        if self._paged:
+            self._init_paged_state()
+        elif engine_cfg.kv_layout != "slotted":
+            raise ValueError(
+                f"unknown kv_layout {engine_cfg.kv_layout!r} "
+                "(expected 'slotted' or 'paged')")
         # corpus token ids kept host-side so evicted stores can be rebuilt
         self._corpus_tokens: Dict[str, np.ndarray] = {}
         self._hbm_high_water = 0.0
@@ -140,6 +177,35 @@ class ServingEngine:
         # host-side callbacks run at the end of every decode wave (e.g. the
         # streaming metrics exporter's tick)
         self.wave_hooks: List[Any] = []
+
+    def _init_paged_state(self) -> None:
+        ecfg = self.ecfg
+        self.model._require_paged("kv_layout='paged'")
+        validate_block_size(ecfg.block_size, ecfg.max_seq)
+        if ecfg.prefill_chunk % ecfg.block_size:
+            raise ValueError(
+                f"prefill_chunk {ecfg.prefill_chunk} must be a multiple "
+                f"of block_size {ecfg.block_size}")
+        if ecfg.prefill_chunk > 128 and ecfg.prefill_chunk % 128:
+            raise ValueError(
+                f"prefill_chunk {ecfg.prefill_chunk} > 128 must be a "
+                "multiple of 128 (shared-attention route-block size)")
+        m0 = ecfg.max_seq // ecfg.block_size
+        # pool growth quantum: one slotted slot's worth of pages
+        self._pool_quantum = m0
+        cap = ecfg.num_blocks if ecfg.num_blocks is not None else 1 + m0
+        self._block_pool = BlockPool(cap)
+        self._tables = SlotTables(ecfg.max_slots, m0, ecfg.block_size)
+        self._pool: Optional[PagedKVCache] = None   # device pages, lazy
+        # (corpus fingerprint, prompt tuple) -> {"blocks": [...],
+        # "first": token}, in LRU order
+        self._prefix_cache: "collections.OrderedDict" = \
+            collections.OrderedDict()
+        self._corpus_fp: Dict[str, str] = {}
+        # with no host tier, the scheduler's offload-vs-defer admission
+        # path drops cold prefix pages
+        self.scheduler.set_page_offloader(self._cold_page_bytes,
+                                          self._offload_cold_pages)
 
     @property
     def registry(self) -> obs.MetricsRegistry:
@@ -214,17 +280,25 @@ class ServingEngine:
         return self.scheduler.submit(prompt, max_new_tokens, corpus_id)
 
     # ------------------------------------------------------------------
-    def _ensure_cache(self) -> KVCache:
-        """The persistent batch cache: allocated once, reused across
-        ``run()`` calls, updated in place."""
-        if self._cache is None:
-            self._cache = self.model.init_cache(
-                self.ecfg.max_slots, self.ecfg.max_seq,
-                self.ecfg.cache_dtype, self.device)
-        nbytes = self._cache.nbytes
+    def _ensure_cache(self) -> None:
+        """The persistent unique-KV cache (slotted batch cache or paged
+        pool): allocated once, reused across ``run()`` calls, updated in
+        place."""
+        ecfg = self.ecfg
+        if self._paged:
+            if self._pool is None:
+                self._pool = self.model.init_paged_cache(
+                    self._block_pool.num_blocks, ecfg.block_size,
+                    ecfg.cache_dtype, self.device)
+            nbytes = self._pool.nbytes
+        else:
+            if self._cache is None:
+                self._cache = self.model.init_cache(
+                    ecfg.max_slots, ecfg.max_seq, ecfg.cache_dtype,
+                    self.device)
+            nbytes = self._cache.nbytes
         self.registry.set_gauge("engine/decode_cache_bytes_copied", 0)
         self.registry.set_gauge("engine/decode_cache_bytes", nbytes)
-        return self._cache
 
     def _note_hbm(self, kv_nbytes: float) -> None:
         """Track the peak of (unique KV + loaded shared stores) bytes."""
@@ -234,19 +308,44 @@ class ServingEngine:
         self.registry.set_gauge("engine/hbm_high_water_bytes",
                                 self._hbm_high_water)
 
+    def _livelock(self) -> RuntimeError:
+        """Nothing running, nothing admissible, queue non-empty: no wave
+        can ever make progress."""
+        sch = self.scheduler
+        if self._paged:
+            cost = ("the head request's block cost "
+                    f"({sch._request_cost(sch.queue[0]):.3g} bytes")
+        else:
+            cost = f"one slot's cost ({sch._slot_cost():.3g} bytes"
+        return RuntimeError(
+            f"serving livelock: {len(sch.queue)} queued request(s) but none "
+            f"admissible — mem_budget_bytes={self.ecfg.mem_budget_bytes:.3g}"
+            f" is below {cost} + resident shared stores)")
+
+    def _record_token(self, req: Request, tok: int) -> None:
+        """Hand a generated token to the scheduler; a paged slot that just
+        finished releases its pages at once."""
+        slot = req.slot
+        self.scheduler.record_token(req, tok, self.ecfg.eos_id)
+        if self._paged and req.done:
+            self._release_slot_paged(req, slot)
+        self.metrics["tokens_generated"] += 1
+        self.registry.inc("engine/tokens_generated")
+
     @torch.no_grad()
     def run(self, max_waves: int = 10**9) -> List[Request]:
         """Drive to completion (or max_waves); returns finished requests.
 
-        May be called repeatedly: the batch cache stays on the device
-        between calls. Raises RuntimeError on a livelocked configuration
-        (queued work that can never be admitted under mem_budget_bytes).
+        May be called repeatedly: the batch cache (slotted) or page pool
+        (paged) stays on the device between calls. Raises RuntimeError on
+        a livelocked configuration (queued work that can never be admitted
+        under mem_budget_bytes).
         """
         B = self.ecfg.max_slots
         reg = self.registry
         t0 = time.perf_counter()
         tok0 = self.metrics["tokens_generated"]
-        cache = self._ensure_cache()
+        self._ensure_cache()
         slot_tokens = np.zeros((B,), np.int64)
 
         waves = 0
@@ -255,41 +354,47 @@ class ServingEngine:
                 admitted = self.scheduler.schedule()
                 for req in admitted:
                     tp = time.perf_counter()
-                    first = self._prefill_slot(cache, req)
+                    first = (self._prefill_slot_paged(req) if self._paged
+                             else self._prefill_slot(req))
                     reg.observe("engine/prefill_latency_s",
                                 time.perf_counter() - tp,
                                 obs.LATENCY_EDGES_S)
                     slot_tokens[req.slot] = first
-                    self.scheduler.record_token(req, first, self.ecfg.eos_id)
-                    self.metrics["tokens_generated"] += 1
-                    reg.inc("engine/tokens_generated")
+                    self._record_token(req, first)
                 active = self.scheduler.active()
                 if not active:
                     if not admitted and not self.scheduler.idle:
-                        raise RuntimeError(
-                            "serving livelock: "
-                            f"{len(self.scheduler.queue)} queued "
-                            "request(s) but none admissible — "
-                            f"mem_budget_bytes="
-                            f"{self.ecfg.mem_budget_bytes:.3g} is below "
-                            "one slot's cost "
-                            f"({self.scheduler._slot_cost():.3g} bytes "
-                            "+ resident shared stores)")
+                        raise self._livelock()
                     waves += 1
                     continue
                 store = self._get_store(self.scheduler.resident_corpus)
                 use_store = store is not None and self.cfg.moska.enabled
-                self._note_hbm(cache.nbytes)
+                store = store if use_store else None
+                if self._paged:
+                    self._prepare_wave_blocks(active)
+                    self._note_hbm(self._pool.nbytes)
+                else:
+                    self._note_hbm(self._cache.nbytes)
                 reg.observe("engine/wave_batch_density",
                             len(active) / B, obs.FRACTION_EDGES)
                 reg.observe("engine/wave_active_slots", len(active),
                             obs.COUNT_EDGES)
                 td = time.perf_counter()
-                logits, _ = self.model.decode_step(
-                    self.params, torch.as_tensor(slot_tokens,
-                                                 device=self.device),
-                    cache, store=store if use_store else None, rec=self._rec)
+                tokens = torch.as_tensor(slot_tokens, device=self.device)
+                if self._paged:
+                    tbl, lens, offs = (torch.as_tensor(a, device=self.device)
+                                       for a in self._tables.device_args())
+                    logits, _ = self.model.decode_step_paged(
+                        self.params, tokens, self._pool, tbl, lens, offs,
+                        store=store, rec=self._rec)
+                else:
+                    logits, _ = self.model.decode_step(
+                        self.params, tokens, self._cache, store=store,
+                        rec=self._rec)
                 nxt = logits.argmax(dim=-1).cpu().numpy()  # device sync
+                if self._paged:
+                    self._tables.tick()
+                    self._record_block_gauges()
                 dt = time.perf_counter() - td
                 reg.observe("engine/decode_step_latency_s", dt,
                             obs.LATENCY_EDGES_S)
@@ -298,15 +403,15 @@ class ServingEngine:
                 for req in list(active):
                     tok = int(nxt[req.slot])
                     slot_tokens[req.slot] = tok
-                    self.scheduler.record_token(req, tok, self.ecfg.eos_id)
-                    self.metrics["tokens_generated"] += 1
-                    reg.inc("engine/tokens_generated")
+                    self._record_token(req, tok)
                     reg.inc("engine/decoded_tokens")
                 self.metrics["decode_steps"] += 1
                 reg.inc("engine/decode_steps")
                 for hook in self.wave_hooks:
                     hook()
                 waves += 1
+        if self._paged:
+            self._record_block_gauges()
         wall = time.perf_counter() - t0
         self.metrics["wall_s"] += wall
         reg.set_gauge("engine/last_run_wall_s", wall)
@@ -316,27 +421,226 @@ class ServingEngine:
         return self.scheduler.finished
 
     # ------------------------------------------------------------------
-    def _prefill_slot(self, cache: KVCache, req: Request) -> int:
-        """Prefill one slot: bucket-padded prefill into a fresh 1-batch
-        cache, then an in-place write into batch slot ``req.slot``.
-        Returns the first generated token."""
-        store = self._get_store(req.corpus_id)
+    def _bucketed_prefill(self, req: Request, store: Optional[SharedKVStore],
+                          start: int) -> Tuple[int, KVCache]:
+        """Prefill one prompt, right-padded to its bucket, into a fresh
+        1-batch cache sized to the bucket. Returns (first generated token,
+        the cache)."""
         true_len = len(req.prompt)
         pad_len = bucket_for(self._buckets, true_len)
         padded = np.zeros((1, pad_len), np.int64)
         padded[0, :true_len] = req.prompt
-        start = store.total_tokens if store is not None else 0
-        use_store = store is not None and self.cfg.moska.enabled
         slot_cache = self.model.init_cache(1, pad_len, self.ecfg.cache_dtype,
                                            self.device)
         logits, slot_cache = self.model.prefill(
             self.params, torch.as_tensor(padded, device=self.device),
-            slot_cache, store=store if use_store else None, start_pos=start,
-            true_len=true_len, rec=self._rec)
-        write_slot_prefix(cache, slot_cache, req.slot, true_len)
-        first = int(logits[0].argmax())                     # device sync
+            slot_cache, store=store, start_pos=start, true_len=true_len,
+            rec=self._rec)
+        return int(logits[0].argmax()), slot_cache         # device sync
+
+    def _count_prefill(self, true_len: int) -> None:
         self._rec.flush(self.registry)
         self.metrics["prefills"] += 1
         self.registry.inc("engine/prefills")
         self.registry.inc("engine/prefill_tokens", true_len)
+
+    def _store_for(self, req: Request) -> Tuple[Optional[SharedKVStore], int]:
+        """(the store the request's prefill attends, if any; the absolute
+        position of its first prompt token)."""
+        store = self._get_store(req.corpus_id)
+        start = store.total_tokens if store is not None else 0
+        use_store = store is not None and self.cfg.moska.enabled
+        return (store if use_store else None), start
+
+    def _prefill_slot(self, req: Request) -> int:
+        """Slotted admission: bucket-padded prefill, then an in-place write
+        into batch slot ``req.slot``. Returns the first generated token."""
+        store, start = self._store_for(req)
+        first, slot_cache = self._bucketed_prefill(req, store, start)
+        write_slot_prefix(self._cache, slot_cache, req.slot, len(req.prompt))
+        self._count_prefill(len(req.prompt))
         return first
+
+    # -- paged KV layout ------------------------------------------------
+    def _corpus_fingerprint(self, corpus_id: Optional[str]) -> Optional[str]:
+        """Content fingerprint of a registered corpus: requests bound to
+        *different* store ids with identical corpus tokens share one
+        prefix-cache namespace (the unique KV depends only on corpus
+        tokens + prompt, not the id)."""
+        if corpus_id is None:
+            return None
+        fp = self._corpus_fp.get(corpus_id)
+        if fp is None:
+            toks = self._corpus_tokens[corpus_id]
+            fp = hashlib.blake2b(np.ascontiguousarray(toks).tobytes(),
+                                 digest_size=16).hexdigest()
+            self._corpus_fp[corpus_id] = fp
+        return fp
+
+    def _prefix_key(self, req: Request):
+        return (self._corpus_fingerprint(req.corpus_id), tuple(req.prompt))
+
+    def _bytes_per_block(self) -> float:
+        return self.cfg.kv_bytes_per_token * self.ecfg.block_size
+
+    def _evict_prefix_entries(self, need_blocks: int) -> int:
+        """Drop LRU prefix-cache entries until ``need_blocks`` pages were
+        actually released (or the cache is empty); returns #released."""
+        reg = self.registry
+        released = 0
+        while self._prefix_cache and released < need_blocks:
+            _, entry = self._prefix_cache.popitem(last=False)
+            released += self._block_pool.free(entry["blocks"])
+            reg.inc("kvcache/prefix_evictions")
+        if released:
+            reg.inc("kvcache/blocks_evicted", released)
+        return released
+
+    def _cold_page_bytes(self) -> float:
+        """Budget charge of pages held *only* by the prefix cache — what
+        the scheduler's offload admission path can reclaim."""
+        bp = self._block_pool
+        cold = sum(1 for e in self._prefix_cache.values()
+                   for b in e["blocks"] if bp.refcount(b) == 1)
+        return cold * self._bytes_per_block()
+
+    def _offload_cold_pages(self, need_bytes: float) -> float:
+        """Scheduler callback (offload-vs-defer): drop at least
+        ``need_bytes`` of cold prefix pages so a new request can be
+        admitted. Returns the bytes actually freed."""
+        if not self._prefix_cache:
+            return 0.0
+        bpb = self._bytes_per_block()
+        return self._evict_prefix_entries(int(-(-need_bytes // bpb))) * bpb
+
+    def _alloc_blocks(self, n: int, reserve: int = 0) -> List[int]:
+        """Allocate ``n`` pages, evicting cold prefix entries and (in
+        auto-sized mode) growing the device pool when the free list is
+        short. ``reserve`` pages beyond ``n`` size the growth so a
+        request's decode appends don't retrigger it."""
+        bp = self._block_pool
+        want = n + reserve
+        if bp.available < want:
+            self._evict_prefix_entries(want - bp.available)
+        if bp.available < want and self.ecfg.num_blocks is None:
+            q = self._pool_quantum
+            new_cap = bp.num_blocks + -(-(want - bp.available) // q) * q
+            self._pool = grow_paged_kv_cache(self._pool, new_cap)
+            bp.grow(new_cap)
+            self.registry.inc("kvcache/pool_growths")
+        return bp.alloc(n)     # PoolExhausted if still short of n
+
+    def _record_block_gauges(self) -> None:
+        bp = self._block_pool
+        reg = self.registry
+        reg.set_gauge("kvcache/blocks_in_use", bp.in_use)
+        reg.set_gauge("kvcache/blocks_free", bp.available)
+        reg.set_gauge("kvcache/block_capacity", bp.capacity)
+        reg.set_gauge("kvcache/block_utilization",
+                      bp.in_use / max(bp.capacity, 1))
+
+    def _prefill_slot_paged(self, req: Request) -> int:
+        """Admit one request into the paged pool: a prefix-cache hit remaps
+        the shared pages; a prompt up to max_seq takes the bucketed prefill
+        (as the slotted layout does) and a block scatter; a longer one
+        goes through chunked prefill. Returns the first generated token."""
+        reg = self.registry
+        bs = self.ecfg.block_size
+        true_len = len(req.prompt)
+        total_blocks = blocks_for(true_len + req.max_new_tokens, bs)
+        if total_blocks > self._tables.blocks_per_slot:
+            self._tables.grow(total_blocks)
+        store, start = self._store_for(req)
+
+        key = self._prefix_key(req)
+        entry = (self._prefix_cache.get(key)
+                 if self.ecfg.share_prefix_blocks else None)
+        if entry is not None:
+            self._prefix_cache.move_to_end(key)
+            self._block_pool.incref(entry["blocks"])
+            self._tables.assign(req.slot, entry["blocks"], true_len, start)
+            reg.inc("kvcache/prefix_hits")
+            reg.inc("kvcache/blocks_shared", len(entry["blocks"]))
+            return int(entry["first"])
+
+        nb = blocks_for(true_len, bs)
+        ids = self._alloc_blocks(nb, reserve=total_blocks - nb)
+        if true_len <= self.ecfg.max_seq:
+            first, slot_cache = self._bucketed_prefill(req, store, start)
+        else:
+            first, slot_cache = self._prefill_chunked_prompt(req, store,
+                                                             start)
+        # pad or cut the prefilled prefix to exactly the prompt's pages
+        k, v = slot_cache.k[:, 0], slot_cache.v[:, 0]      # (L, S, KH, D)
+        S, V = k.shape[1], nb * bs
+        if S >= V:
+            k, v = k[:, :V], v[:, :V]
+        else:
+            pad = (0, 0, 0, 0, 0, V - S)
+            k = torch.nn.functional.pad(k, pad)
+            v = torch.nn.functional.pad(v, pad)
+        write_blocks(self._pool, ids, k, v, true_len)
+        self._tables.assign(req.slot, ids, true_len, start)
+        self._count_prefill(true_len)
+        return first
+
+    def _prefill_chunked_prompt(self, req: Request,
+                                store: Optional[SharedKVStore],
+                                start: int) -> Tuple[int, KVCache]:
+        """Long-prompt prefill in ``prefill_chunk``-token pieces against a
+        growing scratch context. Returns (first generated token, context)."""
+        C = self.ecfg.prefill_chunk
+        true_len = len(req.prompt)
+        ctx = self.model.init_cache(1, blocks_for(true_len, C) * C,
+                                    self.ecfg.cache_dtype, self.device)
+        for s0 in range(0, true_len, C):
+            clen = min(C, true_len - s0)
+            chunk = np.zeros((1, C), np.int64)
+            chunk[0, :clen] = req.prompt[s0:s0 + clen]
+            logits, ctx = self.model.prefill_chunk(
+                self.params, torch.as_tensor(chunk, device=self.device), ctx,
+                store=store, start_pos=start, chunk_len=clen, rec=self._rec)
+            self.registry.inc("engine/prefill_chunks")
+        self.registry.inc("engine/chunked_prefills")
+        return int(logits[0].argmax()), ctx
+
+    def _prepare_wave_blocks(self, active: List[Request]) -> None:
+        """Pre-wave page maintenance: every active slot is about to append
+        one token at its current length — make sure the target page exists
+        and is exclusively owned (copy-on-write for prefix-shared pages)."""
+        tables = self._tables
+        bp = self._block_pool
+        reg = self.registry
+        for req in active:
+            slot = req.slot
+            bi = int(tables.length[slot]) // self.ecfg.block_size
+            if bi >= int(tables.n_blocks[slot]):
+                if bi >= tables.blocks_per_slot:
+                    tables.grow(bi + 1)
+                tables.append_block(slot, self._alloc_blocks(1)[0])
+                reg.inc("kvcache/blocks_appended")
+            else:
+                blk = int(tables.table[slot, bi])
+                if bp.needs_copy(blk):
+                    new = self._alloc_blocks(1)[0]
+                    copy_block(self._pool, new, blk)
+                    tables.replace_block(slot, bi, new)
+                    bp.free([blk])
+                    reg.inc("kvcache/cow_copies")
+
+    def _release_slot_paged(self, req: Request, slot: int) -> None:
+        """Free a finished request's pages; with prefix sharing on, its
+        prompt pages (incl. the partial tail — later writers copy it on
+        write) are parked in the LRU prefix cache keyed by (corpus,
+        prompt)."""
+        tables = self._tables
+        key = self._prefix_key(req)
+        if self.ecfg.share_prefix_blocks and req.generated and \
+                key not in self._prefix_cache:
+            pblocks = tables.prefix_blocks(slot, len(req.prompt))
+            if pblocks:
+                self._block_pool.incref(pblocks)
+                self._prefix_cache[key] = {"blocks": pblocks,
+                                           "first": req.generated[0]}
+        self._block_pool.free(tables.clear(slot))
+        self.registry.inc("kvcache/slots_released")

@@ -171,6 +171,34 @@ def test_shared_attention_batched(dtype, G, Q, K, E, C, H, KH, D, cap):
     assert_close(gt.lse, gj.lse, dtype)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Q,cap", [(1, None), (8, 8), (1, 2)])
+def test_shared_attention_batched_int8_store(dtype, Q, cap):
+    """An int8 store with its scales goes through the q8 kernel's plain
+    version, dequantized in fp32: it matches the reference's batched path
+    on the fp32-dequantized store (2e-5 fp32, 2e-2 bf16), and with fp32
+    queries the port's own fp path on that store bit for bit. Capacity 2
+    drops routes."""
+    G, K, E, C, H, KH, D = 6, 3, 8, 16, 8, 2, 32
+    kq, ks = tkv._quantize(torch.from_numpy(randn(30, (E, C, KH, D))))
+    vq, vs = tkv._quantize(torch.from_numpy(randn(31, (E, C, KH, D))))
+    kd = kq.float() * ks[..., None]
+    vd = vq.float() * vs[..., None]
+    qj, qt = both(randn(32, (G, Q, H, D)), dtype)
+    rj, rt = _routings(_distinct_ids(G, K, E, 33), E)
+    pt = tsa.shared_attention_batched(qt, kq, vq, rt, capacity=cap,
+                                      k_scale=ks, v_scale=vs)
+    assert pt.out.dtype == qt.dtype
+    pj = jsa.shared_attention_batched(qj, jnp.asarray(kd.numpy()),
+                                      jnp.asarray(vd.numpy()), rj,
+                                      capacity=cap)
+    assert_close(pt.out, pj.out, dtype)
+    assert_close(pt.lse, pj.lse, dtype)
+    if dtype == "float32":
+        pf = tsa.shared_attention_batched(qt, kd, vd, rt, capacity=cap)
+        assert torch.equal(pt.out, pf.out) and torch.equal(pt.lse, pf.lse)
+
+
 def test_shared_attention_empty_chunks_and_records():
     """Chunks no group routed to stay empty; the device recorder queues the
     dispatch metrics and flushes them in one readback."""

@@ -2,7 +2,8 @@
 the reference's weights converted by ``repro_torch.convert``: prefill and
 decode logits within 1e-4 in fp32 (2e-2 in bf16), with and without a
 shared store, bucket-padded prefill, the int8 store, and the quickstart's
-exactness check (full routing equals the monolithic context, 1e-3)."""
+exactness check (full routing equals the monolithic context, 1e-3); the
+paged decode step and the chunked prefill within 1e-4."""
 import dataclasses
 
 import jax
@@ -14,11 +15,13 @@ import torch
 from repro.configs import get_config as jget
 from repro.core.shared_kv import build_store as jbuild
 from repro.kvcache import init_kv_cache as jinit
+from repro.kvcache import paged as jpg
 from repro.models import dense as jd
 from repro_torch.configs import get_config as tget
 from repro_torch.convert import from_reference_params
 from repro_torch.core.shared_kv import build_store as tbuild
 from repro_torch.kvcache import init_kv_cache as tinit
+from repro_torch.kvcache import paged as tpg
 from repro_torch.models import dense as td
 from torch_parity import assert_close, to_np
 
@@ -154,6 +157,92 @@ def test_int8_store_decode(model):
     lt, _ = td.decode_step(tcfg, pt, torch.from_numpy(toks[:, -1]).long(),
                            ct, store=st)
     assert_close(lt, lj, tol=1e-4)
+
+
+@pytest.mark.parametrize("with_store", [False, True])
+def test_decode_step_paged_matches_reference(model, with_store):
+    """Three paged decode steps over pages in scrambled order (garbage in
+    every page past each length): logits and pools within 1e-4 of the
+    reference's ``decode_step_paged``; the port's paged logits equal its
+    slotted logits on the same logical cache, bit for bit."""
+    jcfg, tcfg, pj, pt = model
+    B, S, bs, M = 3, 10, 4, 4
+    L_, KH, D = tcfg.num_layers, tcfg.num_kv_heads, tcfg.head_dim
+    sj = st = None
+    start = 0
+    if with_store:
+        sj, st = _stores(jcfg, tcfg, pj, pt, 192)
+        start = 192
+    toks = _tokens(8, (B, S), jcfg.vocab_size)
+    ct = tinit(L_, B, M * bs, KH, D, torch.float32)
+    lt, ct = td.prefill(tcfg, pt, torch.from_numpy(toks).long(), ct,
+                        store=st, start_pos=start)
+    g = np.random.default_rng(9)
+    n_pages = 1 + B * M + 3
+    table = (g.permutation(n_pages - 1)[:B * M] + 1).reshape(B, M)
+    pool = g.standard_normal((2, L_, n_pages, bs, KH, D)).astype(np.float32)
+    k_np, v_np = ct.k.numpy(), ct.v.numpy()
+    for b in range(B):
+        for m in range(M):
+            pos = slice(m * bs, (m + 1) * bs)
+            live = np.arange(m * bs, (m + 1) * bs) < S
+            pool[0, :, table[b, m]][:, live] = k_np[:, b, pos][:, live]
+            pool[1, :, table[b, m]][:, live] = v_np[:, b, pos][:, live]
+    pool_j = jpg.PagedKVCache(jnp.asarray(pool[0]), jnp.asarray(pool[1]))
+    pool_t = tpg.PagedKVCache(*(torch.from_numpy(pool[i].copy())
+                                for i in range(2)))
+    tbl = table.astype(np.int32)
+    lens = np.full((B,), S, np.int32)
+    offs = np.full((B,), start, np.int32)
+    nxt = lt.argmax(-1)
+    for _ in range(3):
+        lj, pool_j = jd.decode_step_paged(
+            jcfg, pj, jnp.asarray(nxt.numpy()), pool_j, jnp.asarray(tbl),
+            jnp.asarray(lens), jnp.asarray(offs), store=sj)
+        lp, _ = td.decode_step_paged(
+            tcfg, pt, nxt, pool_t, torch.from_numpy(tbl),
+            torch.from_numpy(lens), torch.from_numpy(offs), store=st)
+        assert_close(lp, lj, tol=1e-4)
+        ls, _ = td.decode_step(tcfg, pt, nxt, ct, store=st)
+        assert torch.equal(lp, ls)
+        lens = lens + 1
+        nxt = lp.argmax(-1)
+    assert_close(pool_t.k, pool_j.k, tol=1e-4)
+    assert_close(pool_t.v, pool_j.v, tol=1e-4)
+
+
+@pytest.mark.parametrize("with_store", [False, True])
+def test_prefill_chunk_matches_reference(model, with_store):
+    """A 40-token prompt in 16-token chunks against a 48-token scratch
+    context: each chunk's logits and the context within 1e-4 of the
+    reference's ``prefill_chunk``."""
+    jcfg, tcfg, pj, pt = model
+    sj = st = None
+    start = 0
+    if with_store:
+        sj, st = _stores(jcfg, tcfg, pj, pt, 128, seed=10)
+        start = 128
+    n, C = 40, 16
+    prompt = _tokens(11, (n,), jcfg.vocab_size)
+    cj = jinit(jcfg.num_layers, 1, 48, jcfg.num_kv_heads, jcfg.head_dim,
+               jnp.float32)
+    ct = tinit(tcfg.num_layers, 1, 48, tcfg.num_kv_heads, tcfg.head_dim,
+               torch.float32)
+    for s0 in range(0, n, C):
+        clen = min(C, n - s0)
+        chunk = np.zeros((1, C), np.int32)
+        chunk[0, :clen] = prompt[s0:s0 + clen]
+        lj, cj = jd.prefill_chunk(jcfg, pj, jnp.asarray(chunk), cj,
+                                  store=sj, start_pos=start,
+                                  chunk_len=jnp.int32(clen))
+        lt, ct = td.prefill_chunk(tcfg, pt, torch.from_numpy(chunk).long(),
+                                  ct, store=st, start_pos=start,
+                                  chunk_len=clen)
+        assert_close(lt, lj, tol=1e-4)
+    assert_close(ct.k, cj.k, tol=1e-4)
+    assert_close(ct.v, cj.v, tol=1e-4)
+    np.testing.assert_array_equal(ct.length.numpy(), np.asarray(cj.length))
+    np.testing.assert_array_equal(ct.offset.numpy(), np.asarray(cj.offset))
 
 
 def _close_bf16_logits(lt, lj):

@@ -138,9 +138,17 @@ def test_persistent_cache_in_place_and_slot_reuse(tiny):
 
 
 def test_engine_rejects_and_raises(tiny):
-    _, cfg, _, params = tiny
-    with pytest.raises(NotImplementedError, match="later slice"):
-        te.ServingEngine(cfg, params, te.EngineConfig(kv_layout="paged"))
+    jcfg, cfg, pj, params = tiny
+    # the reference's paged-layout validation: block_size must divide
+    # max_seq, prefill_chunk must be block- and route-block-aligned
+    for bad in (dict(block_size=24), dict(block_size=0),
+                dict(prefill_chunk=24), dict(prefill_chunk=192)):
+        ecfg = dict(max_slots=2, max_seq=64, kv_layout="paged", **bad)
+        with pytest.raises(ValueError) as err_j:
+            je.ServingEngine(jcfg, pj, je.EngineConfig(**ecfg))
+        with pytest.raises(ValueError) as err_t:
+            te.ServingEngine(cfg, params, te.EngineConfig(**ecfg))
+        assert str(err_t.value) == str(err_j.value)
     with pytest.raises(ValueError):
         te.ServingEngine(cfg, params, te.EngineConfig(kv_layout="ring"))
     eng = te.ServingEngine(cfg, params, te.EngineConfig(max_slots=1,
@@ -154,8 +162,13 @@ def test_engine_rejects_and_raises(tiny):
     starved = te.ServingEngine(cfg, params, te.EngineConfig(
         max_slots=2, max_seq=64, mem_budget_bytes=1.0))
     starved.submit([1, 2, 3], max_new_tokens=2)
-    with pytest.raises(RuntimeError, match="livelock"):
+    with pytest.raises(RuntimeError, match="livelock.*one slot's cost"):
         starved.run()
+    # the paged layout charges blocks and refuses such a request up front
+    starved = te.ServingEngine(cfg, params, te.EngineConfig(
+        max_slots=2, max_seq=64, mem_budget_bytes=1.0, kv_layout="paged"))
+    with pytest.raises(ValueError, match="block budget"):
+        starved.submit([1, 2, 3], max_new_tokens=2)
 
 
 def test_serve_cli_on_cpu(tmp_path):
@@ -173,6 +186,29 @@ def test_serve_cli_on_cpu(tmp_path):
     dumped = tobs.load(str(out))
     assert dumped.counter("engine/decode_steps").value == \
         summary["decode_steps"]
+
+
+def test_serve_cli_paged_on_cpu():
+    """The launcher's paged layout generates what its slotted layout
+    generates (same seed, same requests) and reports the paged counters."""
+    out = {}
+    for layout in ("slotted", "paged"):
+        prev = tobs.set_registry(tobs.MetricsRegistry())
+        try:
+            out[layout] = serve.main(["--device", "cpu", "--requests", "3",
+                                      "--new-tokens", "3", "--kv-layout",
+                                      layout, "--block-size", "8"])
+        finally:
+            tobs.set_registry(prev)
+    paged, slotted = out["paged"], out["slotted"]
+    assert paged["kv_layout"] == "paged"
+    assert paged["tokens"] == slotted["tokens"] == 9
+    assert paged["wave"] == slotted["wave"]
+    assert paged["hbm_high_water_bytes"] < slotted["hbm_high_water_bytes"]
+    for key in ("prefix_hits", "cow_copies", "blocks_appended",
+                "pool_growths", "chunked_prefills", "block_capacity"):
+        assert isinstance(paged[key], int), key
+    assert paged["kernel_launches"] == {k: 0 for k in ops.launch_counts()}
 
 
 def test_serve_cli_rejects_missing_card_and_short_corpus():

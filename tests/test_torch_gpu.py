@@ -1,7 +1,9 @@
 """Card tests of the port: each hand-written CUDA kernel against its plain
 PyTorch version on the same CUDA tensors, over the shape and dtype sweeps
-of ``tests/test_kernels.py``, plus a dense decode step on the card against
-the same step on the CPU.
+of ``tests/test_kernels.py`` (the paged kernel also bit for bit against
+the slotted one on the same logical cache), plus dense decode steps on the
+card (slotted, paged, over an int8 store) against the same steps on the
+CPU.
 
 These tests need an NVIDIA card with the CUDA toolkit; elsewhere they skip.
 This file imports no JAX, so it also runs where JAX is not installed:
@@ -18,7 +20,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core.shared_kv import build_store
 from repro_torch.kernels import ops, ref
-from repro_torch.kvcache.cache import init_kv_cache
+from repro_torch.kvcache.cache import KVCache, init_kv_cache
 from repro_torch.models import dense
 
 pytestmark = pytest.mark.gpu
@@ -98,6 +100,90 @@ def test_decode_attention_kernel_rejects_window(cuda):
                                                  device=cuda), window=2)
 
 
+def _paged_inputs(g, B, H, KH, D, N, bs, M, dtype, device):
+    """Pools of random pages, distinct scrambled pages per request, and
+    lengths from 1 to the full table (one request at exactly M * bs)."""
+    q = _randn(g, (B, H, D), dtype, device)
+    kp = _randn(g, (N, bs, KH, D), dtype, device)
+    vp = _randn(g, (N, bs, KH, D), dtype, device)
+    table = (g.permutation(N - 1)[:B * M] + 1).reshape(B, M)
+    lens = g.integers(1, M * bs + 1, B)
+    lens[0] = M * bs
+    lens[-1] = 1
+    as_i32 = lambda a: torch.from_numpy(a.astype(np.int32)).to(device)
+    return q, kp, vp, as_i32(table), as_i32(lens)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KH,D,N,bs,M", [
+    (3, 8, 2, 32, 16, 16, 4),
+    (2, 4, 4, 64, 9, 32, 3),
+    (1, 16, 8, 128, 32, 8, 8),
+    (5, 32, 4, 64, 64, 16, 9),     # tinyllama's grouping, 144 = 2.25 tiles
+    (4, 2, 1, 16, 40, 5, 7),       # pages not dividing the 64-key tile
+])
+def test_paged_decode_attention_kernel(cuda, dtype, B, H, KH, D, N, bs, M):
+    """Against the plain version (gather + decode), and bit for bit
+    against the slotted kernel on the same logical cache."""
+    g = np.random.default_rng(5)
+    q, kp, vp, table, lens = _paged_inputs(g, B, H, KH, D, N, bs, M, dtype,
+                                           cuda)
+    n0 = ops.paged_decode_attention.launches
+    o1, l1 = ops.paged_decode_attention(q, kp, vp, table, lens)
+    torch.cuda.synchronize()
+    assert ops.paged_decode_attention.launches == n0 + 1
+    o2, l2 = ref.paged_decode_attention_ref(q, kp, vp, table, lens)
+    _close(o1, o2, TOL[dtype])
+    _close(l1, l2, TOL[dtype])
+    live = (torch.arange(M * bs, device=cuda)[None, :, None, None]
+            < lens[:, None, None, None])
+    ks = torch.where(live, kp[table.long()].reshape(B, M * bs, KH, D), 0)
+    vs = torch.where(live, vp[table.long()].reshape(B, M * bs, KH, D), 0)
+    o3, l3 = ops.decode_attention(q, ks.contiguous(), vs.contiguous(), lens)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o3) and torch.equal(l1, l3)
+
+
+def test_paged_decode_attention_kernel_rejects(cuda):
+    g = np.random.default_rng(6)
+    q, kp, vp, table, lens = _paged_inputs(g, 2, 4, 2, 16, 8, 4, 2,
+                                           torch.float32, cuda)
+    with pytest.raises(NotImplementedError):
+        ops.paged_decode_attention(q, kp, vp, table, lens, window=4)
+    with pytest.raises(TypeError):
+        ops.paged_decode_attention(q, kp, vp, table.long(), lens)
+    with pytest.raises(ValueError):
+        ops.paged_decode_attention(q, kp, vp, table[:1], lens)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,cap,H,KH,D,C", [
+    (3, 8, 4, 2, 32, 64),
+    (2, 8, 8, 8, 64, 96),
+    (4, 8, 6, 2, 64, 48),
+    (2, 40, 16, 2, 64, 100),
+    (2, 8, 4, 4, 128, 256),
+])
+def test_shared_chunk_attention_q8_kernel(cuda, dtype, E, cap, H, KH, D, C):
+    """The int8 kernel against its plain version (fp32 dequant + the fp
+    reference); output in qd's dtype."""
+    from repro_torch.core.shared_kv import _quantize
+    g = np.random.default_rng(7)
+    qd = _randn(g, (E, cap, H, D), dtype, cuda)
+    kq, ks = _quantize(_randn(g, (E, C, KH, D), torch.float32, cuda))
+    vq, vs = _quantize(_randn(g, (E, C, KH, D), torch.float32, cuda))
+    qm = torch.from_numpy(g.random((E, cap)) < 0.7).to(cuda)
+    n0 = ops.shared_chunk_attention_q8.launches
+    o1, l1 = ops.shared_chunk_attention_q8(qd, kq, vq, ks, vs, qm)
+    torch.cuda.synchronize()
+    assert ops.shared_chunk_attention_q8.launches == n0 + 1
+    o2, l2 = ref.shared_chunk_attention_q8_ref(qd, kq, vq, ks, vs, qm)
+    _close(o1, o2, TOL[dtype])
+    _close(l1, l2, TOL[dtype])
+    assert o1.dtype == dtype and l1.dtype == torch.float32
+    assert bool((l1[~qm] < -1e29).all()) and bool((o1[~qm] == 0).all())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("P,N,H,D", [(2, 64, 4, 32), (3, 7, 2, 16),
                                      (4, 128, 8, 64), (8, 64, 32, 64)])
@@ -160,7 +246,80 @@ def test_dense_decode_step_card_matches_cpu(cuda):
 
     n0 = ops.launch_counts()
     on_card = run(cuda)
-    assert all(ops.launch_counts()[k] > n0[k] for k in n0)
+    path = ("shared_chunk_attention", "decode_attention", "lse_merge",
+            "router_scores")
+    assert all(ops.launch_counts()[k] > n0[k] for k in path)
+    on_cpu = run(torch.device("cpu"))
+    for a, b in zip(on_card, on_cpu):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_paged_decode_step_and_int8_store_card_match_cpu(cuda):
+    """A paged decode step (pages in scrambled order) and a slotted step
+    over an int8 store, of a reduced fp32 model with G = 4: the card
+    (kernels) and the CPU (plain versions) give the same logits, and the
+    paged step's logits on the card equal the slotted step's. Both sides
+    get the int8 values quantized on the card: quantizing each side's own
+    corpus prefill (which differ by 1e-6) can move values by a whole
+    quantization step."""
+    from repro_torch.kvcache.paged import PagedKVCache
+    base = get_config("llama3-8b").reduced()
+    cfg = dataclasses.replace(base, dtype="float32", num_kv_heads=1,
+                              moska=dataclasses.replace(base.moska,
+                                                        top_k_chunks=3))
+    params = dense.init_params(cfg, torch.Generator().manual_seed(0))
+    g = np.random.default_rng(8)
+    corpus = torch.from_numpy(g.integers(0, cfg.vocab_size, (1, 384)))
+    prompts = torch.from_numpy(g.integers(0, cfg.vocab_size, (3, 20)))
+    B, bs, M = 3, 8, 4
+    table = (g.permutation(B * M + 4)[:B * M] + 1).reshape(B, M)
+
+    q8_card = []
+
+    def run(device):
+        p = copy.deepcopy(params).to(device)
+        L_, KH, D = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+
+        def cache(batch, max_seq):
+            return init_kv_cache(L_, batch, max_seq, KH, D, torch.float32,
+                                 device)
+
+        cc = cache(1, 384)
+        dense.prefill(cfg, p, corpus.to(device), cc)
+        store = build_store(cc.k[:, 0], cc.v[:, 0], cfg.moska.chunk_size)
+        if not q8_card:
+            q8_card.append(build_store(cc.k[:, 0], cc.v[:, 0],
+                                       cfg.moska.chunk_size, quantize=True))
+        q8 = type(store)(*(t.to(device) if t is not None else None
+                           for t in q8_card[0]))
+        c = cache(B, bs * M)
+        lg, _ = dense.prefill(cfg, p, prompts.to(device), c, store=store,
+                              start_pos=384)
+        nxt = lg.argmax(-1)
+        pool = PagedKVCache(torch.zeros((L_, B * M + 5, bs, KH, D),
+                                        device=device),
+                            torch.zeros((L_, B * M + 5, bs, KH, D),
+                                        device=device))
+        tbl = torch.from_numpy(table.astype(np.int32)).to(device)
+        for t_pool, t_cache in ((pool.k, c.k), (pool.v, c.v)):
+            t_pool[:, tbl.long()] = t_cache.reshape(L_, B, M, bs, KH, D)
+        lens = torch.full((B,), 20, dtype=torch.int32, device=device)
+        offs = torch.full((B,), 384, dtype=torch.int32, device=device)
+        lp, _ = dense.decode_step_paged(cfg, p, nxt, pool, tbl, lens, offs,
+                                        store=store)
+        c8 = KVCache(*(t.clone() for t in c))
+        lq, _ = dense.decode_step(cfg, p, nxt, c8, store=q8)
+        ls, _ = dense.decode_step(cfg, p, nxt, c, store=store)
+        assert torch.equal(lp, ls)
+        return lp.cpu(), lq.cpu()
+
+    n0 = ops.launch_counts()
+    on_card = run(cuda)
+    n1 = ops.launch_counts()
+    assert n1["paged_decode_attention"] == n0["paged_decode_attention"] + \
+        cfg.num_layers
+    assert n1["shared_chunk_attention_q8"] == \
+        n0["shared_chunk_attention_q8"] + cfg.num_layers
     on_cpu = run(torch.device("cpu"))
     for a, b in zip(on_card, on_cpu):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)

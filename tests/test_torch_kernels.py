@@ -6,6 +6,7 @@ within 2e-2. CPU calls never count as kernel launches."""
 import ast
 from pathlib import Path
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -71,6 +72,72 @@ def test_decode_attention(dtype, B, H, KH, D, S, blk):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,H,KH,D,N,bs,M", [
+    (3, 8, 2, 32, 16, 16, 4),
+    (2, 4, 4, 64, 9, 32, 3),
+    (1, 16, 8, 128, 32, 8, 8),
+])
+def test_paged_decode_attention(dtype, B, H, KH, D, N, bs, M):
+    """The plain paged version against the reference's Pallas kernel
+    (interpret mode) and its gather oracle, over distinct scrambled pages;
+    and bitwise against the plain slotted version on the same logical
+    cache (zeros past each length there, the pool's garbage here)."""
+    from repro.kernels.paged_decode_attn import paged_decode_attention_ref
+    qj, qt = both(randn(20, (B, H, D)), dtype)
+    kj, kt = both(randn(21, (N, bs, KH, D)), dtype)
+    vj, vt = both(randn(22, (N, bs, KH, D)), dtype)
+    g = np.random.default_rng(23)
+    table = (g.permutation(N - 1)[:B * M] + 1).reshape(B, M).astype(np.int32)
+    lens = g.integers(1, M * bs + 1, B).astype(np.int32)
+    lens[0] = M * bs                      # one full table
+    tj, tt = both(table)
+    lj, lt = both(lens)
+    o1, l1 = tops.paged_decode_attention(qt, kt, vt, tt, lt)
+    assert o1.dtype == qt.dtype
+    for o2, l2 in (jops.paged_decode_attention(qj, kj, vj, tj, lj),
+                   paged_decode_attention_ref(qj, kj, vj, tj, lj)):
+        assert_close(o1, o2, dtype)
+        assert_close(l1, l2, dtype)
+    live = torch.arange(M * bs)[None, :, None, None] < lt[:, None, None, None]
+    ks = torch.where(live, kt[tt.long()].reshape(B, M * bs, KH, D), 0)
+    vs = torch.where(live, vt[tt.long()].reshape(B, M * bs, KH, D), 0)
+    o3, l3 = tops.decode_attention(qt, ks.contiguous(), vs.contiguous(), lt)
+    assert torch.equal(o1, o3) and torch.equal(l1, l3)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("E,cap,H,KH,D,C,blk", [
+    (3, 8, 4, 2, 32, 64, 16), (2, 8, 8, 8, 64, 96, 64),
+])
+def test_shared_chunk_attention_q8(dtype, E, cap, H, KH, D, C, blk):
+    """The plain int8 version against the reference's Pallas q8 kernel
+    (interpret mode), on the same int8 values and scales. The reference
+    kernel always writes bf16 (the port writes qd's dtype), so the output
+    is held to 2e-2; the fp32 lse to 2e-5. With fp32 queries the plain
+    version also equals the fp reference on the fp32 dequantized store."""
+    from repro.core.shared_kv import _quantize
+    from repro.kernels.shared_chunk_attn import shared_chunk_attention_q8
+    qj, qt = both(randn(24, (E, cap, H, D)), dtype)
+    kq, ks = _quantize(jnp.asarray(randn(25, (E, C, KH, D))))
+    vq, vs = _quantize(jnp.asarray(randn(26, (E, C, KH, D))))
+    (kqj, kqt), (vqj, vqt) = both(np.array(kq)), both(np.array(vq))
+    (ksj, kst), (vsj, vst) = both(np.array(ks)), both(np.array(vs))
+    mj, mt = both(np.random.default_rng(27).random((E, cap)) < 0.7)
+    o1, l1 = tops.shared_chunk_attention_q8(qt, kqt, vqt, kst, vst, mt)
+    assert o1.dtype == qt.dtype and kqt.dtype == torch.int8
+    o2, l2 = shared_chunk_attention_q8(qj, kqj, vqj, ksj, vsj, mj,
+                                       block_c=blk)
+    assert_close(o1, o2, tol=2e-2)
+    assert_close(l1, l2, tol=2e-5)
+    assert np.all(l1.numpy()[~mt.numpy()] < -1e29)
+    if dtype == "float32":
+        kd = kqt.float() * kst[..., None]
+        vd = vqt.float() * vst[..., None]
+        o3, l3 = tops.shared_chunk_attention(qt, kd, vd, mt)
+        assert torch.equal(o1, o3) and torch.equal(l1, l3)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("P,N,H,D,blk", [
     (2, 64, 4, 32, 16), (3, 7, 2, 16, 8), (4, 128, 8, 64, 128),
 ])
@@ -127,12 +194,16 @@ def test_every_kernel_has_source_plain_version_and_counter():
     notes = {"shared_chunk_attention": "shared_chunk_attn",
              "decode_attention": "decode_attn",
              "lse_merge": "lse_merge",
-             "router_scores": "router_score"}
+             "router_scores": "router_score",
+             "paged_decode_attention": "paged_decode_attn",
+             "shared_chunk_attention_q8": "shared_chunk_attn"}
     csrc = ROOT / "src/repro_torch/kernels/csrc"
+    assert sorted(fn.__name__ for fn in tops.KERNELS) == sorted(notes)
     for fn in tops.KERNELS:
         stem = notes[fn.__name__]
         text = (csrc / f"{stem}.cu").read_text()
         assert f"src/repro/kernels/{stem}.py" in text
+        assert fn.__name__ in text            # the TPU function it replaces
         assert "What bounds it on the H100" in text
         assert isinstance(fn.launches, int)
         assert callable(getattr(tref, f"{fn.__name__}_ref"))
