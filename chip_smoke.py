@@ -8,10 +8,12 @@ Phases, each printed as it runs; any failure exits non-zero:
   1. build  compile the hand-written kernels (``kernels/csrc/*.cu``, nvcc,
             sm_90a) and print ptxas' registers, shared memory and spills.
   2. check  hold each kernel against its plain PyTorch version on the card,
-            at the main path's shapes and at one ragged shape, in bf16
-            (tolerance 2e-2) and fp32 (2e-5), the bounds of
-            ``tests/test_kernels.py``; and the paged decode kernel against
-            the slotted one on the same logical cache, bit for bit.
+            at the main path's shapes (the decode step's, and for the two
+            shared-chunk entries also the routed prefill's) and at one
+            ragged shape, in bf16 (tolerance 2e-2) and fp32 (2e-5), the
+            bounds of ``tests/test_kernels.py``; masked rows of the shared
+            kernels must hold 0 and -1e30; and the paged decode kernel
+            against the slotted one on the same logical cache, bit for bit.
   3. serve  ``repro_torch.launch.serve.main``: tinyllama-1.1b at full width
             and depth, random weights from a seed, a 65,536-token shared
             corpus (32 chunks of 2,048; top-8 routing), 128 requests of 256
@@ -38,10 +40,12 @@ Phases, each printed as it runs; any failure exits non-zero:
   5. time   each kernel, its plain version and, where one exists, the one
             PyTorch call that computes the same function (``library_ms``),
             at the decode step's shapes, with CUDA events and the L2 cache
-            flushed before every launch.
+            flushed before every launch; then the two shared-chunk entries
+            at the routed prefill's shape beside their bound and SDPA.
   6. profile one decode step at the served shapes under torch.profiler:
             device time by kernel, and the device's idle share; then one
-            paged decode step.
+            paged decode step. Both must run the bf16 tensor-core shared
+            kernel and not the fp32 one.
 
 It then prints the kernels' JSON line, the card's name and power limit, and,
 as the last line, the device JSON. Without a card it exits 1 and prints no
@@ -168,6 +172,51 @@ def path_inputs(cfg, dtype, dev, seed=0):
     }
 
 
+def prefill_inputs(cfg, dtype, dev, seed=0):
+    """The shared kernels' inputs as one routed prefill of a 256-token
+    prompt gives them (``models/dense.py``): 2 groups of 128 queries, each
+    routed to its top-8 of 32 chunks at capacity 8 slots, each slot 128
+    query rows, so qd is (32, 1024, 32, 64) with each chunk's first 0-2
+    slots valid (16 routes in all)."""
+    from repro_torch.core import router
+    from repro_torch.core.shared_kv import _quantize
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    H, KH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    C, K = cfg.moska.chunk_size, cfg.moska.top_k_chunks
+    E, rb = CORPUS // C, 128
+    groups = PROMPT // rb
+    cap = min(router.required_capacity(groups, K, E,
+                                       cfg.moska.query_capacity_factor),
+              groups * K)
+    ids = router.top_k(torch.rand((groups, E), generator=g, device=dev), K)[1]
+    _, pos, keep = router.dispatch_plan(ids, E, cap)
+    slots = torch.zeros((E, cap), dtype=torch.bool, device=dev)
+    slots[ids.reshape(-1)[keep], pos[keep]] = True
+    qmask = slots.repeat_interleave(rb, dim=1).contiguous()
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    kq, ks = _quantize(torch.randn((E, C, KH, D), generator=g, device=dev))
+    vq, vs = _quantize(torch.randn((E, C, KH, D), generator=g, device=dev))
+    return {
+        "shared_chunk_attention": (randn(E, cap * rb, H, D),
+                                   randn(E, C, KH, D), randn(E, C, KH, D),
+                                   qmask),
+        "shared_chunk_attention_q8": (randn(E, cap * rb, H, D), kq, vq, ks,
+                                      vs, qmask),
+    }
+
+
+def plain_by_chunk(plain, args):
+    """A shared kernel's plain version one chunk at a time (chunks are
+    independent): at the prefill shape the whole fp32 score tensor would be
+    8.6 GB."""
+    parts = [plain(*(a[e:e + 1] for a in args)) for e in range(len(args[0]))]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
 def ragged_inputs(dtype, dev, seed=1):
     """One shape per kernel that is ragged against its tiles."""
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -238,19 +287,22 @@ def phase_check(cfg, dev):
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
         for label, inputs in (("path", path_inputs(cfg, dtype, dev)),
+                              ("prefill", prefill_inputs(cfg, dtype, dev)),
                               ("ragged", ragged_inputs(dtype, dev))):
-            paged = inputs["paged_decode_attention"]
-            got = ops.paged_decode_attention(*paged)
-            want = ops.decode_attention(*slotted_view(*paged))
-            torch.cuda.synchronize()
-            same = all(torch.equal(a, b) for a, b in zip(got, want))
-            say(f"[check] paged == slotted decode kernel {label:6s} "
-                f"{str(dtype)[6:]:8s} bitwise={same}")
-            check(same, ("paged vs slotted decode kernel", label, dtype))
+            if "paged_decode_attention" in inputs:
+                paged = inputs["paged_decode_attention"]
+                got = ops.paged_decode_attention(*paged)
+                want = ops.decode_attention(*slotted_view(*paged))
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip(got, want))
+                say(f"[check] paged == slotted decode kernel {label:7s} "
+                    f"{str(dtype)[6:]:8s} bitwise={same}")
+                check(same, ("paged vs slotted decode kernel", label, dtype))
             for name, args in inputs.items():
                 got = getattr(ops, name)(*args)
                 torch.cuda.synchronize()
-                want = plain[name](*args)
+                want = (plain_by_chunk(plain[name], args) if label == "prefill"
+                        else plain[name](*args))
                 got = got if isinstance(got, tuple) else (got,)
                 want = want if isinstance(want, tuple) else (want,)
                 err = max(float((a.float() - b.float()).abs().max())
@@ -259,10 +311,15 @@ def phase_check(cfg, dev):
                 for a, b in zip(got, want):
                     torch.testing.assert_close(a.float(), b.float(),
                                                rtol=tol, atol=tol)
-                say(f"[check] {name:24s} {label:6s} {str(dtype)[6:]:8s} "
+                if name.startswith("shared_chunk_attention"):
+                    rows = ~args[-1]              # masked rows: 0 and -1e30
+                    check(bool((got[0][rows] == 0).all()) and
+                          bool((got[1][rows] == -1e30).all()),
+                          ("masked rows", name, label, dtype))
+                say(f"[check] {name:24s} {label:7s} {str(dtype)[6:]:8s} "
                     f"max_abs_err={err:.3e} tol={tol:g} ok")
-                if label == "path" and dtype == torch.bfloat16:
-                    errs[name] = err
+                if label != "ragged" and dtype == torch.bfloat16:
+                    errs[name] = max(errs.get(name, 0.0), err)
     return errs
 
 
@@ -712,7 +769,35 @@ def phase_time(cfg, dev, counts, errs):
                      else "dequantize + SDPA")
             say(f"[time] {name:24s} two-call comparison ({label}, not one "
                 f"library call) ms={_time_ms(two):.4f}")
+    time_prefill(cfg, dev)
     return rows
+
+
+def time_prefill(cfg, dev):
+    """The shared kernels at the routed prefill's shape (most of their
+    launches in a served run), beside their bound, SDPA with GQA over every
+    row (for the int8 store on K/V dequantized beforehand) and, for the
+    int8 entry, dequantize + SDPA timed as one."""
+    from repro_torch.kernels import ops
+    for name, args in prefill_inputs(cfg, torch.bfloat16, dev,
+                                     seed=2).items():
+        kern = getattr(ops, name)
+        ms = _time_ms(lambda: kern(*args))
+        bound_ms, bound_by = _bound(name, args)
+        if name == "shared_chunk_attention":
+            sdpa_args = args
+        else:
+            qd, k, v, ks, vs, qmask = args
+            sdpa_args = (qd, (k * ks[..., None]).to(qd.dtype),
+                         (v * vs[..., None]).to(qd.dtype), qmask)
+        sdpa_ms = _time_ms(_library_call("shared_chunk_attention", sdpa_args))
+        two = _two_calls(name, args)
+        extra = "" if two is None else \
+            f" dequantize+SDPA_ms={_time_ms(two):.4f}"
+        say(f"[time] {name:24s} prefill ms={ms:.4f} bound_ms={bound_ms:.4f} "
+            f"({bound_by}) SDPA_ms={sdpa_ms:.4f}{extra} valid_rows="
+            f"{int(args[-1].sum())}/{args[-1].numel()} "
+            f"shapes={[tuple(a.shape) for a in args]}")
 
 
 def phase_profile(cfg, dev):
@@ -777,14 +862,22 @@ def phase_profile(cfg, dev):
             torch.cuda.synchronize()
             walls[label].append(time.perf_counter() - t0)
     for label, fn in steps.items():
-        _profile_step(label, fn, float(np.median(walls[label])))
+        names = _profile_step(label, fn, float(np.median(walls[label])))
+        # bf16 shared attention runs on the tensor-core kernel, and the
+        # fp32 CUDA-core kernel is for fp32 queries only
+        mma = [n for n in names if "shared_chunk_mma_kernel" in n]
+        fp32 = [n for n in names if "shared_chunk_attn_kernel" in n]
+        say(f"[profile] {label}: tensor-core shared kernel launched: "
+            f"{bool(mma)}; fp32 shared kernel launched: {bool(fp32)}")
+        check(mma and not fp32, (label, "shared kernels", mma, fp32))
 
 
 def _profile_step(label, step, wall):
     """One profiled run of ``step`` (its unprofiled median ``wall`` given):
     device time by kernel, the device's idle share, the host operations
     that took the most host time, and every call in the step that made the
-    host wait for the card (``torch.cuda.set_sync_debug_mode``)."""
+    host wait for the card (``torch.cuda.set_sync_debug_mode``). Returns
+    the names of the kernels that ran on the card."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.set_sync_debug_mode("warn")
     with warnings.catch_warnings(record=True) as caught:
@@ -819,6 +912,7 @@ def _profile_step(label, step, wall):
     for e in host[:8]:
         say(f"[profile] host {e.self_cpu_time_total / 1e3:9.3f} ms "
             f"{e.count:5d}x  {e.key[:80]}")
+    return [e.key for e in kernels]
 
 
 def main() -> int:

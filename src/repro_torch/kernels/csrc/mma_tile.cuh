@@ -1,0 +1,401 @@
+// Tensor-core attention tiles for Hopper: a FlashAttention-2-style loop of
+// bf16 mma.sync m16n8k16 products with fp32 sums, fragments read from
+// shared memory by ldmatrix, and K/V tiles copied in by cp.async into a
+// ring of stages, so the copy of tile t + 1 overlaps the products of tile
+// t. Used by shared_chunk_attn.cu for bf16 queries (rows = dispatched
+// queries x group heads, keys = one shared chunk, bf16 or int8 with
+// scales).
+//
+// A block is 4 warps over 64 query rows, 16 rows a warp. The warp keeps
+// its Q fragments, its 16 x D output sum and its softmax state in
+// registers; S = Q K^T goes from the accumulator fragments straight into
+// the A fragments of P V, with no trip through shared memory. Every shared
+// row is padded by 16 bytes, so the 8 row addresses of one ldmatrix fall
+// in 8 distinct bank groups.
+//
+// Where a K/V tile comes from is a source policy (StridedBf16KV,
+// StridedQ8KV below): issue(stage, t0, n) starts the copies of keys
+// [t0, t0 + 64), zero-filling rows past n; prepare(stage, scratch) is
+// called once the stage has landed and returns the bf16 tiles to read.
+//
+// Numerics: products of bf16 values are exact in the fp32 sums; scores,
+// the running max and the denominator stay fp32. The one extra rounding
+// against attn_tile.cuh is P to bf16 before P V, as in FlashAttention-2.
+#pragma once
+
+#include "common.cuh"
+
+namespace moska {
+
+constexpr int kMmaThreads = 128;  // 4 warps
+constexpr int kMmaRows = 64;      // query rows per block: 16 per warp
+constexpr int kMmaKeys = 64;      // keys per K/V stage
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// shared row of D bf16 values, padded by 8 values (16 bytes)
+template <int D>
+__host__ __device__ constexpr int mma_ld() { return D + 8; }
+
+// K/V stages in the ring: fewer at D = 128, where one stage is 34 KB
+template <int D>
+__host__ __device__ constexpr int mma_stages() { return D >= 128 ? 2 : 3; }
+
+// one padded (64, D) bf16 tile, in bytes
+template <int D>
+__host__ __device__ constexpr int mma_tile_bytes() {
+  return kMmaKeys * mma_ld<D>() * 2;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy global -> shared; with bytes = 0 it reads
+// nothing and writes 16 zero bytes
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// 4-byte asynchronous copy (the int8 store's scales, strided by KH)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8x8 b16 matrices; lane i gives the address of row i % 8 of matrix
+// i / 8 and receives in r[m] the pair (row lane / 4, cols 2 (lane % 4) + 0,1)
+// of matrix m
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// the same, transposed: r[m] holds (rows 2 (lane % 4) + 0,1, col lane / 4)
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// c (16 x 8, fp32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats as a bf16 pair, lo in the low half (the lower column)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// the tiles one K/V stage offers the products: padded (64, D) bf16 K and
+// V, and for the int8 store the 64 keys' scales (nullptr for bf16)
+struct MmaKV {
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  const float* k_scale;
+  const float* v_scale;
+};
+
+// bf16 K/V of one sequence, element (p, d) at k[p * stride + d]: copied
+// straight into the stage
+template <int D>
+struct StridedBf16KV {
+  static constexpr int kStageBytes = 2 * mma_tile_bytes<D>();
+  static constexpr int kScratchBytes = 0;
+  const __nv_bfloat16* __restrict__ k;
+  const __nv_bfloat16* __restrict__ v;
+  long stride;
+
+  __device__ __forceinline__ void issue(char* stage, int t0, int n) const {
+    constexpr int kChunks = D / 8;  // 16-byte chunks of a row
+    auto* ks = reinterpret_cast<__nv_bfloat16*>(stage);
+    auto* vs = ks + kMmaKeys * mma_ld<D>();
+    for (int i = threadIdx.x; i < kMmaKeys * kChunks; i += kMmaThreads) {
+      const int j = i / kChunks, c = i % kChunks;
+      const bool in = t0 + j < n;
+      const long o = (in ? (long)(t0 + j) * stride : 0) + c * 8;
+      const int dst = j * mma_ld<D>() + c * 8;
+      cp_async16(ks + dst, k + o, in ? 16 : 0);
+      cp_async16(vs + dst, v + o, in ? 16 : 0);
+    }
+  }
+
+  __device__ __forceinline__ MmaKV prepare(char* stage, char*) const {
+    auto* ks = reinterpret_cast<const __nv_bfloat16*>(stage);
+    return MmaKV{ks, ks + kMmaKeys * mma_ld<D>(), nullptr, nullptr};
+  }
+};
+
+// int8 K/V of one sequence with one f32 scale per (position, kv head):
+// the stage holds the int8 rows and the scales; prepare widens the int8
+// rows into bf16 tiles in the scratch (exact: every int8 value is a bf16
+// value), and the scales are applied to the scores and to P in fp32
+template <int D>
+struct StridedQ8KV {
+  static constexpr int kStageBytes = 2 * kMmaKeys * D + 2 * kMmaKeys * 4;
+  static constexpr int kScratchBytes = 2 * mma_tile_bytes<D>();
+  const int8_t* __restrict__ k;
+  const int8_t* __restrict__ v;
+  const float* __restrict__ k_scale;
+  const float* __restrict__ v_scale;
+  long stride;        // KH * D
+  long scale_stride;  // KH
+
+  __device__ __forceinline__ void issue(char* stage, int t0, int n) const {
+    constexpr int kChunks = D / 16;  // 16-byte chunks of an int8 row
+    int8_t* k8 = reinterpret_cast<int8_t*>(stage);
+    int8_t* v8 = k8 + kMmaKeys * D;
+    float* ksc = reinterpret_cast<float*>(v8 + kMmaKeys * D);
+    float* vsc = ksc + kMmaKeys;
+    for (int i = threadIdx.x; i < kMmaKeys * kChunks; i += kMmaThreads) {
+      const int j = i / kChunks, c = i % kChunks;
+      const bool in = t0 + j < n;
+      const long o = (in ? (long)(t0 + j) * stride : 0) + c * 16;
+      cp_async16(k8 + j * D + c * 16, k + o, in ? 16 : 0);
+      cp_async16(v8 + j * D + c * 16, v + o, in ? 16 : 0);
+    }
+    for (int j = threadIdx.x; j < kMmaKeys; j += kMmaThreads) {
+      const bool in = t0 + j < n;
+      const long o = in ? (long)(t0 + j) * scale_stride : 0;
+      cp_async4(ksc + j, k_scale + o, in ? 4 : 0);
+      cp_async4(vsc + j, v_scale + o, in ? 4 : 0);
+    }
+  }
+
+  // every thread of the block calls it; it synchronises before returning
+  __device__ __forceinline__ MmaKV prepare(char* stage, char* scratch) const {
+    constexpr int kUnits = D / 8;  // 8 int8 values -> one 16-byte bf16 store
+    const int8_t* k8 = reinterpret_cast<const int8_t*>(stage);
+    const int8_t* v8 = k8 + kMmaKeys * D;
+    const float* ksc = reinterpret_cast<const float*>(v8 + kMmaKeys * D);
+    auto* kt = reinterpret_cast<__nv_bfloat16*>(scratch);
+    auto* vt = kt + kMmaKeys * mma_ld<D>();
+    for (int i = threadIdx.x; i < 2 * kMmaKeys * kUnits; i += kMmaThreads) {
+      const int which = i / (kMmaKeys * kUnits);  // 0: K, 1: V
+      const int u = i % (kMmaKeys * kUnits);
+      const int j = u / kUnits, c = u % kUnits;
+      const int2 raw = *reinterpret_cast<const int2*>(
+          (which ? v8 : k8) + j * D + c * 8);
+      const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+      uint4 w;
+      w.x = pack_bf16((float)b[0], (float)b[1]);
+      w.y = pack_bf16((float)b[2], (float)b[3]);
+      w.z = pack_bf16((float)b[4], (float)b[5]);
+      w.w = pack_bf16((float)b[6], (float)b[7]);
+      *reinterpret_cast<uint4*>((which ? vt : kt) + j * mma_ld<D>() + c * 8) =
+          w;
+    }
+    __syncthreads();
+    return MmaKV{kt, vt, ksc, ksc + kMmaKeys};
+  }
+};
+
+// Shared memory of one block: the Q tile, the ring of K/V stages, and the
+// source's scratch, in bytes.
+template <int D, typename Src>
+__host__ __device__ constexpr int mma_smem_bytes() {
+  return mma_tile_bytes<D>() + mma_stages<D>() * Src::kStageBytes +
+         Src::kScratchBytes;
+}
+
+// One warp's share of a block: 16 query rows (tile rows 16 w .. 16 w + 15)
+// against keys [0, n). Lane l holds rows g = l / 4 and g + 8 of its 16
+// and, of each 8-column block, columns 2 (l % 4) + 0,1. On return o holds
+// the unnormalised output of those entries (o[b] is column block b), m the
+// row max of the scaled scores in log2 units and l the row denominator,
+// both per row (0: row g, 1: row g + 8) and complete in every lane.
+template <int D>
+struct MmaRows {
+  float o[D / 8][4];
+  float m[2];
+  float l[2];
+};
+
+// Attend the block's 64 query rows, already copied into sq (padded, bf16,
+// unscaled; the caller has committed those copies as one cp.async group),
+// to keys [0, n) that `src` reads. scale_log2 = log2(e) / sqrt(D). Every
+// thread of the block must call it.
+template <int D, typename Src>
+__device__ __forceinline__ void attend_rows_mma(const __nv_bfloat16* sq,
+                                                char* ring, char* scratch,
+                                                const Src& src, int n,
+                                                float scale_log2,
+                                                MmaRows<D>& acc) {
+  constexpr int S = mma_stages<D>();
+  constexpr int LD = mma_ld<D>();
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int t = lane & 3;  // column pair of the C fragments
+  const int nt = (n + kMmaKeys - 1) / kMmaKeys;
+
+  // prologue: tiles 0 .. S-2, one group each (empty groups past the end
+  // keep the count uniform)
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < nt) src.issue(ring + s * Src::kStageBytes, s * kMmaKeys, n);
+    cp_async_commit();
+  }
+  // the Q group is the oldest; S - 1 tile groups may stay in flight
+  cp_async_wait<S - 1>();
+  __syncthreads();
+  uint32_t qa[D / 16][4];
+  {
+    const __nv_bfloat16* qr = sq + (warp * 16 + (lane & 15)) * LD +
+                              (lane >> 4) * 8;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) ldsm_x4(qa[kk], qr + kk * 16);
+  }
+
+#pragma unroll
+  for (int b = 0; b < D / 8; ++b)
+    acc.o[b][0] = acc.o[b][1] = acc.o[b][2] = acc.o[b][3] = 0.f;
+  acc.m[0] = acc.m[1] = kNegInf;
+  acc.l[0] = acc.l[1] = 0.f;  // this lane's partial sums until the end
+
+  for (int it = 0; it < nt; ++it) {
+    // tile it has landed (for every thread, after the barrier), and every
+    // warp is done with tile it - 1, whose stage the next copy refills
+    cp_async_wait<S - 2>();
+    __syncthreads();
+    if (it + S - 1 < nt)
+      src.issue(ring + ((it + S - 1) % S) * Src::kStageBytes,
+                (it + S - 1) * kMmaKeys, n);
+    cp_async_commit();
+    const MmaKV kv = src.prepare(ring + (it % S) * Src::kStageBytes, scratch);
+    const int t0 = it * kMmaKeys;
+
+    // S = Q K^T: 8 column blocks of 8 keys; one ldmatrix.x4 gives the B
+    // fragments of two blocks at one 16-wide step of D
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    {
+      const __nv_bfloat16* kr =
+          kv.k + ((lane & 7) + ((lane >> 4) << 3)) * LD + ((lane >> 3) & 1) * 8;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+        for (int jp = 0; jp < 4; ++jp) {
+          uint32_t b[4];
+          ldsm_x4(b, kr + jp * 16 * LD + kk * 16);
+          mma_bf16(s[2 * jp], qa[kk], b[0], b[1]);
+          mma_bf16(s[2 * jp + 1], qa[kk], b[2], b[3]);
+        }
+      }
+    }
+
+    // scale (and the int8 store's k_scale) in fp32, mask keys past n, and
+    // the online softmax in log2 units; entry e of block j is row
+    // g + 8 (e / 2), key 8 j + 2 t + e % 2
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = 8 * j + 2 * t + (e & 1);
+        float x = s[j][e] * scale_log2;
+        if (kv.k_scale) x *= kv.k_scale[key];
+        x = (t0 + key < n) ? x : kNegInf;
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(acc.m[r], mx[r]);
+      corr[r] = exp2f(acc.m[r] - m_new);
+      acc.m[r] = m_new;
+      acc.l[r] *= corr[r];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[j][e] - acc.m[e >> 1]);
+        acc.l[e >> 1] += p;
+        s[j][e] = p;
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < D / 8; ++b) {
+      acc.o[b][0] *= corr[0];
+      acc.o[b][1] *= corr[0];
+      acc.o[b][2] *= corr[1];
+      acc.o[b][3] *= corr[1];
+    }
+
+    // O += P V, 16 keys a step: P's A fragments are the score blocks
+    // 2 ks and 2 ks + 1, rounded to bf16 (after the int8 store's v_scale);
+    // one ldmatrix.x4.trans gives the B fragments of two column blocks
+    {
+      const __nv_bfloat16* vr =
+          kv.v + ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        float vs[2][2] = {{1.f, 1.f}, {1.f, 1.f}};
+        if (kv.v_scale) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            vs[h][0] = kv.v_scale[16 * ks + 8 * h + 2 * t];
+            vs[h][1] = kv.v_scale[16 * ks + 8 * h + 2 * t + 1];
+          }
+        }
+        const float(&p0)[4] = s[2 * ks];
+        const float(&p1)[4] = s[2 * ks + 1];
+        const uint32_t pa[4] = {
+            pack_bf16(p0[0] * vs[0][0], p0[1] * vs[0][1]),
+            pack_bf16(p0[2] * vs[0][0], p0[3] * vs[0][1]),
+            pack_bf16(p1[0] * vs[1][0], p1[1] * vs[1][1]),
+            pack_bf16(p1[2] * vs[1][0], p1[3] * vs[1][1])};
+#pragma unroll
+        for (int dp = 0; dp < D / 16; ++dp) {
+          uint32_t b[4];
+          ldsm_x4_t(b, vr + ks * 16 * LD + dp * 16);
+          mma_bf16(acc.o[2 * dp], pa, b[0], b[1]);
+          mma_bf16(acc.o[2 * dp + 1], pa, b[2], b[3]);
+        }
+      }
+    }
+  }
+  // no copy may be in flight when the block exits or reuses the ring
+  cp_async_wait<0>();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    acc.l[r] += __shfl_xor_sync(0xffffffffu, acc.l[r], 1);
+    acc.l[r] += __shfl_xor_sync(0xffffffffu, acc.l[r], 2);
+  }
+}
+
+}  // namespace moska

@@ -6,9 +6,7 @@
 // (_kernel_q8). Every query dispatched to shared chunk e (cap slots, each
 // with the G query heads of one kv head) attends to that chunk's C keys,
 // non-causally; rows whose qmask is false get out 0 and lse -1e30. The
-// int8 entry reads int8 K/V and one f32 scale per (token, kv head) and
-// dequantizes k_int8 * k_scale in fp32 as each tile is staged; it is the
-// same kernel with another loader (attn_tile.cuh::Q8KV).
+// int8 entry reads int8 K/V and one f32 scale per (token, kv head).
 //
 // Output dtype: qd's, for both entries. For bf16 queries (how the serving
 // path runs) that is the TPU q8 kernel's contract, which always writes
@@ -18,18 +16,35 @@
 //
 // What bounds it on the H100: the (chunk, kv head) K/V tile is read once
 // per block and reused by up to 64 query rows, so at the serving shapes
-// (cap * G = 256 rows per chunk and kv head, C = 2048, D = 64) the work is
-// compute-heavy (about 64 flops per K/V byte per block), and this simple
-// version is limited by fp32 FMA issue and shared-memory reads, not by
-// HBM. The int8 store halves the K/V bytes read from HBM against bf16,
-// which moves the byte bound and not this version's time. Its design: one
-// block per (row tile of <= 64 rows, kv head, chunk); K/V staged through
-// shared memory 64 keys at a time; online softmax per row. Dispatch fills
-// each chunk's slots from position 0, so the valid rows are a prefix and
-// tiles with no valid row exit after writing the masked result: only the
-// routed work is computed. wgmma, TMA and a split over C come in later
-// versions.
+// (cap * G = 256 rows per chunk and kv head, C = 2048, D = 64) the work
+// does about 64 flops per K/V byte a block, under the card's ~295 bf16
+// flops/byte balance: HBM bytes bound it, and the tensor cores must keep
+// the products off the critical path. At the routed prefill shape
+// (cap = 1024, 0-2 valid slots of 128 queries per chunk) most row tiles
+// are empty, and writing their masked output (0, -1e30) is most of the
+// bytes.
+//
+// Two kernels, chosen by the queries' dtype (not a fallback: each dtype
+// has exactly one kernel, and a failed launch raises):
+//  - bf16 queries (the serving path), both entries: shared_chunk_mma_kernel,
+//    bf16 tensor cores (mma.sync m16n8k16, fp32 sums) over K/V tiles
+//    copied by cp.async into a ring of stages (mma_tile.cuh). An int8
+//    tile is widened to bf16 in shared memory (exact); k_scale multiplies
+//    the score columns and v_scale the probabilities, in fp32, before P
+//    is rounded to bf16 for P V. One block per (64-row tile, kv head,
+//    chunk), 4 warps of 16 rows.
+//  - fp32 queries: shared_chunk_attn_kernel, fp32 CUDA-core loops
+//    (attn_tile.cuh). The tensor cores have no fp32 mode that keeps the
+//    fp32 path within 2e-5 of the plain version (TF32 keeps about three
+//    digits), so fp32 stays exact there; the int8 entry dequantizes
+//    k_int8 * k_scale in fp32 as each tile is staged (attn_tile.cuh::Q8KV).
+//
+// Dispatch fills each chunk's slots from position 0, so the valid rows
+// are a prefix; a tile with no valid row writes the masked result (16
+// bytes a store in the bf16 kernel) and exits, so only routed work is
+// computed. wgmma, TMA and warp specialisation come in later versions.
 #include "attn_tile.cuh"
+#include "mma_tile.cuh"
 
 namespace moska {
 namespace {  // launch helpers are private to this file
@@ -58,7 +73,115 @@ struct ChunksQ8 {
     return Q8KV{k + s * D, v + s * D, k_scale + s, v_scale + s,
                 (long)KH * D, (long)KH};
   }
+  // the tensor-core kernel's view of one (chunk, kv head)
+  template <int D>
+  using MmaSeq = StridedQ8KV<D>;
+  template <int D>
+  __device__ __forceinline__ StridedQ8KV<D> mma_seq(int e, int kh, int C,
+                                                    int KH) const {
+    const long s = (long)e * C * KH + kh;
+    return StridedQ8KV<D>{k + s * D, v + s * D, k_scale + s, v_scale + s,
+                          (long)KH * D, (long)KH};
+  }
 };
+
+// the bf16 store's chunks (E, C, KH, D), as the tensor-core kernel reads
+// them
+struct ChunksBf16 {
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  template <int D>
+  using MmaSeq = StridedBf16KV<D>;
+  template <int D>
+  __device__ __forceinline__ StridedBf16KV<D> mma_seq(int e, int kh, int C,
+                                                      int KH) const {
+    const long o = ((long)e * C * KH + kh) * D;
+    return StridedBf16KV<D>{k + o, v + o, (long)KH * D};
+  }
+};
+
+// out/lse offset of tile row `row` of (chunk e, kv head kh): row is
+// (slot c, group head g) = divmod(row, G)
+__device__ __forceinline__ long row_offset(int e, int kh, int row, int cap,
+                                           int H, int G) {
+  return ((long)e * cap + row / G) * H + kh * G + row % G;
+}
+
+// bf16 queries, both entries: see the note at the top and mma_tile.cuh.
+// At least 2 blocks an SM (what shared memory allows at D = 128): without
+// that hint ptxas held the D = 32 variant to 96 registers and spilled.
+template <int D, typename Chunks>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+    shared_chunk_mma_kernel(const __nv_bfloat16* __restrict__ qd,
+                            const Chunks chunks,
+                            const uint8_t* __restrict__ qmask,
+                            __nv_bfloat16* __restrict__ out,
+                            float* __restrict__ lse, int cap, int H, int KH,
+                            int C, float scale_log2) {
+  using Src = typename Chunks::template MmaSeq<D>;
+  constexpr int LD = mma_ld<D>();
+  constexpr int kChunks = D / 8;  // 16-byte chunks of a row
+  extern __shared__ __align__(16) char mma_smem[];
+  const int G = H / KH;
+  const int kh = blockIdx.y;
+  const int e = blockIdx.z;
+  const int row0 = blockIdx.x * kMmaRows;
+  const int rows = min(kMmaRows, cap * G - row0);
+  const int tid = threadIdx.x;
+  const uint8_t* mask = qmask + (long)e * cap;
+
+  int mine = 0;
+  for (int r = tid; r < rows; r += kMmaThreads) mine |= mask[(row0 + r) / G];
+  if (!__syncthreads_or(mine)) {
+    // no valid slot: the masked result, 16 bytes a store
+    for (int i = tid; i < rows * kChunks; i += kMmaThreads) {
+      const long o = row_offset(e, kh, row0 + i / kChunks, cap, H, G);
+      *reinterpret_cast<uint4*>(out + o * D + (i % kChunks) * 8) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+    for (int r = tid; r < rows; r += kMmaThreads)
+      lse[row_offset(e, kh, row0 + r, cap, H, G)] = kNegInf;
+    return;
+  }
+
+  // Q tile: rows past `rows` are zero (their scores are computed and
+  // never stored)
+  auto* sq = reinterpret_cast<__nv_bfloat16*>(mma_smem);
+  for (int i = tid; i < kMmaRows * kChunks; i += kMmaThreads) {
+    const int r = i / kChunks, c = i % kChunks;
+    const bool in = r < rows;
+    const long o = row_offset(e, kh, row0 + (in ? r : 0), cap, H, G);
+    cp_async16(sq + r * LD + c * 8, qd + o * D + c * 8, in ? 16 : 0);
+  }
+  cp_async_commit();
+  char* ring = mma_smem + mma_tile_bytes<D>();
+  char* scratch = ring + mma_stages<D>() * Src::kStageBytes;
+  MmaRows<D> acc;
+  attend_rows_mma<D>(sq, ring, scratch,
+                     chunks.template mma_seq<D>(e, kh, C, KH), C, scale_log2,
+                     acc);
+
+  // epilogue: lane holds rows g and g + 8 of its warp's 16, columns
+  // 8 b + 2 t + 0,1 of each column block b
+  const int lane = tid & 31;
+  const int t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = (tid >> 5) * 16 + (lane >> 2) + 8 * h;
+    if (r >= rows) continue;
+    const int row = row0 + r;
+    const long o = row_offset(e, kh, row, cap, H, G);
+    const bool valid = mask[row / G];
+    const float l = fmaxf(acc.l[h], 1e-37f);
+    const float inv = valid ? 1.f / l : 0.f;
+    __nv_bfloat16* orow = out + o * D + 2 * t;
+#pragma unroll
+    for (int b = 0; b < D / 8; ++b)
+      *reinterpret_cast<uint32_t*>(orow + 8 * b) =
+          pack_bf16(acc.o[b][2 * h] * inv, acc.o[b][2 * h + 1] * inv);
+    if (t == 0) lse[o] = valid ? acc.m[h] * kLn2 + logf(l) : kNegInf;
+  }
+}
 
 template <typename T, int D, typename Chunks>
 __global__ void __launch_bounds__(kThreads)
@@ -154,6 +277,47 @@ cudaError_t dispatch_d(int D, const void* qd, const Chunks& chunks,
   }
 }
 
+template <int D, typename Chunks>
+cudaError_t launch_mma(const void* qd, const Chunks& chunks,
+                       const void* qmask, void* out, void* lse, int E,
+                       int cap, int H, int KH, int C, cudaStream_t stream) {
+  constexpr int smem =
+      mma_smem_bytes<D, typename Chunks::template MmaSeq<D>>();
+  auto kern = shared_chunk_mma_kernel<D, Chunks>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int G = H / KH;
+  dim3 grid((cap * G + kMmaRows - 1) / kMmaRows, KH, E);
+  kern<<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(qd), chunks,
+      static_cast<const uint8_t*>(qmask), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(lse), cap, H, KH, C, kLog2e / sqrtf((float)D));
+  return cudaGetLastError();
+}
+
+// the tensor-core kernel copies and stores 16 bytes at a time (the int8
+// store's scales 4)
+bool aligned(const void* p, int bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
+}
+
+template <typename Chunks>
+cudaError_t dispatch_mma(int D, const void* qd, const Chunks& chunks,
+                         const void* qmask, void* out, void* lse, int E,
+                         int cap, int H, int KH, int C, cudaStream_t stream) {
+  if (!aligned(qd, 16) || !aligned(out, 16) || !aligned(chunks.k, 16) ||
+      !aligned(chunks.v, 16))
+    return cudaErrorMisalignedAddress;
+  switch (D) {
+    case 16: return launch_mma<16>(qd, chunks, qmask, out, lse, E, cap, H, KH, C, stream);
+    case 32: return launch_mma<32>(qd, chunks, qmask, out, lse, E, cap, H, KH, C, stream);
+    case 64: return launch_mma<64>(qd, chunks, qmask, out, lse, E, cap, H, KH, C, stream);
+    case 128: return launch_mma<128>(qd, chunks, qmask, out, lse, E, cap, H, KH, C, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 }  // namespace moska
 
@@ -173,10 +337,9 @@ extern "C" int moska_shared_chunk_attn(const void* qd, const void* k,
     return dispatch_d<float>(D, qd, ch, qmask, out, lse, E, cap, H, KH, C, st);
   }
   if (dtype == kBF16) {
-    const ChunksFp<__nv_bfloat16> ch{static_cast<const __nv_bfloat16*>(k),
-                                     static_cast<const __nv_bfloat16*>(v)};
-    return dispatch_d<__nv_bfloat16>(D, qd, ch, qmask, out, lse, E, cap, H,
-                                     KH, C, st);
+    const ChunksBf16 ch{static_cast<const __nv_bfloat16*>(k),
+                        static_cast<const __nv_bfloat16*>(v)};
+    return dispatch_mma(D, qd, ch, qmask, out, lse, E, cap, H, KH, C, st);
   }
   return cudaErrorInvalidValue;
 }
@@ -200,8 +363,10 @@ extern "C" int moska_shared_chunk_attn_q8(const void* qd, const void* k,
                     static_cast<const float*>(v_scale)};
   if (dtype == kF32)
     return dispatch_d<float>(D, qd, ch, qmask, out, lse, E, cap, H, KH, C, st);
-  if (dtype == kBF16)
-    return dispatch_d<__nv_bfloat16>(D, qd, ch, qmask, out, lse, E, cap, H,
-                                     KH, C, st);
+  if (dtype == kBF16) {
+    if (!aligned(k_scale, 4) || !aligned(v_scale, 4))
+      return cudaErrorMisalignedAddress;
+    return dispatch_mma(D, qd, ch, qmask, out, lse, E, cap, H, KH, C, st);
+  }
   return cudaErrorInvalidValue;
 }

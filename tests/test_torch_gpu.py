@@ -45,26 +45,59 @@ def _close(got, want, tol):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("E,cap,H,KH,D,C", [
+# Shapes of the shared-chunk kernels (both entries): the first five are
+# small sweeps; then the decode step's shape (64 slots x top-8 over 32
+# chunks, capacity 32, tinyllama's 32 heads over 4 kv heads), the routed
+# prefill's (2 groups of 128 queries x top-8, capacity 8 slots of 128
+# rows), a case with a chunk of no valid slot and a chunk of a single one,
+# and D = 16 and 128 with C not a multiple of the 64-key tile.
+SHARED_SHAPES = [
     (3, 8, 4, 2, 32, 64),
     (2, 16, 8, 8, 64, 128),
     (1, 4, 2, 1, 16, 32),
     (4, 8, 6, 2, 64, 48),       # C not a multiple of the 64-key tile
     (2, 8, 4, 4, 128, 256),
     (2, 40, 16, 2, 64, 100),    # several row tiles per (chunk, kv head)
-])
+    (32, 32, 32, 4, 64, 2048),  # the decode step
+    (32, 1024, 32, 4, 64, 2048),  # the routed prefill
+    (3, 8, 8, 2, 64, 100),      # chunks of 0, 1 and 2 valid slots
+    (3, 24, 8, 2, 16, 100),
+    (2, 16, 8, 2, 128, 200),
+]
+# Where a shape is named here, chunk e has its first (e % 3) * width slots
+# valid and no other (the routed prefill fills each chunk's slots from 0:
+# 0, 1 or 2 groups of 128 queries); elsewhere slots are valid at random.
+PREFIX_SLOTS = {(32, 1024, 32, 4, 64, 2048): 128, (3, 8, 8, 2, 64, 100): 1}
+
+
+def _qmask(g, E, cap, H, KH, D, C, device):
+    width = PREFIX_SLOTS.get((E, cap, H, KH, D, C))
+    if width is None:
+        return torch.from_numpy(g.random((E, cap)) < 0.7).to(device)
+    n = (torch.arange(E, device=device) % 3 * width)[:, None]
+    return torch.arange(cap, device=device)[None] < n
+
+
+def _by_chunk(plain, *args):
+    """The plain version one chunk at a time (chunks are independent): at
+    the prefill shape the whole score tensor would be 8.6 GB in fp32."""
+    parts = [plain(*(a[e:e + 1] for a in args)) for e in range(len(args[0]))]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,cap,H,KH,D,C", SHARED_SHAPES)
 def test_shared_chunk_attention_kernel(cuda, dtype, E, cap, H, KH, D, C):
     g = np.random.default_rng(0)
     qd = _randn(g, (E, cap, H, D), dtype, cuda)
     k = _randn(g, (E, C, KH, D), dtype, cuda)
     v = _randn(g, (E, C, KH, D), dtype, cuda)
-    qm = torch.from_numpy(g.random((E, cap)) < 0.7).to(cuda)
+    qm = _qmask(g, E, cap, H, KH, D, C, cuda)
     n0 = ops.shared_chunk_attention.launches
     o1, l1 = ops.shared_chunk_attention(qd, k, v, qm)
     torch.cuda.synchronize()
     assert ops.shared_chunk_attention.launches == n0 + 1
-    o2, l2 = ref.shared_chunk_attention_ref(qd, k, v, qm)
+    o2, l2 = _by_chunk(ref.shared_chunk_attention_ref, qd, k, v, qm)
     _close(o1, o2, TOL[dtype])
     _close(l1, l2, TOL[dtype])
     assert o1.dtype == dtype and l1.dtype == torch.float32
@@ -163,7 +196,7 @@ def test_paged_decode_attention_kernel_rejects(cuda):
     (4, 8, 6, 2, 64, 48),
     (2, 40, 16, 2, 64, 100),
     (2, 8, 4, 4, 128, 256),
-])
+] + SHARED_SHAPES[6:])
 def test_shared_chunk_attention_q8_kernel(cuda, dtype, E, cap, H, KH, D, C):
     """The int8 kernel against its plain version (fp32 dequant + the fp
     reference); output in qd's dtype."""
@@ -172,12 +205,13 @@ def test_shared_chunk_attention_q8_kernel(cuda, dtype, E, cap, H, KH, D, C):
     qd = _randn(g, (E, cap, H, D), dtype, cuda)
     kq, ks = _quantize(_randn(g, (E, C, KH, D), torch.float32, cuda))
     vq, vs = _quantize(_randn(g, (E, C, KH, D), torch.float32, cuda))
-    qm = torch.from_numpy(g.random((E, cap)) < 0.7).to(cuda)
+    qm = _qmask(g, E, cap, H, KH, D, C, cuda)
     n0 = ops.shared_chunk_attention_q8.launches
     o1, l1 = ops.shared_chunk_attention_q8(qd, kq, vq, ks, vs, qm)
     torch.cuda.synchronize()
     assert ops.shared_chunk_attention_q8.launches == n0 + 1
-    o2, l2 = ref.shared_chunk_attention_q8_ref(qd, kq, vq, ks, vs, qm)
+    o2, l2 = _by_chunk(ref.shared_chunk_attention_q8_ref, qd, kq, vq, ks, vs,
+                       qm)
     _close(o1, o2, TOL[dtype])
     _close(l1, l2, TOL[dtype])
     assert o1.dtype == dtype and l1.dtype == torch.float32

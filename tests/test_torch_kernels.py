@@ -137,6 +137,71 @@ def test_shared_chunk_attention_q8(dtype, E, cap, H, KH, D, C, blk):
         assert torch.equal(o1, o3) and torch.equal(l1, l3)
 
 
+def _mma_numerics(qd, k, v, qmask, k_scale=None, v_scale=None):
+    """What the bf16 tensor-core kernel (csrc/mma_tile.cuh) computes, in
+    plain torch: 64-key tiles; exact products of bf16 (or int8) values
+    summed in fp32; scores scaled by log2(e)/sqrt(D) (and k_scale) in fp32;
+    online softmax in log2 units with exp2; the denominator sums the fp32
+    p; only P (times v_scale) is rounded to bf16 for P V; lse = m ln 2 +
+    ln l. Returns (out in bf16, lse fp32) like the kernel."""
+    E, cap, H, D = qd.shape
+    C, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    q = qd.float().reshape(E, cap, KH, G, D)
+    scale_log2 = np.float32(np.log2(np.e) / np.sqrt(D))
+    m = torch.full((E, cap, KH, G), -1e30)
+    l = torch.zeros((E, cap, KH, G))
+    o = torch.zeros((E, cap, KH, G, D))
+    for t0 in range(0, C, 64):
+        kt, vt = k[:, t0:t0 + 64].float(), v[:, t0:t0 + 64].float()
+        x = torch.einsum("eckgd,eskd->eckgs", q, kt) * scale_log2
+        if k_scale is not None:
+            x = x * k_scale[:, t0:t0 + 64].permute(0, 2, 1)[:, None, :, None]
+        m_new = torch.maximum(m, x.amax(-1))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(x - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        if v_scale is not None:
+            p = p * v_scale[:, t0:t0 + 64].permute(0, 2, 1)[:, None, :, None]
+        p = p.to(torch.bfloat16).float()
+        o = o * corr[..., None] + torch.einsum("eckgs,eskd->eckgd", p, vt)
+        m = m_new
+    valid = qmask[:, :, None, None]
+    out = torch.where(valid[..., None], o / l[..., None], 0.0)
+    lse = torch.where(valid, m * np.float32(np.log(2)) + torch.log(l), -1e30)
+    return (out.reshape(E, cap, H, D).to(torch.bfloat16),
+            lse.reshape(E, cap, H))
+
+
+@pytest.mark.parametrize("store", ["bf16", "int8"])
+@pytest.mark.parametrize("E,cap,H,KH,D,C", [
+    (3, 8, 16, 2, 64, 2048),      # the path's widths: C 2,048, D 64, G 8
+    (3, 5, 6, 2, 32, 100),        # ragged: C not a multiple of 64, G 3
+])
+def test_shared_chunk_mma_rounding(store, E, cap, H, KH, D, C):
+    """The tensor-core kernel's rounding scheme (bf16 P for P V; for the
+    int8 store the scales folded into the score columns and into P),
+    emulated on the CPU, stays within 2e-2 of the plain fp32 versions that
+    the kernel is held to on the card."""
+    from repro_torch.core.shared_kv import _quantize
+    qd = torch.from_numpy(randn(30, (E, cap, H, D))).to(torch.bfloat16)
+    qmask = torch.from_numpy(np.random.default_rng(31).random((E, cap)) < 0.7)
+    kf = torch.from_numpy(randn(32, (E, C, KH, D)))
+    vf = torch.from_numpy(randn(33, (E, C, KH, D)))
+    if store == "bf16":
+        k, v = kf.to(torch.bfloat16), vf.to(torch.bfloat16)
+        got = _mma_numerics(qd, k, v, qmask)
+        want = tref.shared_chunk_attention_ref(qd, k, v, qmask)
+    else:
+        (k, ks), (v, vs) = _quantize(kf), _quantize(vf)
+        got = _mma_numerics(qd, k, v, qmask, ks, vs)
+        want = tref.shared_chunk_attention_q8_ref(qd, k, v, ks, vs, qmask)
+    for a, b in zip(got, want):
+        assert_close(a, b, tol=2e-2)
+    assert np.all(got[1].numpy()[~qmask.numpy()] < -1e29)
+    assert np.all(got[0].float().numpy()[~qmask.numpy()] == 0.0)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("P,N,H,D,blk", [
     (2, 64, 4, 32, 16), (3, 7, 2, 16, 8), (4, 128, 8, 64, 128),
