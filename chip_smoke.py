@@ -8,8 +8,8 @@ Phases, each printed as it runs; any failure exits non-zero:
   1. build  compile the hand-written kernels (``kernels/csrc/*.cu``, nvcc,
             sm_90a) and print ptxas' registers, shared memory and spills.
   2. check  hold each kernel against its plain PyTorch version on the card,
-            at the main path's shapes (the decode step's, and for the two
-            shared-chunk entries also the routed prefill's) and at one
+            at the main path's shapes (the decode step's, and for the
+            routed kernels also the routed prefill's) and at one
             ragged shape, in bf16 (tolerance 2e-2) and fp32 (2e-5), the
             bounds of ``tests/test_kernels.py``; masked rows of the shared
             kernels must hold 0 and -1e30; and the paged decode kernel
@@ -40,12 +40,17 @@ Phases, each printed as it runs; any failure exits non-zero:
   5. time   each kernel, its plain version and, where one exists, the one
             PyTorch call that computes the same function (``library_ms``),
             at the decode step's shapes, with CUDA events and the L2 cache
-            flushed before every launch; then the two shared-chunk entries
-            at the routed prefill's shape beside their bound and SDPA.
+            flushed before every launch (the decode kernels also with the
+            L2 emptied by a read, beside the floors of the timing: a tiny
+            kernel and a sum over as many bytes); then the two shared-chunk
+            entries, ``lse_merge`` and ``router_scores`` at the routed
+            prefill's shapes beside their bound (and SDPA or ``einsum``).
   6. profile one decode step at the served shapes under torch.profiler:
             device time by kernel, and the device's idle share; then one
             paged decode step. Both must run the bf16 tensor-core shared
-            kernel and not the fp32 one.
+            kernel and not the fp32 one, the split-KV decode kernel of
+            their layout (``decode_slab_kernel``, ``decode_pages_kernel``)
+            and not the old tile kernels, in 2,547 and 2,787 launches.
 
 It then prints the kernels' JSON line, the card's name and power limit, and,
 as the last line, the device JSON. Without a card it exits 1 and prints no
@@ -84,6 +89,11 @@ SERVE_ARGV = ["--arch", ARCH, "--full", "--device", "cuda",
               "--corpus-tokens", str(CORPUS), "--requests", str(REQUESTS),
               "--slots", str(SLOTS), "--max-seq", "512",
               "--prompt-len", str(PROMPT), "--new-tokens", str(NEW_TOKENS)]
+
+# phase 6: each profiled step's unique decode kernel, and its launches
+STEP_DECODE_KERNEL = {"decode step": "decode_slab_kernel",
+                      "paged decode step": "decode_pages_kernel"}
+STEP_LAUNCHES = {"decode step": 2547, "paged decode step": 2787}
 
 # the paged phase's stream: prompts end mid-page, and two exceed max_seq
 PAGED_PROMPT, LONG_PROMPT, BLOCK = 250, 1000, 16
@@ -173,11 +183,13 @@ def path_inputs(cfg, dtype, dev, seed=0):
 
 
 def prefill_inputs(cfg, dtype, dev, seed=0):
-    """The shared kernels' inputs as one routed prefill of a 256-token
+    """The routed kernels' inputs as one routed prefill of a 256-token
     prompt gives them (``models/dense.py``): 2 groups of 128 queries, each
     routed to its top-8 of 32 chunks at capacity 8 slots, each slot 128
     query rows, so qd is (32, 1024, 32, 64) with each chunk's first 0-2
-    slots valid (16 routes in all)."""
+    slots valid (16 routes in all); the router scores the 2 groups' mean
+    queries, q (2, 32, 64), and the K-chunk merge takes 8 partials of the
+    256 tokens, (8, 256, 32, 64)."""
     from repro_torch.core import router
     from repro_torch.core.shared_kv import _quantize
 
@@ -200,7 +212,10 @@ def prefill_inputs(cfg, dtype, dev, seed=0):
 
     kq, ks = _quantize(torch.randn((E, C, KH, D), generator=g, device=dev))
     vq, vs = _quantize(torch.randn((E, C, KH, D), generator=g, device=dev))
+    lses = torch.randn((K, PROMPT, H), generator=g, device=dev) * 3
     return {
+        "lse_merge": (randn(K, PROMPT, H, D), lses),
+        "router_scores": (randn(groups, H, D), randn(E, KH, D) * 0.2),
         "shared_chunk_attention": (randn(E, cap * rb, H, D),
                                    randn(E, C, KH, D), randn(E, C, KH, D),
                                    qmask),
@@ -301,7 +316,8 @@ def phase_check(cfg, dev):
             for name, args in inputs.items():
                 got = getattr(ops, name)(*args)
                 torch.cuda.synchronize()
-                want = (plain_by_chunk(plain[name], args) if label == "prefill"
+                want = (plain_by_chunk(plain[name], args)
+                        if label == "prefill" and name.startswith("shared")
                         else plain[name](*args))
                 got = got if isinstance(got, tuple) else (got,)
                 want = want if isinstance(want, tuple) else (want,)
@@ -617,19 +633,24 @@ def phase_agree(cfg, dev, corpus_len=32768):
     agree("paged decode step", paged_step)
 
 
-def _time_ms(fn, n=30):
+def _time_ms(fn, n=30, read_flush=False):
     """Mean device time of ``fn`` over n calls. Before each call a 128 MB
     write empties the L2 cache (the path meets every layer's inputs cold)
     and a spin kernel of about 0.5 ms keeps the card busy while the host
     records the start event and enqueues ``fn``: the events then bracket
-    the device work alone, not the wrapper's host-side time."""
-    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    the device work alone, not the wrapper's host-side time. The write
+    leaves the L2 full of dirty lines, which ``fn``'s reads must write back
+    as they evict them; ``read_flush`` empties it by a 128 MB read instead."""
+    flush = torch.zeros(128 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     total = 0.0
     for _ in range(n):
-        flush.zero_()
+        if read_flush:
+            flush.sum()
+        else:
+            flush.zero_()
         torch.cuda._sleep(SPIN_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -769,21 +790,52 @@ def phase_time(cfg, dev, counts, errs):
                      else "dequantize + SDPA")
             say(f"[time] {name:24s} two-call comparison ({label}, not one "
                 f"library call) ms={_time_ms(two):.4f}")
+        if name.endswith("decode_attention"):
+            rf_ms = _time_ms(lambda: kern(*args), read_flush=True)
+            say(f"[time] {name:24s} with the L2 emptied by a read (no dirty "
+                f"lines) ms={rf_ms:.4f}")
+    time_floors(path_inputs(cfg, torch.bfloat16, dev, seed=2)
+                ["decode_attention"])
     time_prefill(cfg, dev)
     return rows
 
 
+def time_floors(decode_args):
+    """What ``_time_ms`` reads for almost no work, and for a plain read of
+    as many bytes as the decode kernels' K/V at the decode shape (one
+    ``sum`` over a bf16 tensor of that size), with each of the two flushes:
+    the floor that a kernel's time is read against."""
+    q, k, _, lens = decode_args
+    byts = 2 * int(lens.sum()) * k.shape[2] * k.shape[3] * k.element_size()
+    x = torch.ones(byts // 2, dtype=torch.bfloat16, device=q.device)
+    z = torch.zeros(1, device=q.device)
+    for rf in (False, True):
+        tiny = _time_ms(lambda: z.add_(1), read_flush=rf)
+        read = _time_ms(lambda: x.sum(dtype=torch.float32), read_flush=rf)
+        say(f"[time] floors, L2 emptied by a {'read' if rf else 'write'}: "
+            f"one tiny kernel ms={tiny:.4f}, a sum over {byts} bytes "
+            f"ms={read:.4f}")
+
+
 def time_prefill(cfg, dev):
-    """The shared kernels at the routed prefill's shape (most of their
-    launches in a served run), beside their bound, SDPA with GQA over every
-    row (for the int8 store on K/V dequantized beforehand) and, for the
-    int8 entry, dequantize + SDPA timed as one."""
+    """The routed kernels at the routed prefill's shape (most of their
+    launches in a served run), beside their bound. The shared kernels also
+    beside SDPA with GQA over every row (for the int8 store on K/V
+    dequantized beforehand) and, for the int8 entry, dequantize + SDPA
+    timed as one; ``router_scores`` beside its ``einsum``."""
     from repro_torch.kernels import ops
     for name, args in prefill_inputs(cfg, torch.bfloat16, dev,
                                      seed=2).items():
         kern = getattr(ops, name)
         ms = _time_ms(lambda: kern(*args))
         bound_ms, bound_by = _bound(name, args)
+        shapes = [tuple(a.shape) for a in args]
+        if not name.startswith("shared"):
+            lib = _library_call(name, args)
+            extra = "" if lib is None else f" library_ms={_time_ms(lib):.4f}"
+            say(f"[time] {name:24s} prefill ms={ms:.4f} bound_ms="
+                f"{bound_ms:.4f} ({bound_by}){extra} shapes={shapes}")
+            continue
         if name == "shared_chunk_attention":
             sdpa_args = args
         else:
@@ -796,8 +848,7 @@ def time_prefill(cfg, dev):
             f" dequantize+SDPA_ms={_time_ms(two):.4f}"
         say(f"[time] {name:24s} prefill ms={ms:.4f} bound_ms={bound_ms:.4f} "
             f"({bound_by}) SDPA_ms={sdpa_ms:.4f}{extra} valid_rows="
-            f"{int(args[-1].sum())}/{args[-1].numel()} "
-            f"shapes={[tuple(a.shape) for a in args]}")
+            f"{int(args[-1].sum())}/{args[-1].numel()} shapes={shapes}")
 
 
 def phase_profile(cfg, dev):
@@ -862,7 +913,8 @@ def phase_profile(cfg, dev):
             torch.cuda.synchronize()
             walls[label].append(time.perf_counter() - t0)
     for label, fn in steps.items():
-        names = _profile_step(label, fn, float(np.median(walls[label])))
+        names, launches = _profile_step(label, fn,
+                                        float(np.median(walls[label])))
         # bf16 shared attention runs on the tensor-core kernel, and the
         # fp32 CUDA-core kernel is for fp32 queries only
         mma = [n for n in names if "shared_chunk_mma_kernel" in n]
@@ -870,6 +922,15 @@ def phase_profile(cfg, dev):
         say(f"[profile] {label}: tensor-core shared kernel launched: "
             f"{bool(mma)}; fp32 shared kernel launched: {bool(fp32)}")
         check(mma and not fp32, (label, "shared kernels", mma, fp32))
+        # the unique decode attention runs the split-KV kernel of its
+        # layout, not the tile kernels it replaced
+        unique = [n for n in names if STEP_DECODE_KERNEL[label] in n]
+        old = [n for n in names if "decode_attn_kernel" in n]
+        say(f"[profile] {label}: {STEP_DECODE_KERNEL[label]} launched: "
+            f"{bool(unique)}; old decode kernel launched: {bool(old)}; "
+            f"{launches} launches (expected {STEP_LAUNCHES[label]})")
+        check(unique and not old, (label, "decode kernels", unique, old))
+        check(launches == STEP_LAUNCHES[label], (label, "launches", launches))
 
 
 def _profile_step(label, step, wall):
@@ -877,7 +938,7 @@ def _profile_step(label, step, wall):
     device time by kernel, the device's idle share, the host operations
     that took the most host time, and every call in the step that made the
     host wait for the card (``torch.cuda.set_sync_debug_mode``). Returns
-    the names of the kernels that ran on the card."""
+    the names of the kernels that ran on the card and their launches."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.set_sync_debug_mode("warn")
     with warnings.catch_warnings(record=True) as caught:
@@ -912,7 +973,7 @@ def _profile_step(label, step, wall):
     for e in host[:8]:
         say(f"[profile] host {e.self_cpu_time_total / 1e3:9.3f} ms "
             f"{e.count:5d}x  {e.key[:80]}")
-    return [e.key for e in kernels]
+    return [e.key for e in kernels], sum(e.count for e in kernels)
 
 
 def main() -> int:

@@ -1,14 +1,14 @@
 // Online-softmax attention of a tile of query rows against one
-// (sequence, kv head) of K/V, staged through shared memory in key tiles.
-// Used by shared_chunk_attn.cu (rows = dispatched queries x group heads,
-// keys = one shared chunk, bf16/fp32 or int8 with scales), decode_attn.cu
-// (rows = the group heads of one request, keys = its unique cache up to
-// kv_len) and paged_decode_attn.cu (the same keys, read from pool pages
-// through a block table).
+// (sequence, kv head) of K/V, staged through shared memory in key tiles,
+// all in fp32 on the CUDA cores. Used by shared_chunk_attn.cu for fp32
+// queries (rows = dispatched queries x group heads, keys = one shared
+// chunk, fp32 or int8 with scales); bf16 queries take the tensor-core
+// loop of mma_tile.cuh, and the decode kernels their own split-KV body,
+// decode_tile.cuh.
 //
-// Where a K/V element comes from is a loader policy (StridedKV, PagedKV,
-// Q8KV below): load(pos, d, k, v) returns key and value element (pos, d)
-// as fp32. The loader is the only thing that differs between the kernels.
+// Where a K/V element comes from is a loader policy (StridedKV, Q8KV
+// below): load(pos, d, k, v) returns key and value element (pos, d) as
+// fp32.
 //
 // All arithmetic is fp32: Q, K and V are widened on their way into shared
 // memory, scores and probabilities stay fp32 through the PV product (the
@@ -73,25 +73,6 @@ struct StridedKV {
                                        float& vx) const {
     kx = to_f(k[pos * stride + d]);
     vx = to_f(v[pos * stride + d]);
-  }
-};
-
-// K/V of one request in a page pool (N, bs, KH, D): position p lives in
-// page table[p / bs] at row p % bs (kv head applied to the base pointers).
-template <typename T>
-struct PagedKV {
-  const T* __restrict__ k;
-  const T* __restrict__ v;
-  const int32_t* __restrict__ table;  // this request's row of the table
-  int bs;
-  long page_stride;                   // bs * KH * D
-  long row_stride;                    // KH * D
-  __device__ __forceinline__ void load(int pos, int d, float& kx,
-                                       float& vx) const {
-    const long o = (long)table[pos / bs] * page_stride +
-                   (long)(pos % bs) * row_stride + d;
-    kx = to_f(k[o]);
-    vx = to_f(v[o]);
   }
 };
 
@@ -192,23 +173,6 @@ __device__ __forceinline__ void attend_rows(
     }
     __syncthreads();
   }
-}
-
-// Decode epilogue: the rows are the G contiguous heads of one (request,
-// kv head); normalise and write out[r * D + d] and lse[r].
-template <typename T, int D>
-__device__ __forceinline__ void store_group_rows(
-    const TileSmem& sm, int rows, const float (&acc)[acc_per_thread<D>()],
-    T* __restrict__ out, float* __restrict__ lse) {
-  const int tid = threadIdx.x;
-#pragma unroll
-  for (int a = 0; a < acc_per_thread<D>(); ++a) {
-    const int i = tid + a * kThreads;
-    if (i < rows * D)
-      out[i] = from_f<T>(acc[a] / fmaxf(sm.l[i / D], 1e-37f));
-  }
-  for (int r = tid; r < rows; r += kThreads)
-    lse[r] = sm.m[r] + logf(fmaxf(sm.l[r], 1e-37f));
 }
 
 }  // namespace moska

@@ -54,6 +54,13 @@ def _head_dim(name: str, D: int) -> None:
         raise ValueError(f"{name}: head_dim {D} not in {_HEAD_DIMS}")
 
 
+def _aligned16(name: str, **tensors: torch.Tensor) -> None:
+    """The decode kernels copy K/V rows in 16-byte pieces."""
+    for arg, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} is not 16-byte aligned")
+
+
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
@@ -163,6 +170,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     code = _code(name, q)
     _check(name, q.dtype, q.device, q=q, k=k, v=v)
     _check(name, torch.int32, q.device, kv_len=kv_len)
+    _aligned16(name, k=k, v=v)
     out = torch.empty_like(q)
     lse = torch.empty((B, H), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
@@ -209,6 +217,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     code = _code(name, q)
     _check(name, q.dtype, q.device, q=q, k_pool=k_pool, v_pool=v_pool)
     _check(name, torch.int32, q.device, table=table, kv_len=kv_len)
+    _aligned16(name, k_pool=k_pool, v_pool=v_pool)
     out = torch.empty_like(q)
     lse = torch.empty((B, H), dtype=torch.float32, device=q.device)
     if out.numel() == 0:

@@ -104,6 +104,16 @@ def test_shared_chunk_attention_kernel(cuda, dtype, E, cap, H, KH, D, C):
     assert bool((l1[~qm] < -1e29).all()) and bool((o1[~qm] == 0).all())
 
 
+# Where a decode shape is named here, its kv lengths are these and not
+# random: every 32-key tile edge and 128-key round edge of the split-KV
+# kernels (4 warps x 32 keys), and the full slab.
+DECODE_LENS = {
+    (7, 32, 4, 64, 512): [1, 64, 65, 128, 129, 257, 512],
+    (5, 8, 2, 64, 160): [1, 31, 32, 33, 160],
+    (2, 32, 4, 64, 4096): [4096, 3001],
+}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,KH,D,S", [
     (4, 8, 2, 32, 100),
@@ -111,15 +121,26 @@ def test_shared_chunk_attention_kernel(cuda, dtype, E, cap, H, KH, D, C):
     (3, 2, 1, 16, 33),
     (1, 16, 8, 128, 512),
     (5, 32, 4, 64, 300),        # tinyllama's grouping, G = 8
+    (7, 32, 4, 64, 512),        # every split and tile edge, and S
+    (5, 8, 2, 64, 160),
+    (2, 32, 4, 64, 4096),       # a long cache
+    (3, 32, 8, 128, 300),       # llama3's grouping, G = 4, D = 128
+    (2, 64, 4, 64, 200),        # G = 16: two blocks per kv head
+    (2, 64, 1, 32, 70),         # G = 64, the most the kernels take
+    (3, 6, 2, 32, 70),          # G = 3: a masked row in the block
 ])
 def test_decode_attention_kernel(cuda, dtype, B, H, KH, D, S):
     g = np.random.default_rng(1)
     q = _randn(g, (B, H, D), dtype, cuda)
     k = _randn(g, (B, S, KH, D), dtype, cuda)
     v = _randn(g, (B, S, KH, D), dtype, cuda)
-    lens = torch.from_numpy(g.integers(1, S + 1, B).astype(np.int32)).to(cuda)
+    lens = DECODE_LENS.get((B, H, KH, D, S))
+    lens = (g.integers(1, S + 1, B) if lens is None else np.array(lens))
+    lens = torch.from_numpy(lens.astype(np.int32)).to(cuda)
+    n0 = ops.decode_attention.launches
     o1, l1 = ops.decode_attention(q, k, v, lens)
     torch.cuda.synchronize()
+    assert ops.decode_attention.launches == n0 + 1
     o2, l2 = ref.decode_attention_ref(q, k, v, lens)
     _close(o1, o2, TOL[dtype])
     _close(l1, l2, TOL[dtype])
@@ -135,7 +156,8 @@ def test_decode_attention_kernel_rejects_window(cuda):
 
 def _paged_inputs(g, B, H, KH, D, N, bs, M, dtype, device):
     """Pools of random pages, distinct scrambled pages per request, and
-    lengths from 1 to the full table (one request at exactly M * bs)."""
+    lengths from 1 to the full table (one request at exactly M * bs), or
+    those ``PAGED_LENS`` names."""
     q = _randn(g, (B, H, D), dtype, device)
     kp = _randn(g, (N, bs, KH, D), dtype, device)
     vp = _randn(g, (N, bs, KH, D), dtype, device)
@@ -143,8 +165,24 @@ def _paged_inputs(g, B, H, KH, D, N, bs, M, dtype, device):
     lens = g.integers(1, M * bs + 1, B)
     lens[0] = M * bs
     lens[-1] = 1
+    lens = np.array(PAGED_LENS.get((B, H, KH, D, N, bs, M), lens))
     as_i32 = lambda a: torch.from_numpy(a.astype(np.int32)).to(device)
     return q, kp, vp, as_i32(table), as_i32(lens)
+
+
+# Where a paged shape is named in PAGED_LENS, its kv lengths are these;
+# in SLAB_LEN, the slotted kernel it is held to bit for bit gets a slab of
+# this many positions (zeros past the table's reach) instead of M * bs.
+PAGED_LENS = {
+    (7, 32, 4, 64, 240, 16, 32): [1, 64, 65, 128, 129, 300, 512],
+    (2, 32, 4, 64, 520, 16, 256): [4096, 3001],
+}
+SLAB_LEN = {
+    (5, 32, 4, 64, 64, 16, 9): 512,
+    (7, 32, 4, 64, 240, 16, 32): 600,
+    (3, 32, 8, 128, 40, 16, 8): 300,
+    (4, 2, 1, 16, 40, 5, 7): 36,
+}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -152,12 +190,16 @@ def _paged_inputs(g, B, H, KH, D, N, bs, M, dtype, device):
     (3, 8, 2, 32, 16, 16, 4),
     (2, 4, 4, 64, 9, 32, 3),
     (1, 16, 8, 128, 32, 8, 8),
-    (5, 32, 4, 64, 64, 16, 9),     # tinyllama's grouping, 144 = 2.25 tiles
-    (4, 2, 1, 16, 40, 5, 7),       # pages not dividing the 64-key tile
+    (5, 32, 4, 64, 64, 16, 9),     # tinyllama's grouping, 144 = 4.5 tiles
+    (4, 2, 1, 16, 40, 5, 7),       # pages not dividing the 32-key tile
+    (7, 32, 4, 64, 240, 16, 32),   # every split and tile edge, and M * bs
+    (2, 32, 4, 64, 520, 16, 256),  # a long cache: 4,096 positions
+    (3, 32, 8, 128, 40, 16, 8),    # llama3's grouping, G = 4, D = 128
 ])
 def test_paged_decode_attention_kernel(cuda, dtype, B, H, KH, D, N, bs, M):
     """Against the plain version (gather + decode), and bit for bit
-    against the slotted kernel on the same logical cache."""
+    against the slotted kernel on the same logical cache, whose slab may
+    be longer than the table's reach (M * bs)."""
     g = np.random.default_rng(5)
     q, kp, vp, table, lens = _paged_inputs(g, B, H, KH, D, N, bs, M, dtype,
                                            cuda)
@@ -168,11 +210,18 @@ def test_paged_decode_attention_kernel(cuda, dtype, B, H, KH, D, N, bs, M):
     o2, l2 = ref.paged_decode_attention_ref(q, kp, vp, table, lens)
     _close(o1, o2, TOL[dtype])
     _close(l1, l2, TOL[dtype])
+    S = SLAB_LEN.get((B, H, KH, D, N, bs, M), M * bs)
+    assert S >= int(lens.max())
     live = (torch.arange(M * bs, device=cuda)[None, :, None, None]
             < lens[:, None, None, None])
-    ks = torch.where(live, kp[table.long()].reshape(B, M * bs, KH, D), 0)
-    vs = torch.where(live, vp[table.long()].reshape(B, M * bs, KH, D), 0)
-    o3, l3 = ops.decode_attention(q, ks.contiguous(), vs.contiguous(), lens)
+    ks = torch.zeros((B, max(S, M * bs), KH, D), dtype=dtype, device=cuda)
+    vs = torch.zeros_like(ks)
+    ks[:, :M * bs] = torch.where(live, kp[table.long()].reshape(
+        B, M * bs, KH, D), 0)
+    vs[:, :M * bs] = torch.where(live, vp[table.long()].reshape(
+        B, M * bs, KH, D), 0)
+    o3, l3 = ops.decode_attention(q, ks[:, :S].contiguous(),
+                                  vs[:, :S].contiguous(), lens)
     torch.cuda.synchronize()
     assert torch.equal(o1, o3) and torch.equal(l1, l3)
 

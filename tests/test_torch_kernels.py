@@ -202,6 +202,101 @@ def test_shared_chunk_mma_rounding(store, E, cap, H, KH, D, C):
     assert np.all(got[0].float().numpy()[~qmask.numpy()] == 0.0)
 
 
+def _split_decode_numerics(q, load, lens, warps=4, tile=32):
+    """What the split-KV decode kernels (csrc/decode_tile.cuh) compute, in
+    plain torch: [0, n) cut into 32-key tiles, tile t to warp t % 4; each
+    warp an online softmax in fp32 over its tiles (keys past n score
+    -1e30 and have zero V); the 4 partials merged warp 0 first. With bf16
+    inputs P is rounded to bf16 for P V, as the tensor-core body does (the
+    denominator sums the fp32 p). K/V come through ``load(b, pos)``,
+    (len(pos), KH, D) rows of request b, as the kernels' loaders give
+    them. Returns (out in q's dtype, lse fp32)."""
+    B, H, D = q.shape
+    outs, lses = [], []
+    for b in range(B):
+        n = int(lens[b])
+        parts = []
+        for w in range(warps):
+            m = l = o = None
+            for t0 in range(w * tile, n, warps * tile):
+                pos = torch.arange(t0, t0 + tile)
+                k, v = (x.float() * (pos < n)[:, None, None]
+                        for x in load(b, pos.clamp(max=n - 1)))
+                KH = k.shape[1]
+                qg = q[b].float().reshape(KH, H // KH, D)
+                s = torch.einsum("kgd,tkd->kgt", qg, k) / np.sqrt(D)
+                s = torch.where(pos < n, s, torch.tensor(-1e30))
+                if m is None:
+                    m = torch.full(s.shape[:2], -1e30)
+                    l = torch.zeros(s.shape[:2])
+                    o = torch.zeros(s.shape[:2] + (D,))
+                m_new = torch.maximum(m, s.amax(-1))
+                c = torch.exp(m - m_new)
+                p = torch.exp(s - m_new[..., None])
+                l = l * c + p.sum(-1)
+                if q.dtype == torch.bfloat16:
+                    p = p.to(torch.bfloat16).float()      # for P V only
+                o = o * c[..., None] + torch.einsum("kgt,tkd->kgd", p, v)
+                m = m_new
+            if m is not None:
+                parts.append((m, l, o))
+        mx = torch.stack([p[0] for p in parts]).amax(0)
+        den = torch.zeros_like(mx)
+        num = torch.zeros_like(parts[0][2])
+        for m, l, o in parts:                   # warp 0 first
+            den = den + l * torch.exp(m - mx)
+            num = num + o * torch.exp(m - mx)[..., None]
+        outs.append((num / den.clamp_min(1e-37)[..., None]).reshape(H, D))
+        lses.append((mx + torch.log(den.clamp_min(1e-37))).reshape(H))
+    return torch.stack(outs).to(q.dtype), torch.stack(lses)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("H,KH,D,lens,slab", [
+    (32, 4, 64, [257, 271, 288], 288),      # the path's widths: G 8, D 64
+    (16, 2, 64, [1, 63, 65, 100], 100),     # ragged against the tiles
+])
+def test_decode_split_partition(dtype, H, KH, D, lens, slab):
+    """The split-KV decode kernels' partition and merge, emulated on the
+    CPU: within tolerance of the reference's Pallas decode kernels
+    (interpret mode), slotted and paged, and bit for bit the same whether
+    the K/V sit in a 512-token slab, a slab as long as the longest
+    request, or scrambled pages of 16 tokens of the same logical cache."""
+    B, bs = len(lens), 16
+    M = -(-slab // bs)
+    qj, qt = both(randn(40, (B, H, D)), dtype)
+    k512 = randn(41, (B, 512, KH, D))
+    v512 = randn(42, (B, 512, KH, D))
+    live = np.arange(512)[None, :, None, None] < np.array(lens)[:, None,
+                                                                 None, None]
+    k512, v512 = k512 * live, v512 * live     # zeros past each length
+    table = (np.random.default_rng(43).permutation(B * M) + 1).reshape(
+        B, M).astype(np.int32)
+    kp = np.zeros((B * M + 1, bs, KH, D), np.float32)
+    vp = np.zeros_like(kp)
+    kp[table] = k512[:, :M * bs].reshape(B, M, bs, KH, D)
+    vp[table] = v512[:, :M * bs].reshape(B, M, bs, KH, D)
+    (kj, kt), (vj, vt) = both(k512, dtype), both(v512, dtype)
+    (kpj, kpt), (vpj, vpt) = both(kp, dtype), both(vp, dtype)
+    (lj, _), (tj, tt) = both(np.array(lens, np.int32)), both(table)
+    ks, vs = kt[:, :slab].contiguous(), vt[:, :slab].contiguous()
+    layouts = {
+        "slab 512": lambda b, pos: (kt[b, pos], vt[b, pos]),
+        f"slab {slab}": lambda b, pos: (ks[b, pos], vs[b, pos]),
+        "pages": lambda b, pos: (kpt[tt[b, pos // bs].long(), pos % bs],
+                                 vpt[tt[b, pos // bs].long(), pos % bs]),
+    }
+    got = {name: _split_decode_numerics(qt, load, lens)
+           for name, load in layouts.items()}
+    first = got["slab 512"]
+    for o, l in got.values():
+        assert torch.equal(o, first[0]) and torch.equal(l, first[1])
+    for o2, l2 in (jops.decode_attention(qj, kj, vj, lj, block_s=128),
+                   jops.paged_decode_attention(qj, kpj, vpj, tj, lj)):
+        assert_close(first[0], o2, dtype)
+        assert_close(first[1], l2, dtype)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("P,N,H,D,blk", [
     (2, 64, 4, 32, 16), (3, 7, 2, 16, 8), (4, 128, 8, 64, 128),
