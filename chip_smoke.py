@@ -12,8 +12,12 @@ Phases, each printed as it runs; any failure exits non-zero:
             routed kernels also the routed prefill's) and at one
             ragged shape, in bf16 (tolerance 2e-2) and fp32 (2e-5), the
             bounds of ``tests/test_kernels.py``; masked rows of the shared
-            kernels must hold 0 and -1e30; and the paged decode kernel
-            against the slotted one on the same logical cache, bit for bit.
+            kernels must hold 0 and -1e30; the paged decode kernel
+            against the slotted one on the same logical cache, bit for bit;
+            and the merge's pair and routed entries against their plain
+            versions and, bit for bit, against its dense entry on the same
+            partials stacked or gathered (routes dropped, and at the decode
+            and ragged shapes a group with every route dropped).
   3. serve  ``repro_torch.launch.serve.main``: tinyllama-1.1b at full width
             and depth, random weights from a seed, a 65,536-token shared
             corpus (32 chunks of 2,048; top-8 routing), 128 requests of 256
@@ -44,13 +48,20 @@ Phases, each printed as it runs; any failure exits non-zero:
             L2 emptied by a read, beside the floors of the timing: a tiny
             kernel and a sum over as many bytes); then the two shared-chunk
             entries, ``lse_merge`` and ``router_scores`` at the routed
-            prefill's shapes beside their bound (and SDPA or ``einsum``).
+            prefill's shapes beside their bound (and SDPA or ``einsum``);
+            the dense ``lse_merge`` beside ``outs.sum(dim=0)`` (the same
+            bytes read, an output of the same size written); the routed
+            merge beside the gather chain it replaced, and the pair merge
+            beside stack + dense merge, each chain timed as one; and the
+            int8 entry at phase 3c's served prefill, qd (32, 8,192, 32, 64).
   6. profile one decode step at the served shapes under torch.profiler:
             device time by kernel, and the device's idle share; then one
             paged decode step. Both must run the bf16 tensor-core shared
             kernel and not the fp32 one, the split-KV decode kernel of
             their layout (``decode_slab_kernel``, ``decode_pages_kernel``)
-            and not the old tile kernels, in 2,547 and 2,787 launches.
+            and not the old tile kernels, in the exact launch counts of
+            ``STEP_LAUNCHES`` (printed beside 2,547 and 2,787, the counts
+            before the merge's routed and pair entries).
 
 It then prints the kernels' JSON line, the card's name and power limit, and,
 as the last line, the device JSON. Without a card it exits 1 and prints no
@@ -93,7 +104,9 @@ SERVE_ARGV = ["--arch", ARCH, "--full", "--device", "cuda",
 # phase 6: each profiled step's unique decode kernel, and its launches
 STEP_DECODE_KERNEL = {"decode step": "decode_slab_kernel",
                       "paged decode step": "decode_pages_kernel"}
-STEP_LAUNCHES = {"decode step": 2547, "paged decode step": 2787}
+STEP_LAUNCHES = {"decode step": 2283, "paged decode step": 2523}
+# the same steps before the merge read its partials where they lie
+STEP_LAUNCHES_GATHERED = {"decode step": 2547, "paged decode step": 2787}
 
 # the paged phase's stream: prompts end mid-page, and two exceed max_seq
 PAGED_PROMPT, LONG_PROMPT, BLOCK = 250, 1000, 16
@@ -190,22 +203,13 @@ def prefill_inputs(cfg, dtype, dev, seed=0):
     slots valid (16 routes in all); the router scores the 2 groups' mean
     queries, q (2, 32, 64), and the K-chunk merge takes 8 partials of the
     256 tokens, (8, 256, 32, 64)."""
-    from repro_torch.core import router
     from repro_torch.core.shared_kv import _quantize
 
     g = torch.Generator(device=dev).manual_seed(seed)
     H, KH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     C, K = cfg.moska.chunk_size, cfg.moska.top_k_chunks
-    E, rb = CORPUS // C, 128
-    groups = PROMPT // rb
-    cap = min(router.required_capacity(groups, K, E,
-                                       cfg.moska.query_capacity_factor),
-              groups * K)
-    ids = router.top_k(torch.rand((groups, E), generator=g, device=dev), K)[1]
-    _, pos, keep = router.dispatch_plan(ids, E, cap)
-    slots = torch.zeros((E, cap), dtype=torch.bool, device=dev)
-    slots[ids.reshape(-1)[keep], pos[keep]] = True
-    qmask = slots.repeat_interleave(rb, dim=1).contiguous()
+    E = CORPUS // C
+    qmask = routed_slots(cfg, g, dev, PROMPT // 128)
 
     def randn(*shape):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
@@ -215,13 +219,29 @@ def prefill_inputs(cfg, dtype, dev, seed=0):
     lses = torch.randn((K, PROMPT, H), generator=g, device=dev) * 3
     return {
         "lse_merge": (randn(K, PROMPT, H, D), lses),
-        "router_scores": (randn(groups, H, D), randn(E, KH, D) * 0.2),
-        "shared_chunk_attention": (randn(E, cap * rb, H, D),
+        "router_scores": (randn(PROMPT // 128, H, D), randn(E, KH, D) * 0.2),
+        "shared_chunk_attention": (randn(E, qmask.shape[1], H, D),
                                    randn(E, C, KH, D), randn(E, C, KH, D),
                                    qmask),
-        "shared_chunk_attention_q8": (randn(E, cap * rb, H, D), kq, vq, ks,
-                                      vs, qmask),
+        "shared_chunk_attention_q8": (randn(E, qmask.shape[1], H, D), kq, vq,
+                                      ks, vs, qmask),
     }
+
+
+def routed_slots(cfg, g, dev, groups, rb=128):
+    """The shared kernels' qmask (E, cap * rb) of a routed prefill of
+    ``groups`` groups of rb queries: each group's top-8 chunks by random
+    scores, dispatched at the path's capacity, each slot rb query rows."""
+    from repro_torch.core import router
+    K, E = cfg.moska.top_k_chunks, CORPUS // cfg.moska.chunk_size
+    cap = min(router.required_capacity(groups, K, E,
+                                       cfg.moska.query_capacity_factor),
+              groups * K)
+    ids = router.top_k(torch.rand((groups, E), generator=g, device=dev), K)[1]
+    _, pos, keep = router.dispatch_plan(ids, E, cap)
+    slots = torch.zeros((E, cap), dtype=torch.bool, device=dev)
+    slots[ids.reshape(-1)[keep], pos[keep]] = True
+    return slots.repeat_interleave(rb, dim=1).contiguous()
 
 
 def plain_by_chunk(plain, args):
@@ -269,6 +289,96 @@ def ragged_inputs(dtype, dev, seed=1):
     }
 
 
+def merge_inputs(cfg, dtype, dev, label, seed=0):
+    """The merge's pair and routed entries' inputs. routed: (od, lsed, lin)
+    as the K-chunk merge of ``shared_attention_batched`` gets them, od
+    (R, Q, H, D) the shared kernel's rows and lin (G, K) each route's row,
+    R (the trash row) for a dropped one: at the decode step's shape (64
+    groups, top-8 of 32 chunks at capacity 32, every fifth route and all
+    of group 0's dropped), the routed prefill's (2 groups of 128 queries
+    at capacity 8, every third route dropped), and a ragged one (every
+    third and all of group 1's). pair: (o0, l0, o1, l1), the unique and
+    shared partials of the decode step (64 rows), of the prefill (256)
+    and ragged (7 rows, one that neither attended, one -inf)."""
+    from repro_torch.core import router
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    H, D = cfg.num_heads, cfg.head_dim
+    K, E = cfg.moska.top_k_chunks, CORPUS // cfg.moska.chunk_size
+
+    def randn(*shape, scale=1.0, dt=dtype):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dt)
+
+    if label == "ragged":
+        R, Q, H, D, G, K, N = 10, 3, 2, 16, 4, 3, 7
+        lin = torch.stack([torch.randperm(R, generator=g, device=dev)[:K]
+                           for _ in range(G)])
+        lin.view(-1)[::3] = R
+        lin[1] = R
+    else:
+        G, Q, N = ((SLOTS, 1, SLOTS) if label == "path"
+                   else (PROMPT // 128, 128, PROMPT))
+        cap = min(router.required_capacity(G, K, E,
+                                           cfg.moska.query_capacity_factor),
+                  G * K)
+        R = E * cap                                # the trash row
+        ids = router.top_k(torch.rand((G, E), generator=g, device=dev), K)[1]
+        flat, pos, keep = router.dispatch_plan(ids, E, cap)
+        lin = torch.where(keep, flat * cap + pos, R).view(G, K)
+        lin.view(-1)[::5 if label == "path" else 3] = R
+        if label == "path":
+            lin[0] = R
+    lses = randn(2, N, H, scale=3.0, dt=torch.float32)
+    if label == "ragged":
+        lses[:, 0] = -1e30
+        lses[1, 1] = float("-inf")
+    return {"routed": (randn(R, Q, H, D),
+                       randn(R, Q, H, scale=3.0, dt=torch.float32), lin),
+            "pair": (randn(N, H, D), lses[0], randn(N, H, D), lses[1])}
+
+
+def merge_chains():
+    """What the merge's pair and routed entries replaced, through its dense
+    entry: stack the pair; gather, fill and transpose the routed rows."""
+    from repro_torch.kernels import ops, ref
+    return {
+        "pair": lambda o0, l0, o1, l1: ops.lse_merge(
+            torch.stack([o0, o1]), torch.stack([l0, l1])),
+        "routed": lambda od, lsed, lin: ops.lse_merge(
+            *ref.routed_partials(od, lsed, lin)),
+    }
+
+
+def check_merge_entries(cfg, dev, dtype, label):
+    """The pair and routed entries against their plain versions (bf16
+    2e-2, fp32 2e-5, lse 2e-5) and, bit for bit, against the dense entry
+    on the same partials stacked or gathered."""
+    from repro_torch.kernels import ops, ref
+    chains = merge_chains()
+    for entry, args in merge_inputs(cfg, dtype, dev, label).items():
+        got = getattr(ops, f"lse_merge_{entry}")(*args)
+        chained = chains[entry](*args)
+        want = getattr(ref, f"lse_merge_{entry}_ref")(*args)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, chained))
+        err = float((got[0].float() - want[0].float()).abs().max())
+        torch.testing.assert_close(got[0].float(), want[0].float(),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+        torch.testing.assert_close(got[1], want[1], rtol=2e-5, atol=2e-5)
+        if entry == "routed":           # groups with every route dropped
+            od, _, lin = args
+            G = lin.shape[0]
+            empty = (lin >= od.shape[0]).all(dim=1)
+            check(bool((got[1].view(G, -1)[empty] == -1e30).all()) and
+                  bool((got[0].view(G, -1)[empty] == 0).all()),
+                  ("empty routed groups", label, dtype))
+        say(f"[check] lse_merge {entry:6s} entry {label:7s} "
+            f"{str(dtype)[6:]:8s} max_abs_err={err:.3e} "
+            f"== dense entry on the {'stacked' if entry == 'pair' else 'gathered'} "
+            f"partials bitwise={same}")
+        check(same, (f"lse_merge {entry} entry vs dense", label, dtype))
+
+
 def slotted_view(q, k_pool, v_pool, table, lens):
     """The slotted decode kernel's inputs holding the same logical cache as
     the paged inputs: each slot's pages in order, zeros past its length."""
@@ -313,6 +423,7 @@ def phase_check(cfg, dev):
                 say(f"[check] paged == slotted decode kernel {label:7s} "
                     f"{str(dtype)[6:]:8s} bitwise={same}")
                 check(same, ("paged vs slotted decode kernel", label, dtype))
+            check_merge_entries(cfg, dev, dtype, label)
             for name, args in inputs.items():
                 got = getattr(ops, name)(*args)
                 torch.cuda.synchronize()
@@ -784,6 +895,8 @@ def phase_time(cfg, dev, counts, errs):
             f"library_ms={lib_ms if lib_ms is None else round(lib_ms, 4)} "
             f"bound_ms={bound_ms:.4f} ({bound_by}) "
             f"shapes={[tuple(a.shape) for a in args]}")
+        if name == "lse_merge":
+            _time_sum_yardstick(name, "decode", args[0])
         two = _two_calls(name, args)
         if two is not None:
             label = ("gather + SDPA" if name == "paged_decode_attention"
@@ -797,7 +910,82 @@ def phase_time(cfg, dev, counts, errs):
     time_floors(path_inputs(cfg, torch.bfloat16, dev, seed=2)
                 ["decode_attention"])
     time_prefill(cfg, dev)
+    time_q8_served_prefill(cfg, dev)
+    time_merge_entries(cfg, dev)
     return rows
+
+
+def time_q8_served_prefill(cfg, dev):
+    """``shared_chunk_attention_q8`` at phase 3c's prefill, its 22 launches
+    of the served run: 64 prompts of 256 tokens routed in 128 groups of 128
+    queries, top-8 of 32 chunks at capacity 64 slots, so qd is (32, 8,192,
+    32, 64) bf16; beside its bound and dequantize + SDPA timed as one."""
+    from repro_torch.core.shared_kv import _quantize
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    H, KH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    C, E = cfg.moska.chunk_size, CORPUS // cfg.moska.chunk_size
+    qmask = routed_slots(cfg, g, dev, SLOTS * PROMPT // 128)
+    qd = torch.randn((E, qmask.shape[1], H, D), generator=g, device=dev
+                     ).to(torch.bfloat16)
+    kq, ks = _quantize(torch.randn((E, C, KH, D), generator=g, device=dev))
+    vq, vs = _quantize(torch.randn((E, C, KH, D), generator=g, device=dev))
+    args = (qd, kq, vq, ks, vs, qmask)
+    name = "shared_chunk_attention_q8"
+    ms = _time_ms(lambda: ops.shared_chunk_attention_q8(*args))
+    bound_ms, bound_by = _bound(name, args)
+    two_ms = _time_ms(_two_calls(name, args))
+    say(f"[time] {name:24s} served prefill (phase 3c) ms={ms:.4f} "
+        f"bound_ms={bound_ms:.4f} ({bound_by}) dequantize+SDPA_ms="
+        f"{two_ms:.4f} valid_rows={int(qmask.sum())}/{qmask.numel()} "
+        f"shapes={[tuple(a.shape) for a in args]}")
+
+
+def _time_sum_yardstick(name, label, outs):
+    """``outs.sum(dim=0)`` reads the partials a merge reads and writes an
+    output of the merge's size: a yardstick of the bandwidth, not a call
+    that computes the merge."""
+    say(f"[time] {name:24s} {label} outs.sum(dim=0) over the same "
+        f"{tuple(outs.shape)} ms={_time_ms(lambda: outs.sum(dim=0)):.4f}")
+
+
+def _merge_entry_bound(entry, args):
+    """Bytes over the HBM rate: the rows the entry reads (for the routed
+    entry only the routes kept) and its outputs; a few flops an element."""
+    def nb(t):
+        return t.numel() * t.element_size()
+
+    if entry == "pair":
+        o0, l0, o1, l1 = args
+        byts = 3 * nb(o0) + 3 * nb(l0)
+    else:
+        od, lsed, lin = args
+        row = nb(od[0]) + nb(lsed[0])
+        byts = (int((lin < od.shape[0]).sum()) + lin.shape[0]) * row \
+            + nb(lin)
+    return byts / HBM_BYTES_PER_S * 1e3
+
+
+def time_merge_entries(cfg, dev):
+    """The merge's routed and pair entries at the decode step's and the
+    routed prefill's shapes (bf16), beside what each replaced through the
+    dense entry (gather + fill + transposes, or two stacks), timed as one."""
+    from repro_torch.kernels import ops
+    chains = merge_chains()
+    for label in ("path", "prefill"):
+        inputs = merge_inputs(cfg, torch.bfloat16, dev, label, seed=2)
+        for entry, args in inputs.items():
+            kern = getattr(ops, f"lse_merge_{entry}")
+            ms = _time_ms(lambda: kern(*args))
+            chain_ms = _time_ms(lambda: chains[entry](*args))
+            what = ("stack + dense merge" if entry == "pair"
+                    else "gather chain + dense merge")
+            say(f"[time] lse_merge {entry:6s} entry "
+                f"{'decode' if label == 'path' else 'prefill'} ms={ms:.4f} "
+                f"{what} (as one) ms={chain_ms:.4f} "
+                f"bound_ms={_merge_entry_bound(entry, args):.4f} (bytes) "
+                f"shapes={[tuple(a.shape) for a in args]}")
 
 
 def time_floors(decode_args):
@@ -835,6 +1023,8 @@ def time_prefill(cfg, dev):
             extra = "" if lib is None else f" library_ms={_time_ms(lib):.4f}"
             say(f"[time] {name:24s} prefill ms={ms:.4f} bound_ms="
                 f"{bound_ms:.4f} ({bound_by}){extra} shapes={shapes}")
+            if name == "lse_merge":
+                _time_sum_yardstick(name, "prefill", args[0])
             continue
         if name == "shared_chunk_attention":
             sdpa_args = args
@@ -928,7 +1118,9 @@ def phase_profile(cfg, dev):
         old = [n for n in names if "decode_attn_kernel" in n]
         say(f"[profile] {label}: {STEP_DECODE_KERNEL[label]} launched: "
             f"{bool(unique)}; old decode kernel launched: {bool(old)}; "
-            f"{launches} launches (expected {STEP_LAUNCHES[label]})")
+            f"{launches} launches (expected {STEP_LAUNCHES[label]}; with "
+            f"the merge partials gathered and stacked: "
+            f"{STEP_LAUNCHES_GATHERED[label]})")
         check(unique and not old, (label, "decode kernels", unique, old))
         check(launches == STEP_LAUNCHES[label], (label, "launches", launches))
 

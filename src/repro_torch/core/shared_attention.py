@@ -6,8 +6,9 @@ matrix and attended against the chunk's KV in one GEMM:
 
     route -> dispatch_plan -> scatter Q to (chunks, capacity, ...)
           -> per-chunk GEMM attention (the ``shared_chunk_attention`` kernel)
-          -> gather partial (O, LSE) back per (group, k)
-          -> LSE-merge over the k selected chunks (the ``lse_merge`` kernel).
+          -> LSE-merge over the k selected chunks, each partial read where
+             the chunk's attention wrote it (the ``lse_merge`` kernel's
+             routed entry).
 
 On a CUDA tensor both steps launch the hand-written kernels; on the CPU
 the same wrappers take their plain versions. The kernel keeps the softmax
@@ -30,8 +31,6 @@ import torch
 from repro_torch import obs
 from repro_torch.core import router as router_lib
 from repro_torch.kernels import ops
-
-NEG_INF = -1e30
 
 
 class SharedPartial(NamedTuple):
@@ -106,22 +105,13 @@ def shared_attention_batched(
         od, lsed = ops.shared_chunk_attention_q8(
             qd, *kv, k_scale.contiguous(), v_scale.contiguous(), qmask_d)
 
-    # gather partials back per (group, k); dropped routes read row 0 and
-    # are then masked (the reference's gather mode="fill")
-    src = torch.where(keep, lin, torch.zeros_like(lin))
-    o_bk = od.reshape(trash, Q, H, D)[src]                 # (G*K, Q, H, D)
-    l_bk = lsed.reshape(trash, Q, H)[src]
-    o_bk = torch.where(keep[:, None, None, None], o_bk,
-                       torch.zeros_like(o_bk))
-    l_bk = torch.where(keep[:, None, None], l_bk,
-                       torch.full_like(l_bk, NEG_INF))
-
-    # LSE-merge over the K selected chunks: partials (K, G*Q, H, ...)
-    outs = o_bk.view(G, K, Q * H, D).transpose(0, 1).reshape(K, G * Q, H, D)
-    lses = l_bk.view(G, K, Q * H).transpose(0, 1).reshape(K, G * Q, H)
-    out, lse = ops.lse_merge(outs.contiguous(), lses.contiguous())
-    return SharedPartial(out.reshape(G, Q, H, D).to(q.dtype),
-                         lse.reshape(G, Q, H))
+    # LSE-merge over the K selected chunks, reading partial k of group g
+    # from row lin[g * K + k] of the kernel's output where it lies; the
+    # trash row is an empty partial (the reference's gather mode="fill")
+    out, lse = ops.lse_merge_routed(od.reshape(trash, Q, H, D),
+                                    lsed.reshape(trash, Q, H),
+                                    lin.view(G, K))
+    return SharedPartial(out.view(G, Q, H, D), lse.view(G, Q, H))
 
 
 def shared_attention_gather_ref(

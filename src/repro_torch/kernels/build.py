@@ -38,6 +38,10 @@ SIGNATURES = {
     "moska_paged_decode_attn": [_p, _p, _p, _p, _p, _p, _p,
                                 _i, _i, _i, _i, _i, _i, _i, _p],
     "moska_lse_merge": [_p, _p, _p, _p, _i, ctypes.c_long, _i, _i, _p],
+    "moska_lse_merge_pair": [_p, _p, _p, _p, _p, _p, ctypes.c_long, _i, _i,
+                             _p],
+    "moska_lse_merge_routed": [_p, _p, _p, _p, _p, ctypes.c_long,
+                               _i, _i, _i, _i, _i, _p],
     "moska_router_scores": [_p, _p, _p, _i, _i, _i, _i, _i, _i, _p],
 }
 

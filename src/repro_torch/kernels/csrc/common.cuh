@@ -1,9 +1,10 @@
-// Helpers shared by the MoSKA kernels: element conversion, warp reductions,
-// cp.async copies, ldmatrix and mma.sync fragments of bf16 tiles, and the
-// C-interface dtype codes the Python wrappers pass.
+// Helpers shared by the MoSKA kernels: element conversion, 16-byte vector
+// loads, warp reductions, cp.async copies, ldmatrix and mma.sync fragments
+// of bf16 tiles, and the C-interface dtype codes the Python wrappers pass.
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -30,6 +31,58 @@ template <> __device__ __forceinline__ float from_f<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+
+// V consecutive elements of T read or written as one access: 16 bytes
+// (V = 16 / sizeof(T)), or one element on the scalar path (V = 1)
+template <typename T, int V>
+using vec_t = typename std::conditional<V == 1, T, uint4>::type;
+
+template <typename T, int V>
+__device__ __forceinline__ vec_t<T, V> load_vec(const T* p) {
+  return *reinterpret_cast<const vec_t<T, V>*>(p);
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void widen(const vec_t<T, V>& r, float (&x)[V]) {
+  if constexpr (V == 1) {
+    x[0] = to_f(r);
+  } else if constexpr (std::is_same<T, float>::value) {
+    const float* f = reinterpret_cast<const float*>(&r);
+#pragma unroll
+    for (int j = 0; j < V; ++j) x[j] = f[j];
+  } else {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+    for (int j = 0; j < V / 2; ++j) {
+      const float2 f = __bfloat1622float2(h[j]);
+      x[2 * j] = f.x;
+      x[2 * j + 1] = f.y;
+    }
+  }
+}
+
+// x rounded to T (to nearest even, as from_f) and stored as one access
+template <typename T, int V>
+__device__ __forceinline__ void store_vec(T* p, const float (&x)[V]) {
+  vec_t<T, V> r;
+  if constexpr (V == 1) {
+    r = from_f<T>(x[0]);
+  } else if constexpr (std::is_same<T, float>::value) {
+    float* f = reinterpret_cast<float*>(&r);
+#pragma unroll
+    for (int j = 0; j < V; ++j) f[j] = x[j];
+  } else {
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&r);
+#pragma unroll
+    for (int j = 0; j < V / 2; ++j)
+      h[j] = __floats2bfloat162_rn(x[2 * j], x[2 * j + 1]);
+  }
+  *reinterpret_cast<vec_t<T, V>*>(p) = r;
+}
+
+__host__ __device__ __forceinline__ bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 __device__ __forceinline__ float warp_max(float v) {

@@ -254,6 +254,65 @@ def lse_merge(outs: torch.Tensor, lses: torch.Tensor
     return out, lse
 
 
+def lse_merge_pair(o0: torch.Tensor, l0: torch.Tensor, o1: torch.Tensor,
+                   l1: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``lse_merge`` of two partials that lie apart, partial 0 first: the
+    same kernel body, with no stacked copy. o0/o1: (N, H, D); l0/l1: (N, H)
+    fp32 -> (out (N, H, D) in o0.dtype, lse (N, H) fp32). Counts as an
+    ``lse_merge`` launch."""
+    if _on_cpu(o0):
+        return ref.lse_merge_pair_ref(o0, l0, o1, l1)
+    name = "lse_merge_pair"
+    N, H, D = o0.shape
+    if o1.shape != o0.shape or l0.shape != (N, H) or l1.shape != (N, H):
+        raise ValueError(f"{name}: shapes o0 {tuple(o0.shape)} "
+                         f"o1 {tuple(o1.shape)} l0 {tuple(l0.shape)} "
+                         f"l1 {tuple(l1.shape)}")
+    code = _code(name, o0)
+    _check(name, o0.dtype, o0.device, o0=o0, o1=o1)
+    _check(name, torch.float32, o0.device, l0=l0, l1=l1)
+    out = torch.empty_like(o0)
+    lse = torch.empty((N, H), dtype=torch.float32, device=o0.device)
+    if out.numel() == 0:
+        raise ValueError(f"{name}: empty input")
+    _raise_on(name, library().moska_lse_merge_pair(
+        _ptr(o0), _ptr(l0), _ptr(o1), _ptr(l1), _ptr(out), _ptr(lse), N * H,
+        D, code, _stream()))
+    lse_merge.launches += 1
+    return out, lse
+
+
+def lse_merge_routed(od: torch.Tensor, lsed: torch.Tensor, lin: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The K-chunk merge of batched shared attention, reading the shared
+    kernel's rows where they lie. od: (R, Q, H, D); lsed: (R, Q, H) fp32;
+    lin: (G, K) int64, partial k of group g is row ``lin[g, k]``, and a row
+    outside [0, R) (the dispatch's trash row) is an empty partial (out 0,
+    lse -1e30). Returns (out (G * Q, H, D) in od.dtype, lse (G * Q, H)
+    fp32). Counts as an ``lse_merge`` launch."""
+    if _on_cpu(od):
+        return ref.lse_merge_routed_ref(od, lsed, lin)
+    name = "lse_merge_routed"
+    R, Q, H, D = od.shape
+    if lsed.shape != (R, Q, H) or lin.dim() != 2:
+        raise ValueError(f"{name}: shapes od {tuple(od.shape)} "
+                         f"lsed {tuple(lsed.shape)} lin {tuple(lin.shape)}")
+    G, K = lin.shape
+    code = _code(name, od)
+    _check(name, od.dtype, od.device, od=od)
+    _check(name, torch.float32, od.device, lsed=lsed)
+    _check(name, torch.int64, od.device, lin=lin)
+    out = torch.empty((G * Q, H, D), dtype=od.dtype, device=od.device)
+    lse = torch.empty((G * Q, H), dtype=torch.float32, device=od.device)
+    if out.numel() == 0 or K == 0:
+        raise ValueError(f"{name}: empty input")
+    _raise_on(name, library().moska_lse_merge_routed(
+        _ptr(od), _ptr(lsed), _ptr(lin), _ptr(out), _ptr(lse), R, G, K,
+        Q * H, D, code, _stream()))
+    lse_merge.launches += 1
+    return out, lse
+
+
 def router_scores(q: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
     """q: (G, H, D); emb: (E, KH, D) -> scores (G, E) fp32."""
     if _on_cpu(q):

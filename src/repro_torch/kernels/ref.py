@@ -115,6 +115,39 @@ def lse_merge_ref(outs: torch.Tensor, lses: torch.Tensor
     return out.to(outs.dtype), lse
 
 
+def lse_merge_pair_ref(o0: torch.Tensor, l0: torch.Tensor, o1: torch.Tensor,
+                       l1: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``lse_merge_ref`` of the two partials stacked, o0 first. o0/o1:
+    (N, H, D); l0/l1: (N, H)."""
+    return lse_merge_ref(torch.stack([o0, o1]), torch.stack([l0, l1]))
+
+
+def routed_partials(od: torch.Tensor, lsed: torch.Tensor, lin: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dense partials of the K-chunk merge: partial k of group g is row
+    ``lin[g, k]`` of od (R, Q, H, D) / lsed (R, Q, H), and a row outside
+    [0, R) is empty (out 0, lse -1e30), as the reference's gather with
+    ``mode="fill"``. Returns (outs (K, G * Q, H, D), lses (K, G * Q, H))."""
+    R, Q, H, D = od.shape
+    G, K = lin.shape
+    keep = ((lin >= 0) & (lin < R)).reshape(-1)
+    src = torch.where(keep, lin.reshape(-1), 0)
+    o = torch.where(keep[:, None, None, None], od[src], 0)
+    l = torch.where(keep[:, None, None], lsed[src], NEG_INF)
+    outs = o.view(G, K, Q * H, D).transpose(0, 1).reshape(K, G * Q, H, D)
+    lses = l.view(G, K, Q * H).transpose(0, 1).reshape(K, G * Q, H)
+    return outs.contiguous(), lses.contiguous()
+
+
+def lse_merge_routed_ref(od: torch.Tensor, lsed: torch.Tensor,
+                         lin: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The K-chunk merge over the routed rows of od (R, Q, H, D) and
+    lsed (R, Q, H), lin (G, K): ``lse_merge_ref`` of ``routed_partials``.
+    Returns (out (G * Q, H, D) in od.dtype, lse (G * Q, H) fp32)."""
+    return lse_merge_ref(*routed_partials(od, lsed, lin))
+
+
 def router_scores_ref(q: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
     """q: (G, H, D); emb: (E, KH, D) -> (G, E) fp32 relevance scores: each
     q head scores its kv head's embedding, summed over heads, over √D."""

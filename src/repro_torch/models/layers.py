@@ -154,9 +154,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 def merge_partial_attention(outs, lses):
     """Exact merge of flash-decoding partials, through the ``lse_merge``
-    kernel: lists of (..., H, D) outs and (..., H) lses."""
+    kernel: lists of (..., H, D) outs and (..., H) lses. Two partials (the
+    unique and the shared one of a MoSKA layer) go to its pair entry,
+    which reads them where they lie; other counts are stacked."""
     shape = outs[0].shape
-    o = torch.stack([x.reshape(-1, *shape[-2:]) for x in outs])
-    l = torch.stack([x.reshape(-1, shape[-2]).float() for x in lses])
-    out, lse = ops.lse_merge(o, l)
+    o = [x.reshape(-1, *shape[-2:]).contiguous() for x in outs]
+    l = [x.reshape(-1, shape[-2]).float().contiguous() for x in lses]
+    if len(o) == 2:
+        out, lse = ops.lse_merge_pair(o[0], l[0], o[1], l[1])
+    else:
+        out, lse = ops.lse_merge(torch.stack(o), torch.stack(l))
     return out.reshape(shape), lse.reshape(shape[:-1])

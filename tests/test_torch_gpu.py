@@ -1,9 +1,10 @@
 """Card tests of the port: each hand-written CUDA kernel against its plain
 PyTorch version on the same CUDA tensors, over the shape and dtype sweeps
 of ``tests/test_kernels.py`` (the paged kernel also bit for bit against
-the slotted one on the same logical cache), plus dense decode steps on the
-card (slotted, paged, over an int8 store) against the same steps on the
-CPU.
+the slotted one on the same logical cache, and the merge's pair and routed
+entries bit for bit against its dense entry), plus dense decode steps on
+the card (slotted, paged, over an int8 store) against the same steps on
+the CPU.
 
 These tests need an NVIDIA card with the CUDA toolkit; elsewhere they skip.
 This file imports no JAX, so it also runs where JAX is not installed:
@@ -271,31 +272,94 @@ def test_shared_chunk_attention_q8_kernel(cuda, dtype, E, cap, H, KH, D, C):
 @pytest.mark.parametrize("P,N,H,D", [(2, 64, 4, 32), (3, 7, 2, 16),
                                      (4, 128, 8, 64), (8, 64, 32, 64)])
 def test_lse_merge_kernel(cuda, dtype, P, N, H, D):
+    """The dense entry against its plain version; the pair entry on the
+    first two partials equals the dense entry on them stacked, bitwise."""
     g = np.random.default_rng(2)
     outs = _randn(g, (P, N, H, D), dtype, cuda)
     lses = _randn(g, (P, N, H), torch.float32, cuda, scale=3.0)
     lses[:, 0] = -1e30                      # a row no partial attended
     lses[0, 1] = float("-inf")              # a genuine -inf sentinel
+    n0 = ops.lse_merge.launches
     o1, l1 = ops.lse_merge(outs, lses)
     torch.cuda.synchronize()
     o2, l2 = ref.lse_merge_ref(outs, lses)
     _close(o1, o2, TOL[dtype])
     _close(l1, l2, 2e-5)
     assert bool((l1[0] == -1e30).all())
+    op, lp = ops.lse_merge_pair(outs[0], lses[0], outs[1], lses[1])
+    od, ld = ops.lse_merge(outs[:2].contiguous(), lses[:2].contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(op, od) and torch.equal(lp, ld)
+    assert ops.lse_merge.launches == n0 + 3
+
+
+# (R, Q, H, D, G, K) of the routed merge: the decode step's (64 groups x
+# top-8 over 32 chunks at capacity 32), the routed prefill's (2 groups of
+# 128 queries at capacity 8), llama3's D 128, and ragged small shapes
+ROUTED_SHAPES = [
+    (1024, 1, 32, 64, 64, 8),
+    (256, 128, 32, 64, 2, 8),
+    (64, 1, 32, 128, 16, 8),
+    (10, 3, 2, 16, 4, 3),
+    (7, 1, 6, 32, 5, 9),          # K > 8: two batches of partials
+]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("G,H,KH,D,E", [
+@pytest.mark.parametrize("R,Q,H,D,G,K", ROUTED_SHAPES)
+def test_lse_merge_routed_kernel(cuda, dtype, R, Q, H, D, G, K):
+    """The routed entry equals the gather chain it replaces (gather, fill,
+    dense entry) bit for bit, and its plain version within tolerance, with
+    every third route dropped and every route of group 1 dropped."""
+    g = np.random.default_rng(5)
+    od = _randn(g, (R, Q, H, D), dtype, cuda)
+    lsed = _randn(g, (R, Q, H), torch.float32, cuda, scale=3.0)
+    lin = np.stack([g.integers(0, R, K) for _ in range(G)]).astype(np.int64)
+    lin.reshape(-1)[::3] = R                # the trash row: dropped
+    lin[1] = R
+    lin = torch.from_numpy(lin).to(cuda)
+    o1, l1 = ops.lse_merge_routed(od, lsed, lin)
+    o2, l2 = ops.lse_merge(*ref.routed_partials(od, lsed, lin))
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2) and torch.equal(l1, l2)
+    o3, l3 = ref.lse_merge_routed_ref(od, lsed, lin)
+    _close(o1, o3, TOL[dtype])
+    _close(l1, l3, 2e-5)
+    assert bool((l1.view(G, Q * H)[1] == -1e30).all())
+    assert bool((o1.view(G, Q * H, D)[1] == 0).all())
+
+
+# router shapes: small sweeps; the decode step's (64 slots, tinyllama), a
+# corpus-scale E, G = 1, KH = H, every head_dim; shapes named in
+# ROUTER_OFFSET take q and emb one element past a 16-byte boundary (the
+# kernel's scalar load path)
+ROUTER_SHAPES = [
     (8, 8, 2, 32, 16), (5, 4, 4, 16, 7), (128, 8, 8, 64, 512),
     (64, 32, 4, 64, 32),
-])
+    (64, 32, 4, 64, 8192),      # corpus scale: a loop over E in each block
+    (1, 32, 4, 64, 32),         # G = 1
+    (6, 8, 8, 32, 40),          # KH = H
+    (16, 8, 2, 16, 24), (16, 32, 8, 128, 64),
+    (7, 8, 2, 16, 9),           # misaligned: scalar loads
+]
+ROUTER_OFFSET = {(7, 8, 2, 16, 9)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,H,KH,D,E", ROUTER_SHAPES)
 def test_router_scores_kernel(cuda, dtype, G, H, KH, D, E):
     g = np.random.default_rng(3)
     q = _randn(g, (G, H, D), dtype, cuda)
     emb = _randn(g, (E, KH, D), dtype, cuda)
+    if (G, H, KH, D, E) in ROUTER_OFFSET:
+        q = torch.cat([q.new_zeros(1), q.reshape(-1)])[1:].view(G, H, D)
+        emb = torch.cat([emb.new_zeros(1), emb.reshape(-1)])[1:].view(E, KH, D)
+        assert q.data_ptr() % 16 and emb.data_ptr() % 16
+    n0 = ops.router_scores.launches
     s1 = ops.router_scores(q, emb)
     torch.cuda.synchronize()
     _close(s1, ref.router_scores_ref(q, emb), 2e-5)
+    assert ops.router_scores.launches == n0 + 1
 
 
 def test_dense_decode_step_card_matches_cpu(cuda):

@@ -330,6 +330,114 @@ def test_router_scores(G, H, KH, D, E):
     assert_close(s1, jops.router_scores(qj, ej))
 
 
+def _router_fold_dot(q, emb, warps=4):
+    """The router kernel's arithmetic in fp32 (csrc/router_score.cu): the
+    gq query heads of each kv head summed in head order into qbar; then
+    warp w of ``warps`` sums every ``warps``-th 4-feature granule from w
+    into four accumulators, one per feature of the granule; a lane adds
+    its four as (a0 + a1) + (a2 + a3), and the warps' partials are added
+    in warp order; times 1 / sqrt(D) in fp32. Products and sums are
+    rounded apart here (the kernel fuses them), which moves the result by
+    a few fp32 ulps."""
+    G, H, D = q.shape
+    E, KH, _ = emb.shape
+    qh = q.float().reshape(G, KH, H // KH, D)
+    qbar = qh[:, :, 0]
+    for j in range(1, H // KH):
+        qbar = qbar + qh[:, :, j]
+    F = KH * D
+    F4 = -(-F // 4) * 4
+    qg = torch.nn.functional.pad(qbar.reshape(G, F), (0, F4 - F))
+    eg = torch.nn.functional.pad(emb.float().reshape(E, F), (0, F4 - F))
+    qg, eg = qg.view(G, F4 // 4, 4), eg.view(E, F4 // 4, 4)
+    total = None
+    for w in range(warps):
+        acc = torch.zeros((G, E, 4))
+        for t in range(w, F4 // 4, warps):
+            acc = acc + qg[:, None, t] * eg[None, :, t]
+        part = (acc[..., 0] + acc[..., 1]) + (acc[..., 2] + acc[..., 3])
+        total = part if total is None else total + part
+    scale = torch.tensor(1.0) / torch.sqrt(torch.tensor(float(D)))
+    return total * scale
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("G,H,KH,D,E", [
+    (64, 32, 4, 64, 32),     # the decode step's widths (tinyllama)
+    (5, 6, 6, 16, 7),        # ragged against the 4 x 8 tile, KH = H
+])
+def test_router_fold_order(dtype, G, H, KH, D, E):
+    """Folding q over each GQA group before the dot, in the kernel's order,
+    stays within 2e-5 of the JAX kernel (interpret mode), which multiplies
+    every query head by its kv head's repeated embedding."""
+    qj, qt = both(randn(40, (G, H, D)), dtype)
+    ej, et = both(randn(41, (E, KH, D)), dtype)
+    s1 = _router_fold_dot(qt, et)
+    assert_close(s1, jops.router_scores(qj, ej))
+    assert_close(s1, tops.router_scores(qt, et))
+
+
+def _routed_case(R, G, K, seed):
+    """lin (G, K) int64 rows in [0, R) with dropped routes (R, the trash
+    row): every third route, and all of group 1's."""
+    g = np.random.default_rng(seed)
+    lin = np.stack([g.permutation(R)[:K] for _ in range(G)]).astype(np.int64)
+    lin.reshape(-1)[::3] = R
+    lin[1] = R
+    return torch.from_numpy(lin)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("R,Q,H,D,G,K", [
+    (12, 1, 4, 16, 5, 3),    # decode: one query per group
+    (6, 4, 2, 32, 3, 2),     # prefill blocks: Q > 1
+])
+def test_lse_merge_routed(dtype, R, Q, H, D, G, K):
+    """The routed merge's plain version equals the plain dense merge of the
+    partials gathered by hand, bit for bit (a dropped route is out 0, lse
+    -1e30; group 1 lost every route), and the JAX kernel's merge of those
+    partials within tolerance."""
+    _, od = both(randn(42, (R, Q, H, D)), dtype)
+    lsed = torch.from_numpy(randn(43, (R, Q, H), 3.0))
+    lin = _routed_case(R, G, K, 44)
+    outs = torch.zeros((K, G, Q, H, D), dtype=od.dtype)
+    lses = torch.full((K, G, Q, H), -1e30)
+    for g in range(G):
+        for k in range(K):
+            if lin[g, k] < R:
+                outs[k, g] = od[lin[g, k]]
+                lses[k, g] = lsed[lin[g, k]]
+    outs, lses = outs.view(K, G * Q, H, D), lses.view(K, G * Q, H)
+    o1, l1 = tops.lse_merge_routed(od, lsed, lin)
+    o2, l2 = tref.lse_merge_ref(outs, lses)
+    assert o1.dtype == od.dtype and o1.shape == (G * Q, H, D)
+    assert torch.equal(o1, o2) and torch.equal(l1, l2)
+    assert bool((l1.view(G, Q * H)[1] == -1e30).all())
+    assert bool((o1.view(G, Q * H, D)[1] == 0).all())
+    oj, lj = jops.lse_merge(both(outs.float().numpy(), dtype)[0],
+                            both(lses.numpy())[0])
+    assert_close(o1, oj, dtype)
+    assert_close(l1, lj)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_lse_merge_pair(dtype):
+    """The pair merge's plain version equals the dense merge of the stacked
+    pair bit for bit, and the JAX kernel within tolerance, with a row that
+    neither partial attended and a -inf sentinel."""
+    oj, ot = both(randn(45, (2, 9, 4, 16)), dtype)
+    lse = randn(46, (2, 9, 4), 3.0)
+    lse[:, 0] = -1e30
+    lse[1, 2] = -np.inf
+    lj, lt = both(lse)
+    o1, l1 = tops.lse_merge_pair(ot[0], lt[0], ot[1], lt[1])
+    o2, l2 = tops.lse_merge(ot, lt)
+    assert torch.equal(o1, o2) and torch.equal(l1, l2)
+    o3, l3 = jops.lse_merge(oj, lj)
+    assert_close(o1, o3, dtype)
+    assert_close(l1, l3)
+
+
 def test_merge_of_decode_splits_equals_joint():
     """Flash-decoding invariant through the port's wrappers: decode over
     split caches + lse_merge == decode over the whole cache."""
