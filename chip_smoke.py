@@ -17,7 +17,10 @@ Phases, each printed as it runs; any failure exits non-zero:
             and the merge's pair and routed entries against their plain
             versions and, bit for bit, against its dense entry on the same
             partials stacked or gathered (routes dropped, and at the decode
-            and ragged shapes a group with every route dropped).
+            and ragged shapes a group with every route dropped). Both
+            decode kernels also with a sliding window (``WINDOWS``: lengths
+            below, at and past it, a window of one key), against their
+            plain versions and paged == slotted bit for bit.
   3. serve  ``repro_torch.launch.serve.main``: tinyllama-1.1b at full width
             and depth, random weights from a seed, a 65,536-token shared
             corpus (32 chunks of 2,048; top-8 routing), 128 requests of 256
@@ -32,6 +35,25 @@ Phases, each printed as it runs; any failure exits non-zero:
             ``decode_attention``; the first 128 generations equal a slotted
             engine's on the same stream. Then the chunked prefill's logits
             against a single-shot prefill of the same 1,000 tokens.
+  3h. tier  the host memory tier and the async pipeline at full width and
+            depth: the same model and weights over a 16,384-token corpus (8
+            chunks, so top-8 routing reads all of them), 128 distinct
+            prompts of 250 tokens, 32 new tokens each, submitted twice, on
+            64 slots and a fixed pool of 1 + 64 x 18 pages (what 64 live
+            requests need: every parked prefix is evicted before pass 2).
+            Engine A has a 2,048-page host tier with the async defaults
+            (prefetch 2, speculative appends, wave overlap), B no tier, C
+            the tier with all three off. Generations of A, B and C must be
+            equal bit for bit in both passes; A and C swap in all 128
+            prefixes in pass 2 and prefill nothing, B prefills all 128
+            again; every pass's launch counts are the predicted ones (a
+            swap-in launches no kernel); A must take at least one prefetch
+            hit and one speculative page, and keep its prefetch accounting.
+            Printed: bytes moved each way, the engine's swap latencies (host
+            time to queue), each direction's device time and GB/s for one
+            prompt's pages, the host link's rate (one 256 MB pinned copy
+            each way), each pass's wall and prefill tokens, the decode
+            stalls of A against C, and the decode step's p50.
   3c. q8    an int8 store built from the registered store's K/V: prefill of
             64 prompts and 32 decode steps through ``dense.prefill`` /
             ``dense.decode_step``, all shared attention in
@@ -111,6 +133,16 @@ STEP_LAUNCHES_GATHERED = {"decode step": 2547, "paged decode step": 2787}
 # the paged phase's stream: prompts end mid-page, and two exceed max_seq
 PAGED_PROMPT, LONG_PROMPT, BLOCK = 250, 1000, 16
 M_PAGES = 512 // BLOCK                 # table width of a 512-token slot
+
+# phase 2's sliding windows, by input label: multiples of neither 32 nor
+# the page size, and a window of one key
+WINDOWS = {"path": (100,), "ragged": (37, 1)}
+
+# phase 3h: the host tier's stream, pool and tier
+TIER_CORPUS, TIER_PROMPTS = 16384, 128
+TIER_PAGES = 1 + SLOTS * -(-(PAGED_PROMPT + NEW_TOKENS) // BLOCK)  # 1,153
+TIER_HOST_PAGES = 2048
+LINK_BYTES = 256 << 20                 # the host link yardstick's copy
 
 SOURCES = {
     "shared_chunk_attention": ("src/repro_torch/kernels/csrc/shared_chunk_attn.cu",
@@ -424,6 +456,11 @@ def phase_check(cfg, dev):
                     f"{str(dtype)[6:]:8s} bitwise={same}")
                 check(same, ("paged vs slotted decode kernel", label, dtype))
             check_merge_entries(cfg, dev, dtype, label)
+            for window in WINDOWS.get(label, ()):
+                err = check_window(inputs, dtype, label, window)
+                if label == "path" and dtype == torch.bfloat16:
+                    for name, e in err.items():
+                        errs[name] = max(errs.get(name, 0.0), e)
             for name, args in inputs.items():
                 got = getattr(ops, name)(*args)
                 torch.cuda.synchronize()
@@ -447,6 +484,36 @@ def phase_check(cfg, dev):
                     f"max_abs_err={err:.3e} tol={tol:g} ok")
                 if label != "ragged" and dtype == torch.bfloat16:
                     errs[name] = max(errs.get(name, 0.0), err)
+    return errs
+
+
+def check_window(inputs, dtype, label, window):
+    """Both decode kernels with a sliding window against their plain
+    versions, and paged == slotted bit for bit; returns max |kernel -
+    plain| by kernel."""
+    from repro_torch.kernels import ops
+    plain = plain_versions()
+    errs = {}
+    for name in ("decode_attention", "paged_decode_attention"):
+        args = inputs[name]
+        got = getattr(ops, name)(*args, window=window)
+        want = plain[name](*args, window=window)
+        torch.cuda.synchronize()
+        errs[name] = max(float((a.float() - b.float()).abs().max())
+                         for a, b in zip(got, want))
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a.float(), b.float(), rtol=TOL[dtype],
+                                       atol=TOL[dtype])
+        say(f"[check] {name:24s} {label:7s} {str(dtype)[6:]:8s} "
+            f"window={window} max_abs_err={errs[name]:.3e} ok")
+    paged = inputs["paged_decode_attention"]
+    got = ops.paged_decode_attention(*paged, window=window)
+    want = ops.decode_attention(*slotted_view(*paged), window=window)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    say(f"[check] paged == slotted decode kernel {label:7s} "
+        f"{str(dtype)[6:]:8s} window={window} bitwise={same}")
+    check(same, ("paged vs slotted decode kernel, window", label, dtype))
     return errs
 
 
@@ -576,6 +643,204 @@ def phase_paged(cfg, dev):
     check(same, "paged generations differ from slotted")
     chunked_vs_single_shot(cfg, params, store, longs[0], dev)
     return counts, params, store
+
+
+TIER_COUNTERS = ("engine/decode_steps", "engine/prefills",
+                 "engine/prefill_tokens", "kvcache/swap_in_hits",
+                 "kvcache/swap_in_bytes", "kvcache/offloads",
+                 "kvcache/offload_bytes", "kvcache/host_pool_evictions",
+                 "kvcache/prefix_hits", "kvcache/prefetch_issued",
+                 "kvcache/prefetch_hits", "kvcache/prefetch_wasted",
+                 "kvcache/spec_pages_alloc", "kvcache/spec_pages_reclaimed")
+
+
+def phase_tier(cfg, dev, params):
+    """Phase 3h: engines A (host tier, async defaults), B (no tier) and C
+    (tier, async off) over the same two passes of 128 prompts; see the
+    head of this file."""
+    from repro_torch import obs
+    from repro_torch.data.pipeline import CorpusSpec, synthesize_corpus
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+
+    corpus = synthesize_corpus(CorpusSpec("tier", TIER_CORPUS,
+                                          cfg.vocab_size, seed=0))
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, PAGED_PROMPT).tolist()
+               for _ in range(TIER_PROMPTS)]
+    check(len({tuple(p) for p in prompts}) == TIER_PROMPTS,
+          "tier prompts are not distinct")
+    L = cfg.num_layers
+    sync = dict(prefetch_depth=0, spec_append=False, overlap_waves=False)
+    engines = {"A": dict(host_pool_blocks=TIER_HOST_PAGES),
+               "B": dict(host_pool_blocks=0),
+               "C": dict(host_pool_blocks=TIER_HOST_PAGES, **sync)}
+    gens, res = {}, {}
+    for name, kw in engines.items():
+        reg = obs.MetricsRegistry()
+        prev = obs.set_registry(reg)
+        try:
+            eng = ServingEngine(cfg, params, EngineConfig(
+                max_slots=SLOTS, max_seq=512, cache_dtype=torch.bfloat16,
+                kv_layout="paged", block_size=BLOCK, num_blocks=TIER_PAGES,
+                **kw))
+            eng.register_corpus("tier", corpus)
+            stall = reg.histogram("engine/decode_stall_s",
+                                  obs.LATENCY_EDGES_S)
+            for p in (1, 2):
+                before = {c: reg.counter(c).value for c in TIER_COUNTERS}
+                stall0, steps0 = stall.sum, len(eng.metrics["decode_step_s"])
+                for prompt in prompts:
+                    eng.submit(prompt, NEW_TOKENS, corpus_id="tier")
+                ops.reset_launches()
+                t0 = time.perf_counter()
+                done = list(eng.run())
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = ops.launch_counts()
+                eng.scheduler.finished.clear()
+                d = {c.split("/")[1]: int(reg.counter(c).value - before[c])
+                     for c in TIER_COUNTERS}
+                d["wall_s"] = wall
+                d["decode_step_p50_s"] = float(np.median(
+                    eng.metrics["decode_step_s"][steps0:]))
+                d["decode_stall_sum_s"] = stall.sum - stall0
+                res[name, p] = d
+                gens[name, p] = {tuple(r.prompt): tuple(r.generated)
+                                 for r in done}
+                want = expected_launches(
+                    L, d["decode_steps"], d["decode_steps"] + d["prefills"],
+                    unique="paged_decode_attention")
+                say(f"[tier] {name} pass {p}: {json.dumps(d)}")
+                check(len(done) == TIER_PROMPTS and
+                      all(len(r.generated) == NEW_TOKENS for r in done),
+                      (name, p, "unfinished requests"))
+                check(counts == want, (name, p, "launch counts", counts,
+                                       want))
+            lat = {h: reg.histogram(f"kvcache/{h}", obs.LATENCY_EDGES_S)
+                   for h in ("swap_out_latency_s", "swap_in_latency_s")}
+            say(f"[tier] {name}: engine swap latencies, host time to queue "
+                "(the copies run on the card afterwards): " + ", ".join(
+                    f"{h} n={x.count} mean={x.mean * 1e3:.4f} ms "
+                    f"min={(x.min or 0) * 1e3:.4f} ms "
+                    f"max={(x.max or 0) * 1e3:.4f} ms "
+                    f"bucket p50<={x.quantile(0.5) * 1e3:.4f} ms"
+                    for h, x in lat.items()))
+            if name == "A":
+                eng._prefetch.check_invariants()
+                pf = eng._prefetch
+                say(f"[tier] A prefetch accounting: issued={pf.issued} "
+                    f"resolved={pf.resolved} discarded={pf.discarded} "
+                    f"in_flight={pf.in_flight}")
+        finally:
+            obs.set_registry(prev)
+        del eng
+        torch.cuda.empty_cache()
+    for p in (1, 2):
+        same = gens["A", p] == gens["B", p] == gens["C", p]
+        say(f"[tier] pass {p}: generations of A, B and C equal bit for bit: "
+            f"{same}")
+        check(same, ("tier generations differ", p))
+    for name in ("A", "C"):
+        d = res[name, 2]
+        check(d["swap_in_hits"] == TIER_PROMPTS and d["prefills"] == 0,
+              (name, "pass 2 must swap in every prefix", d))
+    check(res["B", 2]["prefills"] == TIER_PROMPTS and
+          res["B", 2]["prefill_tokens"] == TIER_PROMPTS * PAGED_PROMPT,
+          ("B pass 2 must rebuild every prefix", res["B", 2]))
+    a = {k: res["A", 1][k] + res["A", 2][k] for k in res["A", 1]}
+    check(a["prefetch_hits"] >= 1 and a["spec_pages_alloc"] >= 1,
+          ("A took no prefetch hit or no speculative page", a))
+    c_stall = sum(res["C", p]["decode_stall_sum_s"] for p in (1, 2))
+    say("[tier] decode_stall_sum_s, both passes: "
+        f"A={a['decode_stall_sum_s']:.6f} C={c_stall:.6f}; "
+        "pass 2 wall (s) " + " ".join(
+            f"{n}={res[n, 2]['wall_s']:.3f}" for n in engines) +
+        "; pass 2 prefill_tokens " + " ".join(
+            f"{n}={res[n, 2]['prefill_tokens']}" for n in engines))
+    time_swaps(cfg, dev)
+
+
+def time_swaps(cfg, dev, entries=16):
+    """One prompt's pages (16 pages x 22 layers, bf16) each way through the
+    engine's calls: swap-out = ``extract_blocks`` + a pinned
+    ``HostBlockPool.offload``, swap-in = a wait on the offload's event +
+    ``insert_blocks`` from pinned memory. First the host's time to queue
+    each offload as the engine calls it (block ids as a list), in two
+    rounds: the second finds the first round's pinned blocks freed and
+    cached by the allocator. Then the device time of each call's copies:
+    CUDA events behind a spin kernel that keeps the card busy while the
+    host queues (block ids already on the card, the pinned allocator
+    warm); median over ``entries``, and GB/s. Then the host link itself:
+    one 256 MB pinned copy each way."""
+    from repro_torch.kvcache import paged as tpg
+
+    nb = -(-PAGED_PROMPT // BLOCK)
+    g = torch.Generator(device=dev).manual_seed(4)
+    shape = (cfg.num_layers, 1 + entries * nb, BLOCK, cfg.num_kv_heads,
+             cfg.head_dim)
+    pool = tpg.PagedKVCache(*(torch.randn(shape, generator=g, device=dev)
+                              .to(torch.bfloat16) for _ in range(2)))
+    lists = [list(range(1 + i * nb, 1 + (i + 1) * nb))
+             for i in range(entries)]
+    ids = [torch.tensor(x, device=dev) for x in lists]
+    gens = [(b, 1) for b in range(nb)]
+    nbytes = 2 * nb * pool.k[:, 0].numel() * pool.k.element_size()
+    cur = torch.cuda.current_stream()
+    for rnd in ("first", "second"):
+        host = tpg.HostBlockPool(entries * nb)
+        torch.cuda.synchronize()
+        t = []
+        for i in range(entries):
+            t0 = time.perf_counter()
+            host.offload(i, *tpg.extract_blocks(pool, lists[i]), 0, gens)
+            t.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        say(f"[tier] swap-out of one prompt's pages, host time to queue "
+            f"({rnd} round, ids as a list): p50 "
+            f"{float(np.median(t)) * 1e3:.4f} ms, max {max(t) * 1e3:.4f} ms")
+        del host
+    host = tpg.HostBlockPool(entries * nb)
+
+    def on_card(fn):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        a.record()
+        fn()
+        b.record()
+        return a, b
+
+    def swap_in(i):
+        entry = host.peek(i)
+        cur.wait_event(entry["ready"])
+        tpg.insert_blocks(pool, ids[(i + 1) % entries], entry["k"],
+                          entry["v"])
+
+    outs = [on_card(lambda i=i: host.offload(
+        i, *tpg.extract_blocks(pool, ids[i]), 0, gens))
+        for i in range(entries)]
+    want = [t[:, lists[0]].clone() for t in pool]
+    ins = [on_card(lambda i=i: swap_in(i)) for i in range(entries)]
+    torch.cuda.synchronize()
+    check(all(torch.equal(t[:, lists[1]], w) for t, w in zip(pool, want)),
+          "swap round trip changed the pages")
+    for label, ev in (("swap-out (gather + D2H)", outs),
+                      ("swap-in (H2D + scatter)", ins)):
+        ms = float(np.median([a.elapsed_time(b) for a, b in ev]))
+        say(f"[tier] {label} of one prompt's pages ({nbytes} B): device "
+            f"p50 {ms:.4f} ms over {entries}, {nbytes / ms / 1e6:.2f} GB/s")
+    dev_buf = torch.empty(LINK_BYTES, dtype=torch.uint8, device=dev)
+    host_buf = torch.empty(LINK_BYTES, dtype=torch.uint8, pin_memory=True)
+    for label, dst, src in (("H2D", dev_buf, host_buf),
+                            ("D2H", host_buf, dev_buf)):
+        dst.copy_(src, non_blocking=True)            # warm
+        a, b = on_card(lambda: dst.copy_(src, non_blocking=True))
+        b.synchronize()
+        ms = a.elapsed_time(b)
+        say(f"[tier] host link {label}, one pinned {LINK_BYTES} B copy: "
+            f"{ms:.4f} ms, {LINK_BYTES / ms / 1e6:.2f} GB/s")
+    del dev_buf, host_buf, pool, host
 
 
 def chunked_vs_single_shot(cfg, params, store, prompt, dev):
@@ -1186,6 +1451,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     paged_counts, params, store = phase_paged(cfg, dev)
     counts["paged_decode_attention"] = paged_counts["paged_decode_attention"]
+    phase_tier(cfg, dev, params)
+    torch.cuda.empty_cache()
     q8_counts = phase_q8(cfg, dev, params, store)
     counts["shared_chunk_attention_q8"] = \
         q8_counts["shared_chunk_attention_q8"]

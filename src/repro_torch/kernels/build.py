@@ -34,9 +34,9 @@ SIGNATURES = {
     "moska_shared_chunk_attn_q8": [_p, _p, _p, _p, _p, _p, _p, _p,
                                    _i, _i, _i, _i, _i, _i, _i, _p],
     "moska_decode_attn": [_p, _p, _p, _p, _p, _p,
-                          _i, _i, _i, _i, _i, _i, _p],
+                          _i, _i, _i, _i, _i, _i, _i, _p],
     "moska_paged_decode_attn": [_p, _p, _p, _p, _p, _p, _p,
-                                _i, _i, _i, _i, _i, _i, _i, _p],
+                                _i, _i, _i, _i, _i, _i, _i, _i, _p],
     "moska_lse_merge": [_p, _p, _p, _p, _i, ctypes.c_long, _i, _i, _p],
     "moska_lse_merge_pair": [_p, _p, _p, _p, _p, _p, ctypes.c_long, _i, _i,
                              _p],

@@ -5,18 +5,22 @@
 //
 // A block attends up to 8 query heads of one (request, kv head), heads that
 // share its K/V: the whole GQA group when G <= 8, else 8 heads a block.
-// Its W warps split the key range [0, n) among themselves: the range is cut
-// into 32-key tiles, tile t belongs to warp t % W, and each warp runs its
-// own online softmax over its tiles. At the end the W partials are merged
-// in shared memory, warp 0 first, inside the same launch: no second
-// kernel, no atomics, no scratch tensor. The tiles and their owners depend
-// only on n (and on W, fixed by dtype and D), never on the slab length,
-// the page size or the page order, so on the same logical cache the two
-// kernels do the same arithmetic in the same order and give the same bits.
-// A warp with no tile contributes m = -1e30, l = 0, o = 0: exactly nothing.
+// It attends keys [lo, n): lo = max(0, n - window) with a sliding window,
+// else 0 (the reference's mask, pos >= kv_len - window). The key axis is
+// cut into 32-key tiles aligned to 0; tiles that end at or before lo are
+// skipped outright, and tile t of the rest belongs to warp t % W. Each
+// warp runs its own online softmax over its tiles. At the end the W
+// partials are merged in shared memory, warp 0 first, inside the same
+// launch: no second kernel, no atomics, no scratch tensor. The tiles and
+// their owners depend only on (lo, n) (and on W, fixed by dtype and D),
+// never on the slab length, the page size or the page order, so on the
+// same logical cache the two kernels do the same arithmetic in the same
+// order and give the same bits. A warp with no live tile contributes
+// m = -1e30, l = 0, o = 0: exactly nothing.
 //
 // Loads: each warp keeps a ring of 2-3 stages of K/V tiles in shared
-// memory, filled by 16-byte cp.async.cg copies (keys past n zero-filled),
+// memory, filled by 16-byte cp.async.cg copies (keys outside [lo, n)
+// zero-filled, and they score -1e30: probability exactly 0),
 // so tile t + 1 is in flight while tile t is computed. K and V stay in
 // their own dtype in shared memory. Rows are padded by 16 bytes, so the 8
 // row addresses of one ldmatrix, or the 8 lanes of one 16-byte load, fall
@@ -86,16 +90,33 @@ __host__ __device__ constexpr int dec_smem_bytes() {
          dec_warps<T, D>() * dec_stages<T, D>() * dec_stage_bytes<T, D>();
 }
 
+// The tiles of [lo, n) that warp `warp` of W owns: tiles are 32 keys
+// aligned to 0, tile t (keys [32 t, 32 t + 32)) is live when it holds a key
+// of [lo, n), and warp w owns the live tiles with t % W == w, from `first`
+// on. A function of (lo, n) and W only.
+struct DecTiles {
+  int first;  // this warp's first tile
+  int count;  // its live tiles
+};
+__device__ __forceinline__ DecTiles dec_tiles(int warp, int W, int lo, int n) {
+  const int t_lo = lo / kDecKeys;                  // first live tile
+  const int nt = (n + kDecKeys - 1) / kDecKeys;    // one past the last
+  const int first = t_lo + ((warp - t_lo) % W + W) % W;
+  return {first, first < nt ? (nt - 1 - first) / W + 1 : 0};
+}
+
 // K/V of one (request, kv head) in a slab: key p, dim d at k[p * stride + d]
-// (kv head applied to the base pointers). issue(stage, t0, n) starts this
-// lane's share of the copies of keys [t0, t0 + 32) into the stage.
+// (kv head applied to the base pointers). issue(stage, t0, lo, n) starts
+// this lane's share of the copies of keys [t0, t0 + 32) into the stage;
+// keys outside [lo, n) are zero-filled and their memory is not read.
 template <typename T, int D>
 struct SlabKV {
   const T* __restrict__ k;
   const T* __restrict__ v;
   long stride;  // KH * D
 
-  __device__ __forceinline__ void issue(char* stage, int t0, int n) const {
+  __device__ __forceinline__ void issue(char* stage, int t0, int lo,
+                                        int n) const {
     constexpr int kE = 16 / (int)sizeof(T);  // elements of a 16-byte copy
     constexpr int kChunks = D / kE;          // copies of a row
     constexpr int LD = dec_ld<T, D>();
@@ -103,7 +124,7 @@ struct SlabKV {
 #pragma unroll
     for (int i = lane; i < kDecKeys * kChunks; i += 32) {
       const int j = i / kChunks, c = i % kChunks;
-      const bool in = t0 + j < n;
+      const bool in = t0 + j >= lo && t0 + j < n;
       const long o = (in ? (long)(t0 + j) * stride : 0) + c * kE;
       cp_async16(stage + j * LD + c * 16, k + o, in ? 16 : 0);
       cp_async16(stage + (kDecKeys + j) * LD + c * 16, v + o, in ? 16 : 0);
@@ -125,22 +146,24 @@ struct PagesKV {
   long page_stride;                   // bs * KH * D
   long row_stride;                    // KH * D
 
-  __device__ __forceinline__ void issue(char* stage, int t0, int n) const {
+  __device__ __forceinline__ void issue(char* stage, int t0, int lo,
+                                        int n) const {
     constexpr int kE = 16 / (int)sizeof(T);
     constexpr int kChunks = D / kE;
     constexpr int LD = dec_ld<T, D>();
     const int lane = threadIdx.x & 31;
     const int p0 = t0 / bs;
     const int page = p0 + lane <= (n - 1) / bs ? table[p0 + lane] : 0;
-    // lane j: the offset of key t0 + j (0 past n)
+    // lane j: the offset of key t0 + j (0 outside [lo, n))
     const int pos = t0 + lane;
-    const int id = __shfl_sync(0xffffffffu, page, pos < n ? pos / bs - p0 : 0);
-    const long key = pos < n ? (long)id * page_stride + (long)(pos % bs) *
-                                   row_stride : 0;
+    const bool live = pos >= lo && pos < n;
+    const int id = __shfl_sync(0xffffffffu, page, live ? pos / bs - p0 : 0);
+    const long key = live ? (long)id * page_stride + (long)(pos % bs) *
+                                row_stride : 0;
 #pragma unroll
     for (int i = lane; i < kDecKeys * kChunks; i += 32) {
       const int j = i / kChunks, c = i % kChunks;
-      const bool in = t0 + j < n;
+      const bool in = t0 + j >= lo && t0 + j < n;
       const long o = __shfl_sync(0xffffffffu, key, j) + c * kE;
       cp_async16(stage + j * LD + c * 16, k + o, in ? 16 : 0);
       cp_async16(stage + (kDecKeys + j) * LD + c * 16, v + o, in ? 16 : 0);
@@ -183,8 +206,9 @@ __device__ __forceinline__ void merge_parts(const char* rings, int stride,
 // The bf16 body, on tensor cores (see the head of this file).
 template <int D, typename KV>
 __device__ __forceinline__ void decode_rows_mma(
-    const __nv_bfloat16* __restrict__ q, int rows, const KV& kv, int n,
-    float scale, __nv_bfloat16* __restrict__ out, float* __restrict__ lse) {
+    const __nv_bfloat16* __restrict__ q, int rows, const KV& kv, int lo,
+    int n, float scale, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ lse) {
   using T = __nv_bfloat16;
   constexpr int W = dec_warps<T, D>();
   constexpr int S = dec_stages<T, D>();
@@ -207,15 +231,15 @@ __device__ __forceinline__ void decode_rows_mma(
     const int r = i / D;
     qs[r * QLD + i % D] = r < rows ? q[i] : __float2bfloat16(0.f);
   }
-  // the partition: tiles of [0, n), tile t to warp t % W
-  const int nt = (n + kDecKeys - 1) / kDecKeys;
-  const int mine = warp < nt ? (nt - 1 - warp) / W + 1 : 0;
-  auto tile0 = [&](int it) { return (warp + it * W) * kDecKeys; };
+  // the partition: the live tiles of [lo, n), tile t to warp t % W
+  const DecTiles tiles = dec_tiles(warp, W, lo, n);
+  const int mine = tiles.count;
+  auto tile0 = [&](int it) { return (tiles.first + it * W) * kDecKeys; };
   // prologue: this warp's first S - 1 tiles, one group each (empty
   // groups keep the count uniform)
 #pragma unroll
   for (int s = 0; s < S - 1; ++s) {
-    if (s < mine) kv.issue(ring + s * SB, tile0(s), n);
+    if (s < mine) kv.issue(ring + s * SB, tile0(s), lo, n);
     cp_async_commit();
   }
   __syncthreads();
@@ -244,7 +268,7 @@ __device__ __forceinline__ void decode_rows_mma(
     cp_async_wait<S - 2>();
     __syncwarp();
     if (it + S - 1 < mine)
-      kv.issue(ring + ((it + S - 1) % S) * SB, tile0(it + S - 1), n);
+      kv.issue(ring + ((it + S - 1) % S) * SB, tile0(it + S - 1), lo, n);
     cp_async_commit();
     const T* ks = reinterpret_cast<const T*>(ring + (it % S) * SB);
     const T* vs = ks + kDecKeys * LD;
@@ -266,14 +290,15 @@ __device__ __forceinline__ void decode_rows_mma(
     }
 
     // online softmax of heads 2t, 2t + 1 over the tile's keys (the 8
-    // lanes of one t hold all 32); keys past n score -1e30
+    // lanes of one t hold all 32); keys outside [lo, n) score -1e30
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = t0 + 16 * mt + g + 8 * (e >> 1);
-        const float x = key < n ? s[mt][e] * scale_log2 : kNegInf;
+        const float x = key >= lo && key < n ? s[mt][e] * scale_log2
+                                             : kNegInf;
         s[mt][e] = x;
         mx[e & 1] = fmaxf(mx[e & 1], x);
       }
@@ -371,8 +396,8 @@ __device__ __forceinline__ void load_f(const float* p, float (&f)[N]) {
 // The fp32 body, on the CUDA cores (see the head of this file); R rows.
 template <int D, int R, typename KV>
 __device__ __forceinline__ void decode_rows_fma(const float* __restrict__ q,
-                                                int rows, const KV& kv, int n,
-                                                float scale,
+                                                int rows, const KV& kv, int lo,
+                                                int n, float scale,
                                                 float* __restrict__ out,
                                                 float* __restrict__ lse) {
   using T = float;
@@ -396,12 +421,12 @@ __device__ __forceinline__ void decode_rows_fma(const float* __restrict__ q,
   char* ring = rings + warp * S * SB;
 
   for (int i = tid; i < R * D; i += W * 32) qs[i] = i < rows * D ? q[i] : 0.f;
-  const int nt = (n + kDecKeys - 1) / kDecKeys;
-  const int mine = warp < nt ? (nt - 1 - warp) / W + 1 : 0;
-  auto tile0 = [&](int it) { return (warp + it * W) * kDecKeys; };
+  const DecTiles tiles = dec_tiles(warp, W, lo, n);
+  const int mine = tiles.count;
+  auto tile0 = [&](int it) { return (tiles.first + it * W) * kDecKeys; };
 #pragma unroll
   for (int s = 0; s < S - 1; ++s) {
-    if (s < mine) kv.issue(ring + s * SB, tile0(s), n);
+    if (s < mine) kv.issue(ring + s * SB, tile0(s), lo, n);
     cp_async_commit();
   }
   __syncthreads();
@@ -424,7 +449,7 @@ __device__ __forceinline__ void decode_rows_fma(const float* __restrict__ q,
     cp_async_wait<S - 2>();
     __syncwarp();
     if (it + S - 1 < mine)
-      kv.issue(ring + ((it + S - 1) % S) * SB, tile0(it + S - 1), n);
+      kv.issue(ring + ((it + S - 1) % S) * SB, tile0(it + S - 1), lo, n);
     cp_async_commit();
     const float* ks = reinterpret_cast<const float*>(ring + (it % S) * SB);
     const float* vs = ks + kDecKeys * LD;
@@ -448,7 +473,8 @@ __device__ __forceinline__ void decode_rows_fma(const float* __restrict__ q,
     }
 
     // online softmax: the tile's max over the warp, P into shared memory
-    const bool live = tile0(it) + lane < n;
+    const int key = tile0(it) + lane;
+    const bool live = key >= lo && key < n;
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const float x = live ? s[r] * scale : kNegInf;
@@ -516,19 +542,21 @@ __device__ __forceinline__ void decode_rows_fma(const float* __restrict__ q,
   merge_parts<T, D, R, W, false>(rings, S * SB, rows, out, lse);
 }
 
-// Attend `rows` (1..R) query heads, q[r * D + d], to keys [0, n) that `kv`
-// reads; write out[r * D + d] (normalised, in T) and lse[r]. Every thread
-// of the block (dec_warps * 32) must call it, with dec_smem_bytes<T, D, R>()
-// of dynamic shared memory; bf16 takes R = 8.
+// Attend `rows` (1..R) query heads, q[r * D + d], to the first n keys that
+// `kv` reads, within a sliding window of `window` keys (0: none); write
+// out[r * D + d] (normalised, in T) and lse[r]. Every thread of the block
+// (dec_warps * 32) must call it, with dec_smem_bytes<T, D, R>() of dynamic
+// shared memory; bf16 takes R = 8.
 template <typename T, int D, int R, typename KV>
 __device__ __forceinline__ void decode_rows(const T* __restrict__ q, int rows,
-                                            const KV& kv, int n, float scale,
-                                            T* __restrict__ out,
+                                            const KV& kv, int n, int window,
+                                            float scale, T* __restrict__ out,
                                             float* __restrict__ lse) {
+  const int lo = window > 0 ? max(0, n - window) : 0;
   if constexpr (std::is_same<T, float>::value)
-    decode_rows_fma<D, R>(q, rows, kv, n, scale, out, lse);
+    decode_rows_fma<D, R>(q, rows, kv, lo, n, scale, out, lse);
   else
-    decode_rows_mma<D>(q, rows, kv, n, scale, out, lse);
+    decode_rows_mma<D>(q, rows, kv, lo, n, scale, out, lse);
 }
 
 }  // namespace moska

@@ -54,6 +54,11 @@ def _head_dim(name: str, D: int) -> None:
         raise ValueError(f"{name}: head_dim {D} not in {_HEAD_DIMS}")
 
 
+def _window(name: str, window: int) -> None:
+    if window < 0:
+        raise ValueError(f"{name}: negative window {window}")
+
+
 def _aligned16(name: str, **tensors: torch.Tensor) -> None:
     """The decode kernels copy K/V rows in 16-byte pieces."""
     for arg, t in tensors.items():
@@ -147,15 +152,13 @@ def shared_chunk_attention_q8(qd: torch.Tensor, k: torch.Tensor,
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_len: torch.Tensor, window: int = 0
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """q: (B, H, D); k/v: (B, S, KH, D); kv_len: (B,) int32.
-    Returns (out (B, H, D) in q.dtype, lse (B, H) fp32). The kernel has no
-    sliding window: ``window > 0`` on a CUDA tensor raises."""
+    """q: (B, H, D); k/v: (B, S, KH, D); kv_len: (B,) int32; ``window > 0``
+    attends only the last ``window`` of each request's ``kv_len`` positions.
+    Returns (out (B, H, D) in q.dtype, lse (B, H) fp32)."""
     if _on_cpu(q):
         return ref.decode_attention_ref(q, k, v, kv_len, window=window)
     name = "decode_attention"
-    if window:
-        raise NotImplementedError(
-            f"{name}: the CUDA kernel has no sliding window (window={window})")
+    _window(name, window)
     B, H, D = q.shape
     _, S, KH, _ = k.shape
     if k.shape != (B, S, KH, D) or v.shape != k.shape or H % KH:
@@ -177,7 +180,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{name}: empty input")
     _raise_on(name, library().moska_decode_attn(
         _ptr(q), _ptr(k), _ptr(v), _ptr(kv_len), _ptr(out), _ptr(lse),
-        B, H, KH, D, S, code, _stream()))
+        B, H, KH, D, S, window, code, _stream()))
     decode_attention.launches += 1
     return out, lse
 
@@ -188,16 +191,14 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``decode_attention`` with the K/V in a page pool. q: (B, H, D);
     k_pool/v_pool: (N, bs, KH, D); table: (B, M) int32 page ids in
-    [0, N); kv_len: (B,) int32. Returns (out (B, H, D) in q.dtype,
-    lse (B, H) fp32). The kernel has no sliding window: ``window > 0`` on
-    a CUDA tensor raises."""
+    [0, N); kv_len: (B,) int32; ``window > 0`` attends only the last
+    ``window`` positions. Returns (out (B, H, D) in q.dtype, lse (B, H)
+    fp32)."""
     if _on_cpu(q):
         return ref.paged_decode_attention_ref(q, k_pool, v_pool, table,
                                               kv_len, window=window)
     name = "paged_decode_attention"
-    if window:
-        raise NotImplementedError(
-            f"{name}: the CUDA kernel has no sliding window (window={window})")
+    _window(name, window)
     B, H, D = q.shape
     N, bs, KH, _ = k_pool.shape
     if k_pool.shape != (N, bs, KH, D) or v_pool.shape != k_pool.shape \
@@ -224,8 +225,8 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError(f"{name}: empty input")
     _raise_on(name, library().moska_paged_decode_attn(
         _ptr(q), _ptr(k_pool), _ptr(v_pool), _ptr(table), _ptr(kv_len),
-        _ptr(out), _ptr(lse), B, H, KH, D, bs, table.shape[1], code,
-        _stream()))
+        _ptr(out), _ptr(lse), B, H, KH, D, bs, table.shape[1], window,
+        code, _stream()))
     paged_decode_attention.launches += 1
     return out, lse
 

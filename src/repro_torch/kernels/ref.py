@@ -52,7 +52,7 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv_len: (B,). Returns (out (B, H, D) in q.dtype, lse (B, H) fp32).
 
     ``window > 0`` also masks positions before ``kv_len - window``
-    (sliding-window archs; the kernel does not take it)."""
+    (sliding-window archs), as the kernel does."""
     B, H, D = q.shape
     S, KH = k.shape[1], k.shape[2]
     G = H // KH

@@ -1,8 +1,9 @@
-"""Paged unique-KV cache: a block pool + ref-counted allocator.
+"""Paged unique-KV cache: a block pool + ref-counted allocator, and the
+host memory tier behind it.
 
-Port of the reference ``kvcache/paged.py`` (without the host tier).
-Instead of one ``(L, B, max_seq, KH, D)`` slab where every slot pays for
-the worst-case prompt, the paged layout keeps a pool of fixed-size pages
+Port of the reference ``kvcache/paged.py``. Instead of one
+``(L, B, max_seq, KH, D)`` slab where every slot pays for the worst-case
+prompt, the paged layout keeps a pool of fixed-size pages
 
     k_pool, v_pool : (L, num_blocks, block_size, KH, D)
 
@@ -16,15 +17,20 @@ shared page.
     copy of the reference's: free list, refcounts, alloc/incref/free, CoW
     arbitration, and a generation per allocation, so ``(block_id,
     generation)`` names one lifetime of a page.
+  * :class:`HostBlockPool` — the LRU host tier that evicted prefix pages
+    are offloaded to. On a card its entries are pinned CPU tensors,
+    written by ``non_blocking`` copies and fenced by a CUDA event; on the
+    CPU they are plain copies.
   * :class:`PagedKVCache` + the ops below — the device data path. Unlike
-    the reference's functional updates, ``append_layer``, ``write_blocks``
-    and ``copy_block`` write into the pool in place (the counterpart of
-    the reference's buffer donation); ``grow_paged_kv_cache`` returns a
-    larger pool holding the old pages.
+    the reference's functional updates, ``append_layer``, ``write_blocks``,
+    ``copy_block`` and ``insert_blocks`` write into the pool in place (the
+    counterpart of the reference's buffer donation);
+    ``grow_paged_kv_cache`` returns a larger pool holding the old pages.
 """
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional, Sequence, Union
+import collections
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -150,6 +156,137 @@ class BlockPool:
             "block conservation violated"
 
 
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """A host copy of ``t``: for a CUDA tensor a pinned buffer that a
+    ``non_blocking`` copy on the current stream fills (the caller fences
+    it with an event); for a CPU tensor a plain copy."""
+    if t.device.type == "cpu":
+        return t.detach().clone()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return host
+
+
+class HostBlockPool:
+    """LRU-bounded host memory tier for evicted prefix pages.
+
+    When the device prefix cache LRU-evicts a cold entry, its pages are
+    copied here instead of being lost outright; a later prefix hit swaps
+    them back into freshly allocated device blocks (``fetch`` has move
+    semantics — the host copy is consumed by the swap-in, keeping exactly
+    one owner per page copy). Capacity is counted in blocks; inserting
+    past it evicts entries in insertion-then-touch order, exactly like the
+    device prefix cache, so the two tiers age deterministically. An entry
+    wider than the whole pool is rejected (counted), not partially stored.
+
+    Entries are verbatim snapshots: the ``(L, nb, bs, KH, D)`` k/v pages,
+    the first generated token (so a swap-in skips the prefill entirely),
+    the ``(block_id, generation)`` pairs the pages were copied from — the
+    generation tags prove a host copy is never an alias of a live device
+    page (the source blocks have been freed, and any reuse bumps their
+    generation) — and ``ready``: for pages from a card, the CUDA event
+    recorded after their ``non_blocking`` device-to-host copy, which any
+    reader (the host, or a copy on another stream) must wait on first;
+    None for pages from the CPU.
+    """
+
+    def __init__(self, capacity_blocks: int):
+        if capacity_blocks < 0:
+            raise ValueError(
+                f"negative host pool capacity {capacity_blocks}")
+        self.capacity_blocks = capacity_blocks
+        self._entries: "collections.OrderedDict" = collections.OrderedDict()
+        self._used = 0
+        self.offloads = 0
+        self.evictions = 0
+        self.rejected = 0
+
+    # -- introspection ---------------------------------------------------
+    @property
+    def used_blocks(self) -> int:
+        return self._used
+
+    @property
+    def num_entries(self) -> int:
+        return len(self._entries)
+
+    def __contains__(self, key) -> bool:
+        return key in self._entries
+
+    def keys(self) -> List:
+        """Keys in eviction (insertion-then-touch) order."""
+        return list(self._entries)
+
+    # -- offload / swap-in ----------------------------------------------
+    def offload(self, key, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                first: int, gens: Sequence[Tuple[int, int]] = ()) -> List:
+        """Copy an evicted prefix entry's pages to host; returns the keys
+        this insertion LRU-evicted (empty when it fit). ``k_pages`` /
+        ``v_pages`` are ``(L, nb, bs, KH, D)``; ``gens`` the source pages'
+        ``(block_id, generation)`` identity at offload time. Pages on a
+        card are copied on the current stream without waiting."""
+        nb = int(k_pages.shape[1])
+        if nb == 0 or self.capacity_blocks == 0:
+            return []
+        if nb > self.capacity_blocks:
+            self.rejected += 1
+            return []
+        if key in self._entries:          # refresh: re-insert at MRU end
+            self._used -= self._entries.pop(key)["blocks"]
+        evicted = []
+        while self._used + nb > self.capacity_blocks:
+            old_key, old = self._entries.popitem(last=False)
+            self._used -= old["blocks"]
+            self.evictions += 1
+            evicted.append(old_key)
+        k, v = _to_host(k_pages), _to_host(v_pages)
+        ready = None
+        if k_pages.device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(k_pages.device))
+        self._entries[key] = {
+            "k": k, "v": v, "first": int(first), "gens": tuple(gens),
+            "blocks": nb, "ready": ready,
+        }
+        self._used += nb
+        self.offloads += 1
+        return evicted
+
+    def fetch(self, key) -> Optional[dict]:
+        """Consume an entry for swap-in (move semantics): the pages become
+        device-resident again and the host copy is dropped. None on miss."""
+        entry = self._entries.pop(key, None)
+        if entry is not None:
+            self._used -= entry["blocks"]
+        return entry
+
+    def peek(self, key) -> Optional[dict]:
+        """Read an entry without consuming it or touching its LRU position
+        — the prefetch engine's view (``repro_torch.kvcache.transfer``): a
+        prefetch must not pin entries against eviction, and issuing one
+        must not perturb the tier's aging relative to the non-prefetching
+        engine (bit-identical degradation). None on miss."""
+        return self._entries.get(key)
+
+    def touch(self, key) -> bool:
+        """Refresh an entry's LRU position without consuming it."""
+        if key in self._entries:
+            self._entries.move_to_end(key)
+            return True
+        return False
+
+    def check_invariants(self) -> None:
+        """Raises AssertionError on a corrupted host pool."""
+        used = sum(e["blocks"] for e in self._entries.values())
+        assert used == self._used, "host pool block accounting drifted"
+        assert self._used <= self.capacity_blocks, "host pool over capacity"
+        assert all(e["blocks"] >= 1 for e in self._entries.values()), \
+            "empty host entry"
+        for e in self._entries.values():
+            assert e["k"].shape[1] == e["blocks"], "host entry shape drift"
+            assert e["k"].device.type == "cpu", "host entry off the host"
+
+
 # ---------------------------------------------------------------------------
 # device data path
 # ---------------------------------------------------------------------------
@@ -271,4 +408,30 @@ def copy_block(pool: PagedKVCache, dst: int, src: int) -> PagedKVCache:
     """Copy-on-write: duplicate page ``src`` into page ``dst``, in place."""
     for t in pool:
         t[:, dst] = t[:, src]
+    return pool
+
+
+def extract_blocks(pool: PagedKVCache, block_ids: BlockIds
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gather the pages named by ``block_ids`` out of the pool, on the
+    current stream (read-only; the pool is untouched). Returns fresh (k, v)
+    of shape (L, nb, bs, KH, D) — the host tier's offload payload."""
+    ids = _ids(block_ids, pool.k.device)
+    return pool.k[:, ids], pool.v[:, ids]
+
+
+def insert_blocks(pool: PagedKVCache, block_ids: BlockIds,
+                  k_pages: torch.Tensor, v_pages: torch.Tensor
+                  ) -> PagedKVCache:
+    """Write whole pages into the pool at ``block_ids``, in place, on the
+    current stream — the swap-in counterpart of :func:`extract_blocks`.
+    ``k_pages``/``v_pages`` are (L, nb, bs, KH, D), on the pool's device or
+    in (pinned) host memory, which is copied up ``non_blocking`` first; a
+    reader of pages that another stream wrote waits on that stream's event
+    before calling. The write is bit-exact, so a round trip through the
+    host tier preserves page contents."""
+    ids = _ids(block_ids, pool.k.device)
+    for dst, src in ((pool.k, k_pages), (pool.v, v_pages)):
+        dst[:, ids] = src.to(device=dst.device, dtype=dst.dtype,
+                             non_blocking=True)
     return pool

@@ -3,13 +3,16 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --kv-layout paged --block-size 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --kv-layout paged --num-blocks 9 --host-pool-blocks auto
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         --full --corpus-tokens 65536 --requests 128 --slots 64 \\
         --max-seq 512 --prompt-len 256 --new-tokens 32
 
 Registers a synthetic domain corpus (precomputed shared KV chunks),
 submits a stream of requests against it, and reports throughput, latency,
-memory and kernel-launch counts. The default is the reduced config; pass
+memory, kernel-launch counts and, with the paged layout, the host tier's
+and the async pipeline's counters. The default is the reduced config; pass
 ``--full`` for the unreduced architecture. ``--device cuda`` (the default)
 fails when no card is present. Weights are random, from ``--seed``.
 """
@@ -23,6 +26,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.configs import get_config
+from repro_torch.core.analytical import size_host_pool_blocks
 from repro_torch.core.scheduler import wave_stats
 from repro_torch.data.pipeline import CorpusSpec, synthesize_corpus
 from repro_torch.kernels import ops
@@ -60,6 +64,26 @@ def main(argv=None) -> dict:
     ap.add_argument("--num-blocks", type=int, default=None,
                     help="fixed page-pool size (paged layout; default: "
                          "grow on demand)")
+    ap.add_argument("--host-pool-blocks", default="0", metavar="N|auto",
+                    help="host memory tier capacity in blocks (paged "
+                         "layout): LRU-evicted prefix pages are offloaded "
+                         "to pinned host memory and swapped back on a "
+                         "later hit instead of being rebuilt; 0 disables "
+                         "the tier; 'auto' sizes it from the workload's "
+                         "prefix working set via core.analytical."
+                         "size_host_pool_blocks")
+    ap.add_argument("--prefetch-depth", type=int, default=2,
+                    help="max in-flight host->device prefetch transfers "
+                         "for predicted next-wave admissions (paged layout "
+                         "with a host tier); 0 disables prefetching")
+    ap.add_argument("--no-spec-append", action="store_true",
+                    help="disable speculative decode-boundary page "
+                         "allocation (paged layout; generations are "
+                         "identical either way)")
+    ap.add_argument("--no-overlap", action="store_true",
+                    help="run the wave's host-side bookkeeping after the "
+                         "token readback's wait instead of while the card "
+                         "computes (a stall-measurement baseline)")
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="dump the metrics registry (JSON; .lp/.txt for "
                          "line protocol) at exit")
@@ -70,6 +94,16 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     if args.metrics_flush_every and not args.metrics_out:
         ap.error("--metrics-flush-every requires --metrics-out")
+    if args.host_pool_blocks == "auto":
+        if args.kv_layout != "paged":
+            ap.error("--host-pool-blocks auto requires --kv-layout paged")
+        host_pool_blocks = size_host_pool_blocks(
+            workset_tokens=args.requests * args.prompt_len,
+            block_size=args.block_size,
+            device_pool_blocks=args.num_blocks,
+            active_tokens=args.slots * (args.prompt_len + args.new_tokens))
+    else:
+        host_pool_blocks = int(args.host_pool_blocks)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is present")
     device = torch.device(args.device)
@@ -100,7 +134,10 @@ def main(argv=None) -> dict:
             max_slots=args.slots, max_seq=args.max_seq,
             prefill_buckets=buckets, cache_dtype=torch_dtype(cfg.dtype),
             kv_layout=args.kv_layout, block_size=args.block_size,
-            num_blocks=args.num_blocks))
+            num_blocks=args.num_blocks, host_pool_blocks=host_pool_blocks,
+            prefetch_depth=args.prefetch_depth,
+            spec_append=not args.no_spec_append,
+            overlap_waves=not args.no_overlap))
 
     exporter = None
     if args.metrics_flush_every:
@@ -156,6 +193,16 @@ def main(argv=None) -> dict:
             summary[name.split("/")[1]] = int(reg.counter(name).value)
         summary["block_capacity"] = int(
             reg.gauge("kvcache/block_capacity").value)
+        summary["host_pool_blocks"] = host_pool_blocks
+        for name in ("kvcache/swap_in_hits", "kvcache/offload_bytes",
+                     "kvcache/swap_in_bytes", "kvcache/host_pool_misses",
+                     "kvcache/host_pool_evictions",
+                     "scheduler/offload_admissions",
+                     "kvcache/prefetch_issued", "kvcache/prefetch_hits",
+                     "kvcache/prefetch_wasted", "kvcache/spec_pages_alloc"):
+            summary[name.split("/")[1]] = int(reg.counter(name).value)
+        summary["decode_stall_sum_s"] = reg.histogram(
+            "engine/decode_stall_s", obs.LATENCY_EDGES_S).sum
     if exporter is not None:
         summary["metrics_flushes"] = exporter.flushes
     print(json.dumps(summary, indent=1))

@@ -1,8 +1,7 @@
 """MoSKA serving engine: continuous batching over slot-based decode waves.
 
-Port of the reference ``serving/engine.py`` without its host memory tier
-and async pipeline (the reference engine with ``host_pool_blocks=0,
-spec_append=False, overlap_waves=False`` is the exact counterpart):
+Port of the reference ``serving/engine.py``, host memory tier and async
+pipeline included:
 
   register_corpus()  — precompute a domain corpus' KV once (prefill) and
                        chunk it into a SharedKVStore, persistent across
@@ -20,8 +19,9 @@ is allocated once, kept on the device across ``run()`` calls and updated
 in place (so ``engine/decode_cache_bytes_copied`` reads 0). Prompt lengths
 are rounded up to a small bucket set; pad positions are left out of
 routing and logits, so a bucketed prefill computes what the exact-length
-one would. Device-side dispatch metrics are read back once per wave,
-after the token readback.
+one would. A wave's tokens come back through one ``non_blocking`` copy
+into a pinned host buffer, fenced by an event: the wave's only sync point.
+Device-side dispatch metrics are read back once per wave, after it.
 
 Paged layout (``EngineConfig(kv_layout="paged")``): unique KV lives in a
 pool of ``block_size``-token pages mapped through per-slot block tables
@@ -33,9 +33,28 @@ Each decode step's unique attention is the ``paged_decode_attention``
 kernel, reading pages through the tables. Generations are bit-identical to
 the slotted layout. Prompts longer than ``max_seq`` are served by chunked
 prefill (``prefill_chunk``-token pieces against a growing scratch
-context). When the free list runs short, cold prefix entries are dropped
+context). When the free list runs short, cold prefix entries are evicted
 first, then the pool grows by ``max_seq / block_size`` pages at a time
 (unless ``num_blocks`` fixes its size).
+
+Host memory tier (``EngineConfig(host_pool_blocks=N)``, paged layout):
+prefix entries the device pool LRU-evicts are copied page-granularly into
+pinned host memory (``HostBlockPool``) instead of being dropped; a later
+hit on the same (corpus-fingerprint, prompt) key swaps the pages back into
+free device blocks bit-exactly, skipping the prefill entirely
+(``kvcache/swap_in_hits`` vs ``engine/prefill_tokens``). Only when the host
+tier has also evicted the entry does the engine rebuild from tokens. The
+scheduler's offload admission path moves cold pages to the tier under
+block-budget pressure.
+
+Async pipeline (paged layout): ``prefetch_depth`` host->device copies of
+the entries the scheduler's lookahead predicts will be admitted next run
+on a side stream during the decode wave (``kvcache/transfer.py``);
+``spec_append`` allocates the page a slot's next token opens during the
+current wave; and ``overlap_waves`` runs the next wave's host work (table
+tick, speculative appends, prefetch issue, block gauges) between the
+step's launch and its token readback, never writing the page pool there.
+Generations are bit-identical with each of the three on or off.
 """
 from __future__ import annotations
 
@@ -55,8 +74,11 @@ from repro_torch.core.shared_kv import SharedKVStore, build_store
 from repro_torch.kvcache.block_table import (SlotTables, blocks_for,
                                              validate_block_size)
 from repro_torch.kvcache.cache import KVCache, write_slot_prefix
-from repro_torch.kvcache.paged import (BlockPool, PagedKVCache, copy_block,
-                                       grow_paged_kv_cache, write_blocks)
+from repro_torch.kvcache.paged import (BlockPool, HostBlockPool,
+                                       PagedKVCache, copy_block,
+                                       extract_blocks, grow_paged_kv_cache,
+                                       insert_blocks, write_blocks)
+from repro_torch.kvcache.transfer import PrefetchEngine
 from repro_torch.models.model import build_model
 
 #: smallest prefill bucket; "auto" buckets are powers of two from here up
@@ -138,6 +160,32 @@ class EngineConfig:
     # later requests with an identical (corpus-content, prompt) key; LRU-
     # evicted under pool pressure
     share_prefix_blocks: bool = True
+    # host memory tier (paged layout): capacity, in blocks, of the pinned
+    # host pool that LRU-evicted prefix pages are offloaded to instead of
+    # being dropped; a later prefix hit swaps them back into free device
+    # blocks bit-exactly. 0 disables the tier (evictions rebuild from
+    # tokens on the next cold hit).
+    host_pool_blocks: int = 0
+    # -- async serving pipeline (paged layout) --------------------------
+    # in-flight budget for prefetched host->device page copies: during
+    # each decode wave, prefix entries the scheduler lookahead predicts
+    # will be admitted next are copied up early on a side stream, so the
+    # swap-in at admission waits for no transfer (kvcache/prefetch_{issued,
+    # hits,wasted}). 0 disables prefetching (synchronous swap-in).
+    prefetch_depth: int = 2
+    # speculative decode appends: allocate the *next* page for any slot
+    # whose next token lands on a fresh page boundary during the current
+    # wave, keeping allocator/eviction work off the boundary wave's
+    # critical path; unused pages are reclaimed on release
+    # (kvcache/spec_pages_{alloc,reclaimed}).
+    spec_append: bool = True
+    # wave-overlap execution: launch the decode step and its token
+    # readback, run the next wave's host-side work (table tick,
+    # speculative appends, prefetch issue) while the card computes, then
+    # wait on the readback (engine/overlap_saved_s vs
+    # engine/decode_stall_s). Off = wait right after the launch,
+    # bit-identical generations.
+    overlap_waves: bool = True
 
 
 class ServingEngine:
@@ -166,6 +214,14 @@ class ServingEngine:
             raise ValueError(
                 f"unknown kv_layout {engine_cfg.kv_layout!r} "
                 "(expected 'slotted' or 'paged')")
+        elif engine_cfg.host_pool_blocks:
+            raise ValueError(
+                "host_pool_blocks requires kv_layout='paged' (the host "
+                "tier offloads pages, and the slotted layout has none)")
+        # the wave's token readback: a pinned host buffer on a card
+        self._tok_host = (torch.empty((engine_cfg.max_slots,),
+                                      dtype=torch.long, pin_memory=True)
+                          if self.device.type == "cuda" else None)
         # corpus token ids kept host-side so evicted stores can be rebuilt
         self._corpus_tokens: Dict[str, np.ndarray] = {}
         self._hbm_high_water = 0.0
@@ -202,10 +258,26 @@ class ServingEngine:
         self._prefix_cache: "collections.OrderedDict" = \
             collections.OrderedDict()
         self._corpus_fp: Dict[str, str] = {}
-        # with no host tier, the scheduler's offload-vs-defer admission
-        # path drops cold prefix pages
+        # host memory tier for LRU-evicted prefix pages (capacity 0 = off)
+        self._host_pool = HostBlockPool(ecfg.host_pool_blocks)
+        # async swap-in: prefetched host->device copies for predicted
+        # admissions (only meaningful when the host tier can hold entries
+        # and prefix sharing gives them a key to hit)
+        self._prefetch: Optional[PrefetchEngine] = None
+        if ecfg.host_pool_blocks and ecfg.prefetch_depth and \
+                ecfg.share_prefix_blocks:
+            self._prefetch = PrefetchEngine(self._host_pool,
+                                            ecfg.prefetch_depth, self.device)
+        # speculatively appended pages not yet written: slot -> table
+        # index of the pre-allocated next page (reclaimed on release)
+        self._spec_pending: Dict[int, int] = {}
+        # the scheduler's offload-vs-defer admission path moves cold
+        # prefix pages to the host tier (or drops them with the tier off)
         self.scheduler.set_page_offloader(self._cold_page_bytes,
                                           self._offload_cold_pages)
+        if ecfg.host_pool_blocks:
+            self.registry.set_gauge("kvcache/host_pool_capacity_blocks",
+                                    ecfg.host_pool_blocks)
 
     @property
     def registry(self) -> obs.MetricsRegistry:
@@ -391,10 +463,28 @@ class ServingEngine:
                     logits, _ = self.model.decode_step(
                         self.params, tokens, self._cache, store=store,
                         rec=self._rec)
-                nxt = logits.argmax(dim=-1).cpu().numpy()  # device sync
+                nxt, ready = self._read_tokens(logits)
                 if self._paged:
-                    self._tables.tick()
-                    self._record_block_gauges()
+                    # the wave's host-side bookkeeping is the same either
+                    # way; overlap runs it while the card computes, before
+                    # the readback's wait. None of it writes the page pool.
+                    if self.ecfg.overlap_waves:
+                        th = time.perf_counter()
+                        self._wave_host_work(active)
+                        reg.observe("engine/overlap_saved_s",
+                                    time.perf_counter() - th,
+                                    obs.LATENCY_EDGES_S)
+                    ts = time.perf_counter()
+                    if ready is not None:
+                        ready.synchronize()     # the wave's only sync point
+                    stall = time.perf_counter() - ts
+                    if not self.ecfg.overlap_waves:
+                        self._wave_host_work(active)
+                    reg.observe("engine/decode_stall_s", stall,
+                                obs.LATENCY_EDGES_S)
+                elif ready is not None:
+                    ready.synchronize()
+                nxt = nxt.numpy()
                 dt = time.perf_counter() - td
                 reg.observe("engine/decode_step_latency_s", dt,
                             obs.LATENCY_EDGES_S)
@@ -419,6 +509,30 @@ class ServingEngine:
                       (self.metrics["tokens_generated"] - tok0) / wall
                       if wall > 0 else 0.0)
         return self.scheduler.finished
+
+    def _read_tokens(self, logits: torch.Tensor
+                     ) -> Tuple[torch.Tensor, Optional[torch.cuda.Event]]:
+        """Launch the wave's greedy tokens' way to the host: ``argmax`` on
+        the card, a ``non_blocking`` copy into the pinned buffer, and an
+        event after it. Returns (the host tensor, the event to wait on
+        before reading it; None on the CPU, where the tokens are ready)."""
+        nxt = logits.argmax(dim=-1)
+        if self._tok_host is None:
+            return nxt, None
+        self._tok_host.copy_(nxt, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(self.device))
+        return self._tok_host, ready
+
+    def _wave_host_work(self, active: List[Request]) -> None:
+        """The paged wave's host-side bookkeeping: advance the tables'
+        lengths, allocate the pages the next tokens open, issue prefetches,
+        and read the block gauges. Host metadata and side-stream copies
+        only: the decode step may still be reading the pool."""
+        self._tables.tick()
+        self._speculative_appends(active)
+        self._issue_prefetches()
+        self._record_block_gauges()
 
     # ------------------------------------------------------------------
     def _bucketed_prefill(self, req: Request, store: Optional[SharedKVStore],
@@ -483,13 +597,43 @@ class ServingEngine:
     def _bytes_per_block(self) -> float:
         return self.cfg.kv_bytes_per_token * self.ecfg.block_size
 
+    def _offload_entry(self, key, entry) -> None:
+        """Copy an evicted prefix entry's pages to the host tier — only
+        when every page is cold (held solely by the prefix cache; pages a
+        live slot still shares stay on the card and re-park later). On a
+        card the gather and the copy are queued on the current stream and
+        the host does not wait for them."""
+        if not self.ecfg.host_pool_blocks:
+            return
+        bp = self._block_pool
+        blocks = entry["blocks"]
+        if any(bp.refcount(b) != 1 for b in blocks):
+            return
+        reg = self.registry
+        t0 = time.perf_counter()
+        k, v = extract_blocks(self._pool, blocks)
+        gens = [(b, bp.generation(b)) for b in blocks]
+        evicted = self._host_pool.offload(key, k, v, entry["first"], gens)
+        reg.observe("kvcache/swap_out_latency_s",
+                    time.perf_counter() - t0, obs.LATENCY_EDGES_S)
+        nbytes = _nbytes(k) + _nbytes(v)
+        reg.inc("kvcache/offload_bytes", nbytes)
+        reg.observe("kvcache/swap_bytes", nbytes, obs.BYTES_EDGES)
+        reg.inc("kvcache/offloads")
+        if evicted:
+            reg.inc("kvcache/host_pool_evictions", len(evicted))
+        reg.set_gauge("kvcache/host_pool_blocks_used",
+                      self._host_pool.used_blocks)
+
     def _evict_prefix_entries(self, need_blocks: int) -> int:
-        """Drop LRU prefix-cache entries until ``need_blocks`` pages were
-        actually released (or the cache is empty); returns #released."""
+        """Evict LRU prefix-cache entries until ``need_blocks`` pages were
+        actually released (or the cache is empty), offloading each cold
+        entry's pages to the host tier first; returns #released."""
         reg = self.registry
         released = 0
         while self._prefix_cache and released < need_blocks:
-            _, entry = self._prefix_cache.popitem(last=False)
+            key, entry = self._prefix_cache.popitem(last=False)
+            self._offload_entry(key, entry)
             released += self._block_pool.free(entry["blocks"])
             reg.inc("kvcache/prefix_evictions")
         if released:
@@ -505,10 +649,11 @@ class ServingEngine:
         return cold * self._bytes_per_block()
 
     def _offload_cold_pages(self, need_bytes: float) -> float:
-        """Scheduler callback (offload-vs-defer): drop at least
-        ``need_bytes`` of cold prefix pages so a new request can be
-        admitted. Returns the bytes actually freed."""
-        if not self._prefix_cache:
+        """Scheduler callback (offload-vs-defer): move at least
+        ``need_bytes`` of cold prefix pages to the host tier (or drop them
+        when the tier is off) so a new request can be admitted. Returns
+        the bytes actually freed."""
+        if self._pool is None or not self._prefix_cache:
             return 0.0
         bpb = self._bytes_per_block()
         return self._evict_prefix_entries(int(-(-need_bytes // bpb))) * bpb
@@ -564,6 +709,11 @@ class ServingEngine:
             return int(entry["first"])
 
         nb = blocks_for(true_len, bs)
+        if self.ecfg.share_prefix_blocks and key in self._host_pool:
+            return self._swap_in(req, key, nb, total_blocks, start)
+        if self.ecfg.host_pool_blocks and self.ecfg.share_prefix_blocks:
+            # cold miss in both tiers: deterministic rebuild-from-tokens
+            reg.inc("kvcache/host_pool_misses")
         ids = self._alloc_blocks(nb, reserve=total_blocks - nb)
         if true_len <= self.ecfg.max_seq:
             first, slot_cache = self._bucketed_prefill(req, store, start)
@@ -583,6 +733,48 @@ class ServingEngine:
         self._tables.assign(req.slot, ids, true_len, start)
         self._count_prefill(true_len)
         return first
+
+    def _swap_in(self, req: Request, key, nb: int, total_blocks: int,
+                 start: int) -> int:
+        """Host-tier hit: swap the offloaded pages back into freshly
+        allocated device blocks — bit-exact, no prefill at all. Returns the
+        first generated token the entry kept."""
+        reg = self.registry
+        # fetch before alloc: the alloc may evict other prefix entries
+        # into the host pool, which must not push this one out
+        host_entry = self._host_pool.fetch(key)
+        tr = self._prefetch.take(key) if self._prefetch is not None else None
+        ids = self._alloc_blocks(nb, reserve=total_blocks - nb)
+        t0 = time.perf_counter()
+        if tr is not None and tr["gens"] == host_entry["gens"]:
+            # prefetched during an earlier wave: the pages are on the card
+            # (or arriving; take() made this stream wait for the copy)
+            src = tr
+            reg.inc("kvcache/prefetch_hits")
+        else:
+            if tr is not None:
+                # the tier churned since issue: this transfer names a dead
+                # page lifetime — drop it and swap in the current entry
+                # (bit-identical values; the generation tags are the proof)
+                reg.inc("kvcache/prefetch_wasted")
+            src = host_entry
+            if host_entry["ready"] is not None:
+                torch.cuda.current_stream(self.device).wait_event(
+                    host_entry["ready"])
+        insert_blocks(self._pool, ids, src["k"], src["v"])
+        reg.observe("kvcache/swap_in_latency_s", time.perf_counter() - t0,
+                    obs.LATENCY_EDGES_S)
+        nbytes = _nbytes(host_entry["k"]) + _nbytes(host_entry["v"])
+        reg.inc("kvcache/swap_in_bytes", nbytes)
+        reg.observe("kvcache/swap_bytes", nbytes, obs.BYTES_EDGES)
+        reg.inc("kvcache/swap_in_hits")
+        reg.set_gauge("kvcache/host_pool_blocks_used",
+                      self._host_pool.used_blocks)
+        # the slot owns the swapped-in pages exactly as if it had rebuilt
+        # them (same block pressure, no CoW on the tail); they re-park in
+        # the prefix cache at release
+        self._tables.assign(req.slot, ids, len(req.prompt), start)
+        return int(host_entry["first"])
 
     def _prefill_chunked_prompt(self, req: Request,
                                 store: Optional[SharedKVStore],
@@ -614,6 +806,14 @@ class ServingEngine:
         for req in active:
             slot = req.slot
             bi = int(tables.length[slot]) // self.ecfg.block_size
+            spec = self._spec_pending.get(slot)
+            if spec is not None and bi >= spec:
+                # the speculatively appended page is now the write target:
+                # it is fresh (refcount 1, never shared), so neither the
+                # append nor the CoW branch below applies — exactly the
+                # state the synchronous append would have produced
+                del self._spec_pending[slot]
+                continue
             if bi >= int(tables.n_blocks[slot]):
                 if bi >= tables.blocks_per_slot:
                     tables.grow(bi + 1)
@@ -628,12 +828,74 @@ class ServingEngine:
                     bp.free([blk])
                     reg.inc("kvcache/cow_copies")
 
+    def _speculative_appends(self, active: List[Request]) -> None:
+        """Decode-boundary page pre-allocation: any slot whose *next* token
+        will land on a fresh page gets that page appended now, during the
+        current wave, so the next ``_prepare_wave_blocks`` finds it already
+        in the table (host metadata only — the free list and the numpy
+        table; the pool is untouched, which matters because the decode
+        step may still be reading it).
+
+        Deliberately conservative: never evicts, never grows the pool,
+        never raises — a full free list simply defers to the synchronous
+        append path, bit-identically. A wrong speculation (the request
+        finishes on the boundary token) is reclaimed in
+        ``_release_slot_paged``."""
+        if not self.ecfg.spec_append:
+            return
+        tables = self._tables
+        bp = self._block_pool
+        bs = self.ecfg.block_size
+        reg = self.registry
+        for req in active:
+            slot = req.slot
+            if slot in self._spec_pending:
+                continue
+            # lengths were just tick()'d: the slot's NEXT append lands at
+            # tables.length[slot]; speculate only when that position opens
+            # a page the table doesn't have yet
+            bi = int(tables.length[slot]) // bs
+            if bi < int(tables.n_blocks[slot]) or \
+                    bi >= tables.blocks_per_slot or bp.available < 1:
+                continue
+            tables.append_block(slot, bp.alloc(1)[0])
+            self._spec_pending[slot] = bi
+            reg.inc("kvcache/spec_pages_alloc")
+            reg.inc("kvcache/blocks_appended")
+
+    def _issue_prefetches(self) -> None:
+        """Prefetch host-tier entries the scheduler lookahead predicts will
+        be admitted next: issue side-stream host->device copies now so the
+        swap-in at admission finds the pages on the card. Also sweeps
+        transfers whose host entry churned since issue (counted as
+        wasted). Host metadata and side-stream copies only — safe while
+        the decode step runs."""
+        pf = self._prefetch
+        if pf is None:
+            return
+        reg = self.registry
+        stale = pf.sweep()
+        if stale:
+            reg.inc("kvcache/prefetch_wasted", stale)
+        for req in self.scheduler.lookahead(pf.depth):
+            key = self._prefix_key(req)
+            if key in self._prefix_cache:
+                continue    # on the card: admission remaps, no copy
+            if pf.issue(key):
+                reg.inc("kvcache/prefetch_issued")
+
     def _release_slot_paged(self, req: Request, slot: int) -> None:
         """Free a finished request's pages; with prefix sharing on, its
         prompt pages (incl. the partial tail — later writers copy it on
         write) are parked in the LRU prefix cache keyed by (corpus,
         prompt)."""
         tables = self._tables
+        if self._spec_pending.pop(slot, None) is not None:
+            # wrong speculation: the request finished before writing its
+            # pre-allocated boundary page; tables.clear below frees it
+            # with the rest of the slot (it is never in prefix_blocks — it
+            # sits beyond the written region)
+            self.registry.inc("kvcache/spec_pages_reclaimed")
         key = self._prefix_key(req)
         if self.ecfg.share_prefix_blocks and req.generated and \
                 key not in self._prefix_cache:
@@ -644,3 +906,7 @@ class ServingEngine:
                                            "first": req.generated[0]}
         self._block_pool.free(tables.clear(slot))
         self.registry.inc("kvcache/slots_released")
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()

@@ -1,10 +1,13 @@
 """Card tests of the port: each hand-written CUDA kernel against its plain
 PyTorch version on the same CUDA tensors, over the shape and dtype sweeps
-of ``tests/test_kernels.py`` (the paged kernel also bit for bit against
-the slotted one on the same logical cache, and the merge's pair and routed
-entries bit for bit against its dense entry), plus dense decode steps on
-the card (slotted, paged, over an int8 store) against the same steps on
-the CPU.
+of ``tests/test_kernels.py`` (the decode kernels also with a sliding
+window, the paged kernel also bit for bit against the slotted one on the
+same logical cache, and the merge's pair and routed entries bit for bit
+against its dense entry), plus dense decode steps on the card (slotted,
+paged, over an int8 store) against the same steps on the CPU, and the
+host tier on the card: a pinned offload, side-stream prefetch and swap-in
+round trip, and a host-tier engine whose generations equal the tier-off
+engine's.
 
 These tests need an NVIDIA card with the CUDA toolkit; elsewhere they skip.
 This file imports no JAX, so it also runs where JAX is not installed:
@@ -147,12 +150,41 @@ def test_decode_attention_kernel(cuda, dtype, B, H, KH, D, S):
     _close(l1, l2, TOL[dtype])
 
 
-def test_decode_attention_kernel_rejects_window(cuda):
-    q = torch.zeros((1, 2, 16), device=cuda)
-    k = torch.zeros((1, 4, 1, 16), device=cuda)
-    with pytest.raises(NotImplementedError):
-        ops.decode_attention(q, k, k, torch.ones(1, dtype=torch.int32,
-                                                 device=cuda), window=2)
+# Sliding-window cases (B, H, KH, D, S, kv lengths or None for random,
+# window): kv_len below the window (lo = 0), a window of one key, windows
+# that are multiples of neither 32 nor the page size, a window that leaves
+# one live tile (the other warps own none), ragged random lengths, and
+# D = 128 with G = 4 and G = 3 (a masked row in the block).
+WINDOW_CASES = [
+    (4, 32, 4, 64, 300, [300, 17, 100, 257], 64),
+    (3, 8, 2, 32, 100, [1, 50, 100], 1),
+    (5, 32, 4, 64, 512, [1, 36, 37, 38, 512], 37),
+    (3, 32, 4, 64, 512, [512, 300, 33], 20),
+    (6, 32, 4, 64, 400, None, 45),
+    (3, 32, 8, 128, 300, None, 129),
+    (3, 6, 2, 32, 70, None, 19),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KH,D,S,lens,window", WINDOW_CASES)
+def test_decode_attention_kernel_window(cuda, dtype, B, H, KH, D, S, lens,
+                                        window):
+    """With a sliding window, against the plain version's mask
+    ``pos >= kv_len - window``."""
+    g = np.random.default_rng(9)
+    q = _randn(g, (B, H, D), dtype, cuda)
+    k = _randn(g, (B, S, KH, D), dtype, cuda)
+    v = _randn(g, (B, S, KH, D), dtype, cuda)
+    lens = g.integers(1, S + 1, B) if lens is None else np.array(lens)
+    lens = torch.from_numpy(lens.astype(np.int32)).to(cuda)
+    n0 = ops.decode_attention.launches
+    o1, l1 = ops.decode_attention(q, k, v, lens, window=window)
+    torch.cuda.synchronize()
+    assert ops.decode_attention.launches == n0 + 1
+    o2, l2 = ref.decode_attention_ref(q, k, v, lens, window=window)
+    _close(o1, o2, TOL[dtype])
+    _close(l1, l2, TOL[dtype])
 
 
 def _paged_inputs(g, B, H, KH, D, N, bs, M, dtype, device):
@@ -227,12 +259,48 @@ def test_paged_decode_attention_kernel(cuda, dtype, B, H, KH, D, N, bs, M):
     assert torch.equal(o1, o3) and torch.equal(l1, l3)
 
 
+# Paged sliding-window cases (B, H, KH, D, N, bs, M, window): windows
+# that are multiples of neither 32 nor the page size, of one key, of one
+# page, longer than some requests, and pages not dividing the 32-key tile.
+PAGED_WINDOW_CASES = [
+    (7, 32, 4, 64, 240, 16, 32, 37),
+    (5, 32, 4, 64, 64, 16, 9, 1),
+    (5, 32, 4, 64, 64, 16, 9, 16),
+    (3, 32, 8, 128, 40, 16, 8, 100),
+    (4, 2, 1, 16, 40, 5, 7, 11),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KH,D,N,bs,M,window", PAGED_WINDOW_CASES)
+def test_paged_decode_attention_kernel_window(cuda, dtype, B, H, KH, D, N,
+                                              bs, M, window):
+    """With a sliding window: against the plain version, and bit for bit
+    against the slotted kernel with the same window on the same logical
+    cache (the tiles and their owners depend on (lo, n) only)."""
+    g = np.random.default_rng(10)
+    q, kp, vp, table, lens = _paged_inputs(g, B, H, KH, D, N, bs, M, dtype,
+                                           cuda)
+    o1, l1 = ops.paged_decode_attention(q, kp, vp, table, lens,
+                                        window=window)
+    torch.cuda.synchronize()
+    o2, l2 = ref.paged_decode_attention_ref(q, kp, vp, table, lens,
+                                            window=window)
+    _close(o1, o2, TOL[dtype])
+    _close(l1, l2, TOL[dtype])
+    ks, vs = (p[table.long()].reshape(B, M * bs, KH, D) for p in (kp, vp))
+    o3, l3 = ops.decode_attention(q, ks.contiguous(), vs.contiguous(), lens,
+                                  window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o3) and torch.equal(l1, l3)
+
+
 def test_paged_decode_attention_kernel_rejects(cuda):
     g = np.random.default_rng(6)
     q, kp, vp, table, lens = _paged_inputs(g, 2, 4, 2, 16, 8, 4, 2,
                                            torch.float32, cuda)
-    with pytest.raises(NotImplementedError):
-        ops.paged_decode_attention(q, kp, vp, table, lens, window=4)
+    with pytest.raises(ValueError, match="negative window"):
+        ops.paged_decode_attention(q, kp, vp, table, lens, window=-1)
     with pytest.raises(TypeError):
         ops.paged_decode_attention(q, kp, vp, table.long(), lens)
     with pytest.raises(ValueError):
@@ -470,3 +538,93 @@ def test_paged_decode_step_and_int8_store_card_match_cpu(cuda):
     on_cpu = run(torch.device("cpu"))
     for a, b in zip(on_card, on_cpu):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_host_tier_round_trip_on_card(cuda):
+    """Pages offloaded into pinned host memory (a non_blocking copy fenced
+    by an event), brought back by a side-stream prefetch and swapped in,
+    equal a synchronous swap-in of the same entry bit for bit, and the
+    source pages as they were at the offload, although the source pages
+    are overwritten on the stream right after it."""
+    from repro_torch.kvcache import paged as tpg
+    from repro_torch.kvcache.transfer import PrefetchEngine
+    g = np.random.default_rng(11)
+    L_, N, bs, KH, D = 3, 24, 16, 4, 64
+    pool = tpg.PagedKVCache(*(_randn(g, (L_, N, bs, KH, D), torch.bfloat16,
+                                     cuda) for _ in range(2)))
+    src, dst = [5, 2, 17, 9], [20, 1, 11, 6]
+    want = [t[:, src].clone() for t in pool]
+    host = tpg.HostBlockPool(8)
+    host.offload("key", *tpg.extract_blocks(pool, src), first=7,
+                 gens=[(b, 1) for b in src])
+    for t in pool:
+        t[:, src] = 0                   # queued after the offload's copy
+    entry = host.peek("key")
+    assert entry["k"].is_pinned() and entry["ready"] is not None
+    pf = PrefetchEngine(host, 2, cuda)
+    assert pf.issue("key")
+    tr = pf.take("key")
+    synced = tpg.PagedKVCache(*(t.clone() for t in pool))
+    tpg.insert_blocks(pool, dst, tr["k"], tr["v"])
+    torch.cuda.current_stream().wait_event(entry["ready"])
+    tpg.insert_blocks(synced, dst, entry["k"], entry["v"])
+    torch.cuda.synchronize()
+    for a, b, w in zip(pool, synced, want):
+        assert torch.equal(a, b)
+        assert torch.equal(a[:, dst], w)
+    pf.check_invariants()
+    host.check_invariants()
+    assert pf.resolved == pf.issued == 1
+
+
+def test_host_tier_engine_on_card(cuda):
+    """A reduced bf16 model served on the card over a 256-token corpus,
+    on a 3-usable-page pool, two passes of 6 short prompts: with a host
+    tier (async defaults, and all async off) pass 2 swaps every prefix
+    back and prefills nothing; without it every prefix is rebuilt. The
+    three engines generate the same tokens, through the paged decode
+    kernel."""
+    from repro_torch import obs
+    from repro_torch.data.pipeline import CorpusSpec, synthesize_corpus
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    cfg = get_config("tinyllama-1.1b").reduced()
+    params = build_model(cfg).init(torch.Generator(device=cuda).manual_seed(0),
+                                   cuda)
+    corpus = synthesize_corpus(CorpusSpec("c", 256, cfg.vocab_size))
+    prompts = [[20 + i] * 8 for i in range(6)]
+    sync = dict(prefetch_depth=0, spec_append=False, overlap_waves=False)
+
+    def serve(**kw):
+        reg = obs.MetricsRegistry()
+        prev = obs.set_registry(reg)
+        try:
+            eng = ServingEngine(cfg, params, EngineConfig(
+                max_slots=2, max_seq=64, kv_layout="paged", block_size=16,
+                num_blocks=4, cache_dtype=torch.bfloat16, **kw))
+            eng.register_corpus("c", corpus)
+            gens = {}
+            for i in range(2):
+                for p in prompts:
+                    eng.submit(p, max_new_tokens=4, corpus_id="c")
+                for r in eng.run():
+                    gens[(i, tuple(r.prompt))] = tuple(r.generated)
+                eng.scheduler.finished.clear()
+            torch.cuda.synchronize()
+        finally:
+            obs.set_registry(prev)
+        return gens, {n: int(reg.counter(n).value) for n in (
+            "engine/prefill_tokens", "kvcache/swap_in_hits",
+            "kvcache/prefetch_hits")}
+
+    n0 = ops.paged_decode_attention.launches
+    on, c_on = serve(host_pool_blocks=16)
+    off, c_off = serve(host_pool_blocks=0)
+    on_sync, c_sync = serve(host_pool_blocks=16, **sync)
+    assert on == off == on_sync and len(on) == 12
+    assert c_on["kvcache/swap_in_hits"] == c_sync["kvcache/swap_in_hits"] == 6
+    assert c_on["engine/prefill_tokens"] == 48
+    assert c_off["engine/prefill_tokens"] == 96
+    assert c_on["kvcache/prefetch_hits"] >= 1
+    assert ops.paged_decode_attention.launches > n0
+

@@ -4,9 +4,9 @@ Host side: ``BlockPool`` and ``SlotTables`` walks must leave both packages
 in the same states. Device ops: ``write_blocks``, ``gather_layer``,
 ``append_layer``, ``copy_block`` and ``grow`` must give the reference's
 values bit for bit. Engine: the port's paged engine must generate the
-reference paged engine's greedy tokens (reference with
-``spec_append=False, overlap_waves=False``, its exact counterpart) with
-the same paged counters, on the streams of ``tests/test_paged_serving.py``,
+reference paged engine's greedy tokens (both with their defaults, which
+include the speculative appends and the wave overlap) with the same
+paged counters, on the streams of ``tests/test_paged_serving.py``,
 and the same tokens as its own slotted layout; the ``paged_vs_slotted``
 scenario of ``benchmarks/bench_serving.py`` must give equal high-water
 bytes and deferred admissions in both packages."""
@@ -257,8 +257,7 @@ def _serve(engine_mod, obs_mod, cfg, params, requests, corpus, **ecfg):
 
 def _jax(cfg, params, requests, corpus, **ecfg):
     return _serve(je, jobs, cfg, params, requests, corpus,
-                  cache_dtype=jnp.float32, spec_append=False,
-                  overlap_waves=False, **ecfg)
+                  cache_dtype=jnp.float32, **ecfg)
 
 
 def _torch(cfg, params, requests, corpus, **ecfg):
