@@ -21,7 +21,7 @@ Phases, each printed as it runs; any failure exits non-zero:
             decode kernels also with a sliding window (``WINDOWS``: lengths
             below, at and past it, a window of one key), against their
             plain versions and paged == slotted bit for bit.
-  3. serve  ``repro_torch.launch.serve.main``: tinyllama-1.1b at full width
+  3. serve  ``repro_torch.launch.serve.serve``: tinyllama-1.1b at full width
             and depth, random weights from a seed, a 65,536-token shared
             corpus (32 chunks of 2,048; top-8 routing), 128 requests of 256
             prompt tokens and 32 new tokens on 64 slots. Every kernel's
@@ -59,6 +59,31 @@ Phases, each printed as it runs; any failure exits non-zero:
             ``dense.decode_step``, all shared attention in
             ``shared_chunk_attention_q8``; first-step logits within 0.1 of
             the bf16 store's.
+  3m. moe   granite-moe-1b-a400m at full width and depth (24 layers, 32
+            experts top-8, G = 2, seeded bf16 weights): every kernel of the
+            phase against its plain version at each shape the phase gives
+            it (the served decode step and 256-row prefill, the fp32 step's
+            prefill of 8 and decode), the merge's routed and pair entries
+            too; phase 3's stream (128 requests of 256 tokens, 32 new, 64
+            slots) over a 32,768-token corpus (16 chunks) through
+            ``serve.serve``, slotted and then paged (pages of 16), each with
+            exact launch counts and the expert slots kept and dropped; the
+            paged generations must equal the slotted ones (both layouts
+            prefill a prompt as one bucket and every wave holds 64 live
+            slots, so the MoE FFN gets the same rows); an fp32 decode step
+            of 8 slots card vs CPU (logits within 1e-3, equal greedy
+            tokens); one decode step profiled as in phase 6, and its MoE
+            FFN's device time by stage.
+  3w. widths qwen1.5-0.5b (full depth; MHA, QKV bias), mistral-large-123b
+            (2 layers; G = 12, D = 128) and internvl2-76b (2 layers; G = 8,
+            D = 128, 256 stub patch embeddings in front of each prompt) at
+            full width, bf16, over a 16,384-token corpus: every kernel at
+            the arch's shapes against its plain version (the prefill of 16
+            sequences of P + 256 rows, P the patches, the decode steps,
+            and the fp32 step's prefill of 4 and decode); a prefill
+            of 16 requests and 16 decode steps through ``Model`` with exact
+            launch counts; an fp32 decode step of 4 slots card vs CPU
+            (mistral and internvl2 with 1 layer).
   4. agree  one decode step of 8 slots on the card, and the same step on the
             CPU (plain versions) from copies of the same weights, store and
             cache, in fp32: logits within 1e-3 and equal greedy tokens; the
@@ -85,8 +110,12 @@ Phases, each printed as it runs; any failure exits non-zero:
             ``STEP_LAUNCHES`` (printed beside 2,547 and 2,787, the counts
             before the merge's routed and pair entries).
 
-It then prints the kernels' JSON line, the card's name and power limit, and,
-as the last line, the device JSON. Without a card it exits 1 and prints no
+Phases 3m and 3w run last, after phase 6, so that phases 1-6 run as they
+ran before them (cuBLAS picks GEMM kernels by what the process ran
+earlier, and phase 6 counts kernels exactly). Each phase prints its
+seconds. It then prints the kernels' JSON line (each
+kernel's launches summed over every phase), the card's name and power
+limit, and, as the last line, the device JSON. Without a card it exits 1 and prints no
 result.
 """
 from __future__ import annotations
@@ -94,6 +123,7 @@ from __future__ import annotations
 import collections
 import copy
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -138,6 +168,18 @@ M_PAGES = 512 // BLOCK                 # table width of a 512-token slot
 # the page size, and a window of one key
 WINDOWS = {"path": (100,), "ragged": (37, 1)}
 
+# phase 3m: granite-moe-1b-a400m at full width and depth, the main path's
+# stream over a 32,768-token corpus (16 chunks; top-8 reads half)
+MOE_ARCH, MOE_CORPUS = "granite-moe-1b-a400m", 32768
+MOE_ARGV = ["--arch", MOE_ARCH] + SERVE_ARGV[2:]
+MOE_ARGV[MOE_ARGV.index("--corpus-tokens") + 1] = str(MOE_CORPUS)
+
+# phase 3w: the other dense-family members at full width (depth: None =
+# the arch's own; 2 = cut to two layers for one card's memory)
+WIDTH_ARCHS = (("qwen1.5-0.5b", None), ("mistral-large-123b", 2),
+               ("internvl2-76b", 2))
+WIDTH_CORPUS, WIDTH_REQUESTS, WIDTH_STEPS = 16384, 16, 16
+
 # phase 3h: the host tier's stream, pool and tier
 TIER_CORPUS, TIER_PROMPTS = 16384, 128
 TIER_PAGES = 1 + SLOTS * -(-(PAGED_PROMPT + NEW_TOKENS) // BLOCK)  # 1,153
@@ -181,45 +223,50 @@ def check(ok: bool, what) -> None:
 # inputs at the main path's shapes
 # ---------------------------------------------------------------------------
 
-def path_inputs(cfg, dtype, dev, seed=0):
+def path_inputs(cfg, dtype, dev, seed=0, corpus=CORPUS, slots=SLOTS,
+                slab=512, lens=(PROMPT + 1, PROMPT + 33)):
     """Inputs of each kernel as one decode step of the served workload
     gives them: 64 slots, 32 chunks of 2,048 tokens, top-8 routing,
-    capacity 32, unique caches of 257..288 tokens in a 512-token slab."""
+    capacity 32, unique caches of 257..288 tokens in a 512-token slab (or
+    ``slots`` over ``corpus`` tokens, caches of lens[0] .. lens[1] - 1
+    tokens in a ``slab``-token slab, at ``cfg``'s heads)."""
     from repro_torch.core import router
 
     g = torch.Generator(device=dev).manual_seed(seed)
     H, KH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    C, K = cfg.moska.chunk_size, cfg.moska.top_k_chunks
-    E = CORPUS // C
+    C, E = cfg.moska.chunk_size, corpus // cfg.moska.chunk_size
+    K, M = min(cfg.moska.top_k_chunks, E), -(-slab // BLOCK)
 
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
 
     from repro_torch.core.shared_kv import _quantize
-    cap = router.required_capacity(SLOTS, K, E, cfg.moska.query_capacity_factor)
-    ids = router.top_k(torch.rand((SLOTS, E), generator=g, device=dev), K)[1]
+    cap = min(router.required_capacity(slots, K, E,
+                                       cfg.moska.query_capacity_factor),
+              slots * K)
+    ids = router.top_k(torch.rand((slots, E), generator=g, device=dev), K)[1]
     _, pos, keep = router.dispatch_plan(ids, E, cap)
     flat = ids.reshape(-1)
     qmask = torch.zeros((E, cap), dtype=torch.bool, device=dev)
     qmask[flat[keep], pos[keep]] = True
-    lens = torch.randint(PROMPT + 1, PROMPT + 33, (SLOTS,), generator=g,
-                         device=dev, dtype=torch.int32)
-    lses = torch.randn((K, SLOTS, H), generator=g, device=dev) * 3
-    # 64 slots' tables over a pool of 64 * 32 pages plus the null page, in
-    # scrambled order, so no slot's pages are contiguous
-    n_pages = SLOTS * M_PAGES + 1
+    lens = torch.randint(*lens, (slots,), generator=g, device=dev,
+                         dtype=torch.int32)
+    lses = torch.randn((K, slots, H), generator=g, device=dev) * 3
+    # the slots' tables over a pool of slots * M pages plus the null page,
+    # in scrambled order, so no slot's pages are contiguous
+    n_pages = slots * M + 1
     table = (torch.randperm(n_pages - 1, generator=g, device=dev) + 1
-             ).view(SLOTS, M_PAGES).to(torch.int32)
+             ).view(slots, M).to(torch.int32)
     kq, ks = _quantize(torch.randn((E, C, KH, D), generator=g, device=dev))
     vq, vs = _quantize(torch.randn((E, C, KH, D), generator=g, device=dev))
     return {
         "shared_chunk_attention": (randn(E, cap, H, D), randn(E, C, KH, D),
                                    randn(E, C, KH, D), qmask),
-        "decode_attention": (randn(SLOTS, H, D), randn(SLOTS, 512, KH, D),
-                             randn(SLOTS, 512, KH, D), lens),
-        "lse_merge": (randn(K, SLOTS, H, D), lses),
-        "router_scores": (randn(SLOTS, H, D), randn(E, KH, D, scale=0.2)),
-        "paged_decode_attention": (randn(SLOTS, H, D),
+        "decode_attention": (randn(slots, H, D), randn(slots, slab, KH, D),
+                             randn(slots, slab, KH, D), lens),
+        "lse_merge": (randn(K, slots, H, D), lses),
+        "router_scores": (randn(slots, H, D), randn(E, KH, D, scale=0.2)),
+        "paged_decode_attention": (randn(slots, H, D),
                                    randn(n_pages, BLOCK, KH, D),
                                    randn(n_pages, BLOCK, KH, D), table, lens),
         "shared_chunk_attention_q8": (randn(E, cap, H, D), kq, vq, ks, vs,
@@ -227,31 +274,35 @@ def path_inputs(cfg, dtype, dev, seed=0):
     }
 
 
-def prefill_inputs(cfg, dtype, dev, seed=0):
+def prefill_inputs(cfg, dtype, dev, seed=0, corpus=CORPUS, batch=1,
+                   rows=PROMPT):
     """The routed kernels' inputs as one routed prefill of a 256-token
     prompt gives them (``models/dense.py``): 2 groups of 128 queries, each
     routed to its top-8 of 32 chunks at capacity 8 slots, each slot 128
     query rows, so qd is (32, 1024, 32, 64) with each chunk's first 0-2
     slots valid (16 routes in all); the router scores the 2 groups' mean
     queries, q (2, 32, 64), and the K-chunk merge takes 8 partials of the
-    256 tokens, (8, 256, 32, 64)."""
+    256 tokens, (8, 256, 32, 64). Or a prefill of ``batch`` sequences of
+    ``rows`` rows over ``corpus`` tokens, at ``cfg``'s heads: one routing
+    group a min(128, rows) rows, as ``dense.prefill`` routes."""
     from repro_torch.core.shared_kv import _quantize
 
     g = torch.Generator(device=dev).manual_seed(seed)
     H, KH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    C, K = cfg.moska.chunk_size, cfg.moska.top_k_chunks
-    E = CORPUS // C
-    qmask = routed_slots(cfg, g, dev, PROMPT // 128)
+    C, E = cfg.moska.chunk_size, corpus // cfg.moska.chunk_size
+    K, N, rb = min(cfg.moska.top_k_chunks, E), batch * rows, min(128, rows)
+    check(rows % rb == 0, ("routed prefill rows", rows))
+    qmask = routed_slots(cfg, g, dev, N // rb, rb=rb, corpus=corpus)
 
     def randn(*shape):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
 
     kq, ks = _quantize(torch.randn((E, C, KH, D), generator=g, device=dev))
     vq, vs = _quantize(torch.randn((E, C, KH, D), generator=g, device=dev))
-    lses = torch.randn((K, PROMPT, H), generator=g, device=dev) * 3
+    lses = torch.randn((K, N, H), generator=g, device=dev) * 3
     return {
-        "lse_merge": (randn(K, PROMPT, H, D), lses),
-        "router_scores": (randn(PROMPT // 128, H, D), randn(E, KH, D) * 0.2),
+        "lse_merge": (randn(K, N, H, D), lses),
+        "router_scores": (randn(N // rb, H, D), randn(E, KH, D) * 0.2),
         "shared_chunk_attention": (randn(E, qmask.shape[1], H, D),
                                    randn(E, C, KH, D), randn(E, C, KH, D),
                                    qmask),
@@ -260,12 +311,14 @@ def prefill_inputs(cfg, dtype, dev, seed=0):
     }
 
 
-def routed_slots(cfg, g, dev, groups, rb=128):
+def routed_slots(cfg, g, dev, groups, rb=128, corpus=CORPUS):
     """The shared kernels' qmask (E, cap * rb) of a routed prefill of
-    ``groups`` groups of rb queries: each group's top-8 chunks by random
-    scores, dispatched at the path's capacity, each slot rb query rows."""
+    ``groups`` groups of rb queries over ``corpus`` tokens: each group's
+    top-8 chunks by random scores, dispatched at the path's capacity, each
+    slot rb query rows."""
     from repro_torch.core import router
-    K, E = cfg.moska.top_k_chunks, CORPUS // cfg.moska.chunk_size
+    E = corpus // cfg.moska.chunk_size
+    K = min(cfg.moska.top_k_chunks, E)
     cap = min(router.required_capacity(groups, K, E,
                                        cfg.moska.query_capacity_factor),
               groups * K)
@@ -276,11 +329,20 @@ def routed_slots(cfg, g, dev, groups, rb=128):
     return slots.repeat_interleave(rb, dim=1).contiguous()
 
 
-def plain_by_chunk(plain, args):
-    """A shared kernel's plain version one chunk at a time (chunks are
-    independent): at the prefill shape the whole fp32 score tensor would be
-    8.6 GB."""
-    parts = [plain(*(a[e:e + 1] for a in args)) for e in range(len(args[0]))]
+def plain_by_chunk(plain, args, rows=2048):
+    """A shared kernel's plain version one chunk and at most ``rows`` query
+    rows at a time (chunks and query rows are independent): at the routed
+    prefill's shape the whole fp32 score tensor would be 8.6 GB, at
+    internvl2's batch of 16 prefills 69 GB."""
+    last = len(args) - 1                 # qd first and qmask last hold rows
+
+    def piece(e, r):
+        return plain(*(a[e:e + 1, r:r + rows] if i in (0, last)
+                       else a[e:e + 1] for i, a in enumerate(args)))
+
+    parts = [tuple(torch.cat(p, dim=1) for p in zip(*(
+        piece(e, r) for r in range(0, args[0].shape[1], rows))))
+        for e in range(len(args[0]))]
     return tuple(torch.cat(p) for p in zip(*parts))
 
 
@@ -321,7 +383,8 @@ def ragged_inputs(dtype, dev, seed=1):
     }
 
 
-def merge_inputs(cfg, dtype, dev, label, seed=0):
+def merge_inputs(cfg, dtype, dev, label, seed=0, corpus=CORPUS,
+                 groups=None, rb=128):
     """The merge's pair and routed entries' inputs. routed: (od, lsed, lin)
     as the K-chunk merge of ``shared_attention_batched`` gets them, od
     (R, Q, H, D) the shared kernel's rows and lin (G, K) each route's row,
@@ -331,12 +394,15 @@ def merge_inputs(cfg, dtype, dev, label, seed=0):
     at capacity 8, every third route dropped), and a ragged one (every
     third and all of group 1's). pair: (o0, l0, o1, l1), the unique and
     shared partials of the decode step (64 rows), of the prefill (256)
-    and ragged (7 rows, one that neither attended, one -inf)."""
+    and ragged (7 rows, one that neither attended, one -inf). Or
+    ``groups`` decode slots or groups of ``rb`` prefill queries over
+    ``corpus`` tokens, at ``cfg``'s heads."""
     from repro_torch.core import router
 
     g = torch.Generator(device=dev).manual_seed(seed)
     H, D = cfg.num_heads, cfg.head_dim
-    K, E = cfg.moska.top_k_chunks, CORPUS // cfg.moska.chunk_size
+    E = corpus // cfg.moska.chunk_size
+    K = min(cfg.moska.top_k_chunks, E)
 
     def randn(*shape, scale=1.0, dt=dtype):
         return (torch.randn(shape, generator=g, device=dev) * scale).to(dt)
@@ -348,8 +414,9 @@ def merge_inputs(cfg, dtype, dev, label, seed=0):
         lin.view(-1)[::3] = R
         lin[1] = R
     else:
-        G, Q, N = ((SLOTS, 1, SLOTS) if label == "path"
-                   else (PROMPT // 128, 128, PROMPT))
+        G, Q = ((groups or SLOTS, 1) if label == "path"
+                else (groups or PROMPT // rb, rb))
+        N = G * Q
         cap = min(router.required_capacity(G, K, E,
                                            cfg.moska.query_capacity_factor),
                   G * K)
@@ -381,13 +448,15 @@ def merge_chains():
     }
 
 
-def check_merge_entries(cfg, dev, dtype, label):
+def check_merge_entries(cfg, dev, dtype, label, tag="check", **shape):
     """The pair and routed entries against their plain versions (bf16
     2e-2, fp32 2e-5, lse 2e-5) and, bit for bit, against the dense entry
-    on the same partials stacked or gathered."""
+    on the same partials stacked or gathered; ``shape``: merge_inputs'
+    ``corpus``, ``groups`` and ``rb``."""
     from repro_torch.kernels import ops, ref
     chains = merge_chains()
-    for entry, args in merge_inputs(cfg, dtype, dev, label).items():
+    for entry, args in merge_inputs(cfg, dtype, dev, label,
+                                    **shape).items():
         got = getattr(ops, f"lse_merge_{entry}")(*args)
         chained = chains[entry](*args)
         want = getattr(ref, f"lse_merge_{entry}_ref")(*args)
@@ -404,7 +473,7 @@ def check_merge_entries(cfg, dev, dtype, label):
             check(bool((got[1].view(G, -1)[empty] == -1e30).all()) and
                   bool((got[0].view(G, -1)[empty] == 0).all()),
                   ("empty routed groups", label, dtype))
-        say(f"[check] lse_merge {entry:6s} entry {label:7s} "
+        say(f"[{tag}] lse_merge {entry:6s} entry {label:7s} "
             f"{str(dtype)[6:]:8s} max_abs_err={err:.3e} "
             f"== dense entry on the {'stacked' if entry == 'pair' else 'gathered'} "
             f"partials bitwise={same}")
@@ -440,7 +509,6 @@ def phase_check(cfg, dev):
     """max |kernel - plain| per kernel over the path's shapes in bf16 (the
     number the kernels' JSON line reports) and every check's pass/fail."""
     from repro_torch.kernels import ops
-    plain = plain_versions()
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
         for label, inputs in (("path", path_inputs(cfg, dtype, dev)),
@@ -461,29 +529,41 @@ def phase_check(cfg, dev):
                 if label == "path" and dtype == torch.bfloat16:
                     for name, e in err.items():
                         errs[name] = max(errs.get(name, 0.0), e)
-            for name, args in inputs.items():
-                got = getattr(ops, name)(*args)
-                torch.cuda.synchronize()
-                want = (plain_by_chunk(plain[name], args)
-                        if label == "prefill" and name.startswith("shared")
-                        else plain[name](*args))
-                got = got if isinstance(got, tuple) else (got,)
-                want = want if isinstance(want, tuple) else (want,)
-                err = max(float((a.float() - b.float()).abs().max())
-                          for a, b in zip(got, want))
-                tol = 2e-5 if name == "router_scores" else TOL[dtype]
-                for a, b in zip(got, want):
-                    torch.testing.assert_close(a.float(), b.float(),
-                                               rtol=tol, atol=tol)
-                if name.startswith("shared_chunk_attention"):
-                    rows = ~args[-1]              # masked rows: 0 and -1e30
-                    check(bool((got[0][rows] == 0).all()) and
-                          bool((got[1][rows] == -1e30).all()),
-                          ("masked rows", name, label, dtype))
-                say(f"[check] {name:24s} {label:7s} {str(dtype)[6:]:8s} "
-                    f"max_abs_err={err:.3e} tol={tol:g} ok")
+            for name, err in check_kernels(inputs, dtype, label).items():
                 if label != "ragged" and dtype == torch.bfloat16:
                     errs[name] = max(errs.get(name, 0.0), err)
+    return errs
+
+
+def check_kernels(inputs, dtype, label, tag="check"):
+    """Each kernel against its plain version on ``inputs`` (masked rows of
+    the shared kernels must hold 0 and -1e30); returns max |kernel -
+    plain| by kernel."""
+    from repro_torch.kernels import ops
+    plain = plain_versions()
+    errs = {}
+    for name, args in inputs.items():
+        got = getattr(ops, name)(*args)
+        torch.cuda.synchronize()
+        want = (plain_by_chunk(plain[name], args)
+                if label == "prefill" and name.startswith("shared")
+                else plain[name](*args))
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(got, want))
+        tol = 2e-5 if name == "router_scores" else TOL[dtype]
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a.float(), b.float(),
+                                       rtol=tol, atol=tol)
+        if name.startswith("shared_chunk_attention"):
+            rows = ~args[-1]              # masked rows: 0 and -1e30
+            check(bool((got[0][rows] == 0).all()) and
+                  bool((got[1][rows] == -1e30).all()),
+                  ("masked rows", name, label, dtype))
+        say(f"[{tag}] {name:24s} {label:7s} {str(dtype)[6:]:8s} "
+            f"max_abs_err={err:.3e} tol={tol:g} ok")
+        errs[name] = err
     return errs
 
 
@@ -531,33 +611,42 @@ def expected_launches(L, steps, routed, unique,
 
 
 def phase_serve(cfg, argv=SERVE_ARGV, requests=REQUESTS,
-                new_tokens=NEW_TOKENS):
+                new_tokens=NEW_TOKENS, tag="serve", unique="decode_attention"):
+    """``serve.serve(argv)`` on a registry of its own, with exact launch
+    counts; returns (counts, summary, the finished requests)."""
+    from repro_torch import obs
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
-    ops.reset_launches()
-    summary = serve.main(argv)
-    counts = ops.launch_counts()
+    gc.collect()            # an earlier engine's cycles hold card memory
+    torch.cuda.empty_cache()
+    prev = obs.set_registry(obs.MetricsRegistry())
+    try:
+        ops.reset_launches()
+        summary, done = serve.serve(argv)
+        counts = ops.launch_counts()
+    finally:
+        obs.set_registry(prev)
     L = cfg.num_layers
     steps, prefills = summary["decode_steps"], summary["prefills"]
     # per layer: a decode step launches each kernel once and lse_merge twice
     # (K-chunk merge, unique + shared merge); a routed prefill launches all
-    # but decode_attention
+    # but the unique decode kernel
     want = expected_launches(L, steps, routed=steps + prefills,
-                             unique="decode_attention")
-    say(f"[serve] launches {json.dumps(counts)}")
-    say(f"[serve] expected {json.dumps(want)}")
+                             unique=unique)
+    say(f"[{tag}] launches {json.dumps(counts)}")
+    say(f"[{tag}] expected {json.dumps(want)}")
     check(summary["finished"] == requests, ("finished", summary["finished"]))
     check(summary["tokens"] == requests * new_tokens,
           ("tokens", summary["tokens"]))
     check(all(counts[k] > 0 for k, n in want.items() if n),
           ("a kernel of the path never ran", counts))
     check(counts == want, ("launch counts", counts, want))
-    say(f"[serve] finished={summary['finished']} tokens={summary['tokens']} "
+    say(f"[{tag}] finished={summary['finished']} tokens={summary['tokens']} "
         f"tokens_per_s={summary['tokens_per_s']:.1f} "
         f"decode_step_p50_s={summary['decode_step_p50_s']:.4f} "
         f"corpus_register_s={summary['corpus_register_s']:.2f} "
         f"peak_device_memory_bytes={summary['peak_device_memory_bytes']}")
-    return counts
+    return counts, summary, done
 
 
 def phase_paged(cfg, dev):
@@ -657,7 +746,7 @@ TIER_COUNTERS = ("engine/decode_steps", "engine/prefills",
 def phase_tier(cfg, dev, params):
     """Phase 3h: engines A (host tier, async defaults), B (no tier) and C
     (tier, async off) over the same two passes of 128 prompts; see the
-    head of this file."""
+    head of this file. Returns the launch counts of every pass, summed."""
     from repro_torch import obs
     from repro_torch.data.pipeline import CorpusSpec, synthesize_corpus
     from repro_torch.kernels import ops
@@ -676,6 +765,7 @@ def phase_tier(cfg, dev, params):
                "B": dict(host_pool_blocks=0),
                "C": dict(host_pool_blocks=TIER_HOST_PAGES, **sync)}
     gens, res = {}, {}
+    total = collections.Counter()
     for name, kw in engines.items():
         reg = obs.MetricsRegistry()
         prev = obs.set_registry(reg)
@@ -698,6 +788,7 @@ def phase_tier(cfg, dev, params):
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
                 counts = ops.launch_counts()
+                total.update(counts)
                 eng.scheduler.finished.clear()
                 d = {c.split("/")[1]: int(reg.counter(c).value - before[c])
                      for c in TIER_COUNTERS}
@@ -759,6 +850,7 @@ def phase_tier(cfg, dev, params):
         "; pass 2 prefill_tokens " + " ".join(
             f"{n}={res[n, 2]['prefill_tokens']}" for n in engines))
     time_swaps(cfg, dev)
+    return dict(total)
 
 
 def time_swaps(cfg, dev, entries=16):
@@ -967,21 +1059,9 @@ def phase_agree(cfg, dev, corpus_len=32768):
     cpu = torch.device("cpu")
     params_cpu = copy.deepcopy(params).to(cpu)
 
-    def on(device, tensors):
-        return type(tensors)(*[t.to(device, copy=True) if t is not None
-                               else None for t in tensors])
-
     def agree(label, step):
-        """step(params, tokens, cache, store, device) -> logits; each side
-        gets its own copy of the prefilled cache."""
-        lg_card = step(params, tokens, on(dev, uc), dev).cpu()
-        lg_cpu = step(params_cpu, tokens.cpu(), on(cpu, uc), cpu)
-        err = float((lg_card - lg_cpu).abs().max())
-        same = bool((lg_card.argmax(-1) == lg_cpu.argmax(-1)).all())
-        say(f"[agree] 8-slot fp32 {label}, card vs cpu: logits max_abs_err="
-            f"{err:.3e} (tol {E2E_TOL:g}), |logits| max="
-            f"{float(lg_cpu.abs().max()):.3f}, greedy tokens equal={same}")
-        check(err <= E2E_TOL and same, (f"card vs cpu {label}", err, same))
+        card_vs_cpu(f"8-slot fp32 {label}", step, params, params_cpu, tokens,
+                    uc, dev)
 
     q8 = build_store(cc.k[:, 0], cc.v[:, 0], cfg.moska.chunk_size,
                      quantize=True)
@@ -1007,6 +1087,407 @@ def phase_agree(cfg, dev, corpus_len=32768):
                                        c.offset, store=stores[d][0])[0]
 
     agree("paged decode step", paged_step)
+
+
+# the kernels that phases 3m and 3w run (no int8 store there; 3w no pages)
+MOE_KERNELS = ("shared_chunk_attention", "decode_attention",
+               "paged_decode_attention", "lse_merge", "router_scores")
+WIDTH_KERNELS = MOE_KERNELS[:2] + MOE_KERNELS[3:]
+
+
+def phase_moe(dev, errs):
+    """Phase 3m: granite-moe-1b-a400m at full width and depth through
+    ``serve.serve``, slotted then paged, each with exact launch counts; the
+    paged generations must equal the slotted ones (both engines prefill a
+    prompt as one 256-row bucket, and every wave of this stream holds 64
+    live slots, so both hand the MoE FFN the same rows); a card-vs-CPU
+    fp32 decode step; then one decode step profiled. Before them, every
+    kernel of the phase at its shapes against its plain version: the
+    served decode step, the served prefill, and the card-vs-CPU step's
+    prefill and decode; ``errs`` takes the bf16 errors. Returns the two
+    runs' launch counts."""
+    from repro_torch.configs import get_config
+    cfg = get_config(MOE_ARCH)
+    bf16, fp32 = torch.bfloat16, torch.float32
+    agree = dict(corpus=MOE_CORPUS, slots=8, slab=PROMPT + 8,
+                 lens=(PROMPT + 1, PROMPT + 2))
+    check_kernels_at(
+        cfg, dev, "moe", errs, MOE_KERNELS,
+        decodes=[(bf16, dict(corpus=MOE_CORPUS)),
+                 (fp32, dict(corpus=MOE_CORPUS)), (fp32, agree)],
+        prefills=[(bf16, dict(corpus=MOE_CORPUS)),
+                  (fp32, dict(corpus=MOE_CORPUS, batch=8))])
+    runs = {}
+    for layout, unique in (("slotted", "decode_attention"),
+                           ("paged", "paged_decode_attention")):
+        counts, summary, done = phase_serve(
+            cfg, argv=MOE_ARGV + ["--kv-layout", layout],
+            requests=REQUESTS, new_tokens=NEW_TOKENS, tag="moe",
+            unique=unique)
+        runs[layout] = counts, summary, {r.uid: tuple(r.generated)
+                                         for r in done}
+        say(f"[moe] {layout}: expert slots dispatched="
+            f"{summary['moe_dispatched_slots']} dropped="
+            f"{summary['moe_dropped_slots']}; hbm_high_water_bytes="
+            f"{summary['hbm_high_water_bytes']}")
+        del done
+        torch.cuda.empty_cache()
+    gs, gp = runs["slotted"][2], runs["paged"][2]
+    check(sorted(gs) == sorted(gp) and len(gs) == REQUESTS,
+          "moe: the two runs served other requests")
+    same = sum(gs[u] == gp[u] for u in gs)
+    say(f"[moe] paged generations equal the slotted engine's on {same}/"
+        f"{len(gs)} requests")
+    check(same == len(gs), ("moe: paged vs slotted generations", same))
+    agree_arch(cfg, dev, 8, MOE_CORPUS, "moe")
+    torch.cuda.empty_cache()
+    profile_moe_step(cfg, dev)
+    return runs["slotted"][0], runs["paged"][0]
+
+
+def check_kernels_at(cfg, dev, tag, errs, kernels, decodes=(), prefills=()):
+    """Each kernel in ``kernels`` at ``cfg``'s heads against its plain
+    version, at each (dtype, ``path_inputs`` keywords) of ``decodes`` and
+    each (dtype, ``prefill_inputs`` keywords) of ``prefills``; the merge's
+    routed and pair entries too, at the same groups. ``errs`` keeps the
+    largest bf16 error by kernel."""
+    for label, make, shapes in (("path", path_inputs, decodes),
+                                ("prefill", prefill_inputs, prefills)):
+        for dtype, kw in shapes:
+            say(f"[{tag}] {cfg.name} {label} {str(dtype)[6:]} "
+                f"{json.dumps({k: v for k, v in kw.items()})}")
+            inputs = {n: a for n, a in make(cfg, dtype, dev, **kw).items()
+                      if n in kernels}
+            got = check_kernels(inputs, dtype, label, tag=tag)
+            del inputs
+            rows = kw.get("rows", PROMPT)
+            rb = min(128, rows)
+            groups = (kw.get("slots", SLOTS) if label == "path" else
+                      kw.get("batch", 1) * rows // rb)
+            check_merge_entries(cfg, dev, dtype, label, tag=tag,
+                                corpus=kw["corpus"], groups=groups, rb=rb)
+            torch.cuda.empty_cache()
+            if dtype == torch.bfloat16:
+                for name, e in got.items():
+                    errs[name] = max(errs.get(name, 0.0), e)
+
+
+def registered_store(cfg, model, params, corpus):
+    """The shared store of ``corpus`` (1, n) as the engine registers it."""
+    from repro_torch.core.shared_kv import build_store
+    cc = model.init_cache(1, corpus.shape[1], cfg_dtype(cfg), corpus.device)
+    model.prefill(params, corpus, cc)
+    return build_store(cc.k[:, 0], cc.v[:, 0], cfg.moska.chunk_size)
+
+
+def cfg_dtype(cfg):
+    from repro_torch.models.dense import torch_dtype
+    return torch_dtype(cfg.dtype)
+
+
+def profile_moe_step(cfg, dev):
+    """One decode step of granite at the served shapes (64 slots of
+    256..287 tokens, a 16-chunk store of random K/V, bf16) under
+    torch.profiler, as phase 6 profiles tinyllama's; then the same step
+    again, to split the MoE FFN's device time by stage, and once more to
+    count its dropped expert slots."""
+    from repro_torch import obs
+    from repro_torch.core.shared_kv import build_store
+    from repro_torch.kvcache.cache import init_kv_cache
+    from repro_torch.models import dense
+    from repro_torch.models.moe import moe_capacity
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    L, KH, D = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    params = dense.init_params(cfg, g, dev)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    store = build_store(randn(L, MOE_CORPUS, KH, D),
+                        randn(L, MOE_CORPUS, KH, D), cfg.moska.chunk_size)
+    cache = init_kv_cache(L, SLOTS, 512, KH, D, torch.bfloat16, dev)
+    cache.k.copy_(randn(*cache.k.shape))
+    cache.v.copy_(randn(*cache.v.shape))
+    cache.length.copy_(torch.randint(PROMPT, PROMPT + 32, (SLOTS,),
+                                     generator=g, device=dev))
+    cache.offset.fill_(MOE_CORPUS)
+    tokens = torch.randint(0, cfg.vocab_size, (SLOTS,), generator=g,
+                           device=dev)
+
+    def step():
+        cache.length.clamp_(max=PROMPT + 32)      # stay inside the slab
+        dense.decode_step(cfg, params, tokens, cache, store=store)
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(8):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = float(np.median(walls))
+    names, launches = _profile_step("moe decode step", step, wall)
+    mma = [n for n in names if "shared_chunk_mma_kernel" in n]
+    slab = [n for n in names if "decode_slab_kernel" in n]
+    say(f"[profile] moe decode step: {launches} launches (tinyllama's step: "
+        f"{STEP_LAUNCHES['decode step']}); tensor-core shared kernel "
+        f"launched: {bool(mma)}; decode_slab_kernel launched: {bool(slab)}")
+    check(mma and slab, ("moe decode step kernels", mma, slab))
+    moe_stages(step)
+    rec, reg = obs.DeviceRecorder(), obs.MetricsRegistry()
+    cache.length.clamp_(max=PROMPT + 32)
+    dense.decode_step(cfg, params, tokens, cache, store=store, rec=rec)
+    rec.flush(reg)
+    routed = int(reg.counter("moe/routed_slots").value)
+    check(routed == SLOTS * cfg.moe.top_k * L, ("routed expert slots", routed))
+    say(f"[profile] moe decode step: expert slots dropped "
+        f"{routed - int(reg.counter('moe/dispatched_slots').value)} of "
+        f"{routed} (capacity "
+        f"{moe_capacity(SLOTS, cfg.moe)} slots for each of "
+        f"{cfg.moe.num_experts} experts)")
+
+
+# the MoE FFN's stages, by the outermost ATen op of ``moe_ffn`` that a
+# kernel ran under; ops not named here are the elementwise rest (SiLU x up,
+# the gate normalisation and weighted sum, dtype casts)
+MOE_STAGES = {
+    "aten::bmm": "expert GEMMs",
+    **dict.fromkeys(("aten::matmul", "aten::mm", "aten::softmax"),
+                    "router (fp32 GEMM, softmax)"),
+    "aten::sort": "top-k (sort)",
+    **dict.fromkeys(("aten::one_hot", "aten::cumsum", "aten::sub",
+                     "aten::mul_", "aten::lt", "aten::where"),
+                    "one-hot/cumsum"),
+    **dict.fromkeys(("aten::new_zeros", "aten::index_put_", "aten::index",
+                     "aten::reshape", "aten::pad"), "scatter/gather"),
+}
+
+
+def _moe_op(e, moe_range):
+    """(whether ``moe_ffn`` ran this profiled op, its outermost ATen op
+    below the ``moe_range`` range that ``dense._ffn`` opens around it)."""
+    top, p = e.name, e.cpu_parent
+    while p is not None:
+        if p.name == moe_range:
+            return True, top
+        if p.name.startswith("aten::"):
+            top = p.name
+        p = p.cpu_parent
+    return False, top
+
+
+def moe_stages(step):
+    """Device time of one profiled ``step`` by the MoE FFN's stage: each
+    op's own kernels, by the outermost op ``moe_ffn`` called (under a
+    profiler, ``dense._ffn`` wraps each ``moe_ffn`` call in a
+    ``record_function`` range). The rest of the step's device time is the
+    busy time less the MoE FFN's."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.dense import MOE_RANGE
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    # the range's own spans on the card's timeline are not kernels
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type.name == "CUDA" and e.key != MOE_RANGE)
+    by = collections.Counter()
+    for e in prof.events():
+        if e.device_type.name != "CPU" or e.self_device_time_total <= 0:
+            continue
+        in_moe, top = _moe_op(e, MOE_RANGE)
+        if in_moe:
+            by[MOE_STAGES.get(top, "elementwise rest")] += \
+                e.self_device_time_total
+    moe_us = sum(by.values())
+    say(f"[profile] moe decode step by stage: device busy {busy / 1e3:.3f} "
+        f"ms, the MoE FFN {moe_us / 1e3:.3f} ms = "
+        f"{moe_us / max(busy, 1e-9):.3f} of it")
+    check(moe_us > 0, "moe decode step: no op attributed to moe_ffn")
+    for name, us in by.most_common():
+        say(f"[profile]   {us / 1e3:9.3f} ms  {name}")
+
+
+def phase_widths(dev, errs):
+    """Phase 3w: qwen1.5-0.5b at full width and depth, mistral-large-123b
+    and internvl2-76b at full width and 2 layers (the one card's memory),
+    bf16 over a 16,384-token corpus: every kernel at the arch's heads
+    against its plain version; a prefill of 16 requests (internvl2's with
+    256 stub patch embeddings in front) and 16 decode steps with exact
+    launch counts; then an fp32 decode step of 4 slots on the card and on
+    the CPU (internvl2 and mistral with 1 layer). Returns the launch
+    counts, summed."""
+    from repro_torch.configs import get_config
+    total = collections.Counter()
+    for arch, layers in WIDTH_ARCHS:
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        t0 = time.perf_counter()
+        check_width_kernels(cfg, dev, errs)
+        total.update(serve_width(cfg, dev))
+        torch.cuda.empty_cache()
+        agree_arch(dataclasses.replace(
+            cfg, num_layers=cfg.num_layers if layers is None else 1), dev, 4,
+            WIDTH_CORPUS, "widths")
+        torch.cuda.empty_cache()
+        say(f"[widths] {arch}: {time.perf_counter() - t0:.1f} s")
+    return dict(total)
+
+
+def check_width_kernels(cfg, dev, errs):
+    """Phase 3w's kernels against their plain versions at ``cfg``'s
+    shapes: ``serve_width``'s prefill of 16 sequences of P + 256 rows and
+    its decode steps (caches of P + 257 .. P + 272 tokens in a P + 272
+    slab), and the card-vs-CPU step's prefill of 4 and its decode."""
+    n = width_patches(cfg) + PROMPT
+    served = dict(corpus=WIDTH_CORPUS, slots=WIDTH_REQUESTS,
+                  slab=n + WIDTH_STEPS, lens=(n + 1, n + WIDTH_STEPS + 1))
+    agree = dict(corpus=WIDTH_CORPUS, slots=4, slab=n + 8,
+                 lens=(n + 1, n + 2))
+    bf16, fp32 = torch.bfloat16, torch.float32
+    check_kernels_at(
+        cfg, dev, "widths", errs, WIDTH_KERNELS,
+        decodes=[(bf16, served), (fp32, served), (fp32, agree)],
+        prefills=[(bf16, dict(corpus=WIDTH_CORPUS, batch=WIDTH_REQUESTS,
+                              rows=n)),
+                  (fp32, dict(corpus=WIDTH_CORPUS, batch=4, rows=n))])
+
+
+def width_patches(cfg):
+    """P: a VLM's stub frontend patches in front of each prompt, else 0."""
+    from repro_torch.configs import VLM
+    return cfg.encoder.frontend_seq if cfg.family == VLM else 0
+
+
+def prompt_inputs(cfg, dev, batch, seed):
+    """(prompts (batch, 256), patches (batch, P, d) or None, P): a VLM's
+    stub frontend gives P = ``frontend_seq`` patch embeddings, drawn at
+    the token embeddings' scale; P + 256 is a multiple of 128, as routed
+    prefill blocks need."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, PROMPT), generator=g,
+                            device=dev)
+    P = width_patches(cfg)
+    if not P:
+        return prompts, None, 0
+    check((P + PROMPT) % 128 == 0, ("frontend patches", P))
+    patches = torch.randn((batch, P, cfg.d_model), generator=g, device=dev,
+                          dtype=torch.float32) / cfg.d_model ** 0.5
+    return prompts, patches.to(cfg_dtype(cfg)), P
+
+
+def serve_width(cfg, dev):
+    """Register the corpus, prefill 16 requests through ``Model.prefill``
+    and take 16 decode steps; returns the launch counts of prefill and
+    steps, which must be the predicted ones."""
+    from repro_torch.data.pipeline import CorpusSpec, synthesize_corpus
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+
+    B, steps = WIDTH_REQUESTS, WIDTH_STEPS
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    corpus = torch.from_numpy(synthesize_corpus(CorpusSpec(
+        cfg.name, WIDTH_CORPUS, cfg.vocab_size, seed=0))).long().to(dev)[None]
+    t0 = time.perf_counter()
+    store = registered_store(cfg, model, params, corpus)
+    torch.cuda.synchronize()
+    reg_s = time.perf_counter() - t0
+    prompts, patches, P = prompt_inputs(cfg, dev, B, seed=2)
+    cache = model.init_cache(B, P + PROMPT + steps, cfg_dtype(cfg), dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    logits, _ = model.prefill(params, prompts, cache, store=store,
+                              frontend_embeds=patches,
+                              start_pos=store.total_tokens)
+    tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    check(cache.length.tolist() == [P + PROMPT] * B, ("cache length", P))
+    walls = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        logits, _ = model.decode_step(params, tok, cache, store=store)
+        tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    counts = ops.launch_counts()
+    want = expected_launches(cfg.num_layers, steps, routed=steps + 1,
+                             unique="decode_attention")
+    say(f"[widths] {cfg.name} ({cfg.num_layers} layers, {cfg.num_heads} "
+        f"heads over {cfg.num_kv_heads}, D {cfg.head_dim}, d_model "
+        f"{cfg.d_model}): launches {json.dumps(counts)}")
+    check(counts == want, (cfg.name, "launch counts", counts, want))
+    check(bool(torch.isfinite(logits).all()) and
+          tuple(logits.shape) == (B, cfg.vocab_size),
+          (cfg.name, "logits", tuple(logits.shape)))
+    say(f"[widths] {cfg.name}: corpus {WIDTH_CORPUS} tokens registered in "
+        f"{reg_s:.2f} s; prefill of {B} x ({P} patches + {PROMPT} tokens) "
+        f"{prefill_s:.3f} s; decode step p50 {np.median(walls):.4f} s; "
+        f"peak device memory {torch.cuda.max_memory_allocated(dev)} B")
+    return counts
+
+
+def agree_arch(cfg, dev, B, corpus_len, tag):
+    """One fp32 decode step of B slots on the card and on the CPU, after
+    a prefill of B prompts (a VLM's behind its frontend patches) over a
+    ``corpus_len``-token store; ``cfg`` is taken in fp32."""
+    from repro_torch.data.pipeline import CorpusSpec, synthesize_corpus
+    from repro_torch.models import dense
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(1), dev)
+    corpus = torch.from_numpy(synthesize_corpus(CorpusSpec(
+        "agree", corpus_len, cfg.vocab_size, seed=1))).long().to(dev)[None]
+    store = registered_store(cfg, model, params, corpus)
+    prompts, patches, P = prompt_inputs(cfg, dev, B, seed=3)
+    uc = model.init_cache(B, P + PROMPT + 8, torch.float32, dev)
+    logits, _ = model.prefill(params, prompts, uc, store=store,
+                              frontend_embeds=patches, start_pos=corpus_len)
+    stores = {dev: store, torch.device("cpu"): on(torch.device("cpu"), store)}
+    card_vs_cpu(f"{cfg.name} ({cfg.num_layers} layers) {B}-slot fp32 decode "
+                "step", lambda p, t, c, d:
+                dense.decode_step(cfg, p, t, c, store=stores[d])[0],
+                params, params_on_cpu(cfg, params), logits.argmax(-1), uc,
+                dev, tag=tag)
+
+
+def on(device, tensors):
+    """A copy of a cache or store (a NamedTuple of tensors) on ``device``."""
+    return type(tensors)(*[t.to(device, copy=True) if t is not None
+                           else None for t in tensors])
+
+
+def card_vs_cpu(label, step, params, params_cpu, tokens, cache, dev,
+                tag="agree"):
+    """step(params, tokens, cache, device) -> logits, on the card and on
+    the CPU (plain versions), each side from its own copy of the prefilled
+    ``cache``: logits within ``E2E_TOL`` and equal greedy tokens."""
+    cpu = torch.device("cpu")
+    lg_card = step(params, tokens, on(dev, cache), dev).cpu()
+    lg_cpu = step(params_cpu, tokens.cpu(), on(cpu, cache), cpu)
+    err = float((lg_card - lg_cpu).abs().max())
+    same = bool((lg_card.argmax(-1) == lg_cpu.argmax(-1)).all())
+    say(f"[{tag}] {label}, card vs cpu: logits max_abs_err="
+        f"{err:.3e} (tol {E2E_TOL:g}), |logits| max="
+        f"{float(lg_cpu.abs().max()):.3f}, greedy tokens equal={same}")
+    check(err <= E2E_TOL and same, (f"card vs cpu {label}", err, same))
+
+
+def params_on_cpu(cfg, params):
+    """A CPU copy of the card's weights, built without a second card copy
+    (a deep copy would hold both on the card)."""
+    from repro_torch.models import dense
+    out = dense.DenseLM(cfg, torch.device("cpu"))
+    out.load_state_dict({k: v.cpu() for k, v in params.state_dict().items()})
+    return out
 
 
 def _time_ms(fn, n=30, read_flush=False):
@@ -1397,6 +1878,7 @@ def _profile_step(label, step, wall):
     host wait for the card (``torch.cuda.set_sync_debug_mode``). Returns
     the names of the kernels that ran on the card and their launches."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.dense import MOE_RANGE
     torch.cuda.set_sync_debug_mode("warn")
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -1414,8 +1896,11 @@ def _profile_step(label, step, wall):
         step()
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
+    # the MoE FFN's profiler range has spans of its own on the card's
+    # timeline: they are not kernels
     kernels = [e for e in prof.key_averages()
-               if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+               if e.device_type.name == "CUDA" and e.self_device_time_total > 0
+               and e.key != MOE_RANGE]
     busy_us = sum(e.self_device_time_total for e in kernels)
     say(f"[profile] {label}, 64 slots, unprofiled wall (8 runs in turns) "
         f"median={wall * 1e3:.2f} ms; profiled wall="
@@ -1445,24 +1930,36 @@ def main() -> int:
     t0 = time.perf_counter()
     say(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
-    phase_build()
-    errs = phase_check(cfg, dev)
-    counts = phase_serve(cfg)
-    torch.cuda.empty_cache()
-    paged_counts, params, store = phase_paged(cfg, dev)
-    counts["paged_decode_attention"] = paged_counts["paged_decode_attention"]
-    phase_tier(cfg, dev, params)
-    torch.cuda.empty_cache()
-    q8_counts = phase_q8(cfg, dev, params, store)
-    counts["shared_chunk_attention_q8"] = \
-        q8_counts["shared_chunk_attention_q8"]
+
+    def run(phase, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.empty_cache()
+        say(f"[phase] {phase}: {time.perf_counter() - t:.1f} s")
+        return out
+
+    # every phase's launches of each kernel, summed for the JSON line
+    launches = collections.Counter()
+    run("1 build", phase_build)
+    errs = run("2 check", phase_check, cfg, dev)
+    launches.update(run("3 serve", phase_serve, cfg)[0])
+    paged_counts, params, store = run("3b paged", phase_paged, cfg, dev)
+    launches.update(paged_counts)
+    launches.update(run("3h tier", phase_tier, cfg, dev, params))
+    launches.update(run("3c q8", phase_q8, cfg, dev, params, store))
     del params, store
-    torch.cuda.empty_cache()
-    phase_agree(cfg, dev)
-    torch.cuda.empty_cache()
-    rows = phase_time(cfg, dev, counts, errs)
-    torch.cuda.empty_cache()
-    phase_profile(cfg, dev)
+    run("4 agree", phase_agree, cfg, dev)
+    rows = run("5 time", phase_time, cfg, dev, launches, errs)
+    run("6 profile", phase_profile, cfg, dev)
+    # the dense family's other members run last, so that phases 1-6 run as
+    # they did before them: cuBLAS picks its GEMM kernels by what the
+    # process ran before, and phase 6 counts the step's kernels exactly
+    for counts in run("3m moe", phase_moe, dev, errs):
+        launches.update(counts)
+    launches.update(run("3w widths", phase_widths, dev, errs))
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+        row["max_abs_err"] = errs[row["name"]]
     say(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,7 +1,8 @@
 """Config registry: ``get_config(arch_id)`` / ``list_archs()``.
 
-A copy of the reference package's registry, limited to the dense archs
-the port serves. Arch ids use the dashed names (e.g. ``tinyllama-1.1b``).
+A copy of the reference package's registry, limited to the dense-family
+archs the port serves (dense, MoE and VLM). Arch ids use the dashed names
+(e.g. ``tinyllama-1.1b``).
 """
 from __future__ import annotations
 
@@ -9,12 +10,18 @@ import importlib
 from typing import Dict, List
 
 from repro_torch.configs.base import (  # noqa: F401 (public re-exports)
-    DENSE, FAMILIES, MoEConfig, ModelConfig, MoSKAConfig,
+    DENSE, FAMILIES, MOE, VLM, EncoderConfig, MoEConfig, ModelConfig,
+    MoSKAConfig,
 )
 
 _ARCH_MODULES: Dict[str, str] = {
+    "qwen1.5-0.5b": "qwen1_5_0_5b",
     "tinyllama-1.1b": "tinyllama_1_1b",
     "llama3-8b": "llama3_8b",
+    "mistral-large-123b": "mistral_large_123b",
+    "internvl2-76b": "internvl2_76b",
+    "arctic-480b": "arctic_480b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     # the paper's own model
     "moska-llama3.1-8b": "moska_llama31_8b",
 }

@@ -1,0 +1,16 @@
+"""qwen1.5-0.5b — dense GQA decoder with QKV bias [hf:Qwen/Qwen1.5-0.5B]."""
+from repro_torch.configs.base import ModelConfig, DENSE
+
+CONFIG = ModelConfig(
+    name="qwen1.5-0.5b",
+    family=DENSE,
+    num_layers=24,
+    d_model=1024,
+    num_heads=16,
+    num_kv_heads=16,   # MHA (kv=16)
+    d_ff=2816,
+    vocab_size=151936,
+    qkv_bias=True,
+    rope_theta=1_000_000.0,
+    source="hf:Qwen/Qwen1.5-0.5B",
+)

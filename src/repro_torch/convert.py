@@ -2,8 +2,10 @@
 
 Input is the reference ``dense.init_params`` pytree as numpy arrays
 (``jax.tree.map(np.asarray, params)`` on the caller's side), with
-layer-stacked leaves ``(L, ...)``; bfloat16 leaves may arrive as numpy's
-``bfloat16`` extension dtype. The port itself never imports jax.
+layer-stacked leaves ``(L, ...)`` (MoE layers: ``moe.{router, e_gate,
+e_up, e_down}``, and ``mlp`` beside them under a dense residual);
+bfloat16 leaves may arrive as numpy's ``bfloat16`` extension dtype. The
+port itself never imports jax.
 """
 from __future__ import annotations
 
@@ -41,7 +43,8 @@ def from_reference_params(cfg: ModelConfig, tree: dict,
         _copy(model.unembed["unembed"], tree["unembed"]["unembed"])
     stacked = tree["layers"]
     for i, lp in enumerate(model.layers):
-        for group in ("ln1", "ln2", "attn", "mlp"):
-            for name, p in getattr(lp, group).items():
+        # ln1, ln2, attn, and mlp and/or moe (the router stays fp32)
+        for group, pd in lp.named_children():
+            for name, p in pd.items():
                 _copy(p, np.asarray(stacked[group][name])[i])
     return model

@@ -11,8 +11,9 @@
 
 Registers a synthetic domain corpus (precomputed shared KV chunks),
 submits a stream of requests against it, and reports throughput, latency,
-memory, kernel-launch counts and, with the paged layout, the host tier's
-and the async pipeline's counters. The default is the reduced config; pass
+memory, kernel-launch counts, for an MoE arch the expert slots kept and
+dropped, and, with the paged layout, the host tier's and the async
+pipeline's counters. The default is the reduced config; pass
 ``--full`` for the unreduced architecture. ``--device cuda`` (the default)
 fails when no card is present. Weights are random, from ``--seed``.
 """
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 import json
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -27,7 +29,7 @@ import torch
 from repro_torch import obs
 from repro_torch.configs import get_config
 from repro_torch.core.analytical import size_host_pool_blocks
-from repro_torch.core.scheduler import wave_stats
+from repro_torch.core.scheduler import Request, wave_stats
 from repro_torch.data.pipeline import CorpusSpec, synthesize_corpus
 from repro_torch.kernels import ops
 from repro_torch.models.dense import torch_dtype
@@ -36,6 +38,13 @@ from repro_torch.serving.engine import EngineConfig, ServingEngine
 
 
 def main(argv=None) -> dict:
+    """Run the launcher on ``argv``; returns its summary."""
+    return serve(argv)[0]
+
+
+def serve(argv=None) -> Tuple[dict, List[Request]]:
+    """Run the launcher on ``argv``; returns (its summary, the finished
+    requests with their generations)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--full", action="store_true",
@@ -186,6 +195,11 @@ def main(argv=None) -> dict:
         "kernel_launches": ops.launch_counts(),
         "wave": wave_stats(done),
     }
+    if cfg.moe.enabled:
+        kept = int(reg.counter("moe/dispatched_slots").value)
+        summary["moe_dispatched_slots"] = kept
+        summary["moe_dropped_slots"] = int(
+            reg.counter("moe/routed_slots").value) - kept
     if args.kv_layout == "paged":
         for name in ("kvcache/prefix_hits", "kvcache/cow_copies",
                      "kvcache/blocks_appended", "kvcache/pool_growths",
@@ -209,7 +223,7 @@ def main(argv=None) -> dict:
     if args.metrics_out:
         obs.dump(args.metrics_out, reg)
         print(f"metrics registry -> {args.metrics_out}")
-    return summary
+    return summary, list(done)
 
 
 if __name__ == "__main__":

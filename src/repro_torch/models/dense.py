@@ -1,7 +1,12 @@
-"""Dense / GQA decoder: prefill and decode with the MoSKA mixture.
+"""Dense / GQA decoder: prefill and decode with the MoSKA mixture; covers
+the dense, VLM and MoE families.
 
-Port of the dense branch of the reference ``models/dense.py``: pre-norm
-transformer with RoPE, GQA attention and a SwiGLU FFN. Parameters live in
+Port of the reference ``models/dense.py``: pre-norm transformer with
+RoPE, GQA attention and a SwiGLU FFN, or the capacity-dispatch MoE FFN of
+``models/moe.py`` (with Arctic's dense residual beside it). VLM
+(internvl2): the stub vision frontend's patch embeddings (B, P, d_model)
+are put in front of the token embeddings (``prefill(frontend_embeds=)``);
+no cross-attention. Parameters live in
 a :class:`DenseLM` module (an ``nn.ModuleList`` of layers); the layers run
 as a Python loop. When a ``SharedKVStore`` is attached, each layer routes
 its queries over that layer's shared chunks and merges the batched shared
@@ -18,6 +23,7 @@ entry point returns the cache it was given, updated.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -34,6 +40,7 @@ from repro_torch.kernels import ops
 from repro_torch.kvcache.cache import KVCache, append_token, write_prefix
 from repro_torch.kvcache.paged import PagedKVCache, append_layer
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -64,9 +71,17 @@ class DenseLayer(nn.Module):
                         bk=_param((hkv,), dt, device),
                         bv=_param((hkv,), dt, device))
         self.attn = nn.ParameterDict(attn)
-        self.mlp = nn.ParameterDict({"w_gate": _param((d, f), dt, device),
-                                     "w_up": _param((d, f), dt, device),
-                                     "w_down": _param((f, d), dt, device)})
+        if cfg.moe.enabled:
+            E = cfg.moe.num_experts
+            self.moe = nn.ParameterDict({
+                "router": _param((d, E), torch.float32, device),
+                "e_gate": _param((E, d, f), dt, device),
+                "e_up": _param((E, d, f), dt, device),
+                "e_down": _param((E, f, d), dt, device)})
+        if not cfg.moe.enabled or cfg.moe.dense_residual:
+            self.mlp = nn.ParameterDict({"w_gate": _param((d, f), dt, device),
+                                         "w_up": _param((d, f), dt, device),
+                                         "w_down": _param((f, d), dt, device)})
 
 
 class DenseLM(nn.Module):
@@ -74,9 +89,6 @@ class DenseLM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.moe.enabled:
-            raise NotImplementedError(
-                "MoE FFNs are ported in a later slice of the port")
         dt = torch_dtype(cfg.dtype)
         V, d = cfg.vocab_size, cfg.d_model
         self.embed = nn.ParameterDict({"embed": _param((V, d), dt, device)})
@@ -96,8 +108,8 @@ class DenseLM(nn.Module):
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> DenseLM:
     """Random weights with the reference's distributions: normal
-    embeddings and projections scaled by 1/sqrt(fan_in), zero norms and
-    biases. ``generator`` must live on ``device``."""
+    embeddings and projections scaled by 1/sqrt(fan_in) (the MoE router
+    fp32), zero norms and biases. ``generator`` must live on ``device``."""
     model = DenseLM(cfg, device)
     d, f = cfg.d_model, cfg.d_ff
 
@@ -114,9 +126,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 p.zero_()
             else:
                 normal_(p, 1 / math.sqrt(d))
-        normal_(lp.mlp["w_gate"], 1 / math.sqrt(d))
-        normal_(lp.mlp["w_up"], 1 / math.sqrt(d))
-        normal_(lp.mlp["w_down"], 1 / math.sqrt(f))
+        if cfg.moe.enabled:
+            moe_lib.moe_init(lp.moe, generator, d, f)
+        if hasattr(lp, "mlp"):
+            normal_(lp.mlp["w_gate"], 1 / math.sqrt(d))
+            normal_(lp.mlp["w_up"], 1 / math.sqrt(d))
+            normal_(lp.mlp["w_down"], 1 / math.sqrt(f))
     model.final_norm["scale"].zero_()
     if model.unembed is not None:
         normal_(model.unembed["unembed"], 1 / math.sqrt(d))
@@ -138,13 +153,37 @@ def _qkv_rope(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
             L.apply_rope(k, positions, cfg.rope_theta), v)
 
 
+#: the profiler range around each MoE FFN call, opened only while a
+#: profiler runs (a profile attributes device time to it)
+MOE_RANGE = "moe_ffn"
+
+
+def _ffn(cfg: ModelConfig, lp: DenseLayer, x: torch.Tensor,
+         rec: Optional[obs.DeviceRecorder] = None) -> torch.Tensor:
+    """x: (..., d) -> the FFN's output: SwiGLU, or the MoE FFN over every
+    row handed in as one batch of tokens (its capacity counts them all),
+    plus Arctic's dense residual. Serving drops the MoE aux loss, so it is
+    not computed."""
+    if not cfg.moe.enabled:
+        return L.swiglu_mlp(x, lp.mlp)
+    with (torch.profiler.record_function(MOE_RANGE)
+          if torch.autograd._profiler_enabled() else contextlib.nullcontext()):
+        y, _ = moe_lib.moe_ffn(x.reshape(-1, x.shape[-1]), lp.moe, cfg.moe,
+                               rec=rec, with_aux=False)
+    y = y.view(x.shape)
+    if cfg.moe.dense_residual:
+        y = y + L.swiglu_mlp(x, lp.mlp)
+    return y
+
+
 def _attn_out_mlp(cfg: ModelConfig, x: torch.Tensor, o: torch.Tensor,
-                  lp: DenseLayer) -> torch.Tensor:
+                  lp: DenseLayer,
+                  rec: Optional[obs.DeviceRecorder] = None) -> torch.Tensor:
     """Residual output projection of the attention o ((B, S, H, D) or
-    (B, H, D)), then the residual SwiGLU block."""
+    (B, H, D)), then the residual FFN block."""
     x = x + o.reshape(*o.shape[:-2], -1) @ lp.attn["wo"]
     h2 = L.rms_norm(x, lp.ln2["scale"], cfg.rms_eps)
-    return x + L.swiglu_mlp(h2, lp.mlp)
+    return x + _ffn(cfg, lp, h2, rec)
 
 
 class SharedLayer(NamedTuple):
@@ -219,7 +258,7 @@ def _layer_prefill(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
     else:
         o = L.flash_attention(q, k, v, causal=True, q_offset=q_offset,
                               kv_offset=q_offset, window=cfg.attn_window)
-    return _attn_out_mlp(cfg, x, o, lp)
+    return _attn_out_mlp(cfg, x, o, lp, rec)
 
 
 def _layer_decode(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
@@ -238,7 +277,7 @@ def _layer_decode(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
                                   _decode_context(cfg, q, shared), cfg.moska,
                                   window=cfg.attn_window,
                                   layer_idx=layer_idx, rec=rec)
-    return _attn_out_mlp(cfg, x, o, lp)
+    return _attn_out_mlp(cfg, x, o, lp, rec)
 
 
 def _layer_decode_paged(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
@@ -263,7 +302,7 @@ def _layer_decode_paged(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
                                             window=cfg.attn_window)
     o = MA.moska_decode_merge(q, o_u, lse_u, _decode_context(cfg, q, shared),
                               cfg.moska, layer_idx=layer_idx, rec=rec)
-    return _attn_out_mlp(cfg, x, o, lp)
+    return _attn_out_mlp(cfg, x, o, lp, rec)
 
 
 def _layer_prefill_chunk(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
@@ -290,7 +329,7 @@ def _layer_prefill_chunk(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
                 kv_len=base + chunk_len, window=cfg.attn_window)
     if shared is None:
         return _attn_out_mlp(cfg, x, L.flash_attention(q, kc, vc, **attn),
-                             lp)
+                             lp, rec)
     rb = min(128, C)
     routing = router_lib.route(_pooled_queries(q, chunk_len, rb),
                                shared.emb, cfg.moska.top_k_chunks)
@@ -301,7 +340,7 @@ def _layer_prefill_chunk(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
         k_scale=shared.k_scale, v_scale=shared.v_scale, rec=rec)
     o, _ = L.merge_partial_attention([o_u, part.out.reshape(B, C, H, D)],
                                      [lse_u, part.lse.reshape(B, C, H)])
-    return _attn_out_mlp(cfg, x, o, lp)
+    return _attn_out_mlp(cfg, x, o, lp, rec)
 
 
 # ---------------------------------------------------------------------------
@@ -316,9 +355,21 @@ def _logits(cfg: ModelConfig, params: DenseLM, x: torch.Tensor
     return x.float() @ params.unembed_matrix().float().T
 
 
+def embed_inputs(cfg: ModelConfig, params: DenseLM, tokens: torch.Tensor,
+                 frontend_embeds: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """Token embeddings (B, S, d), with the frontend's (B, P, d) patch
+    embeddings in front when given: (B, P + S, d)."""
+    x = params.embed["embed"][tokens]
+    if frontend_embeds is not None:
+        x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
+    return x
+
+
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params: DenseLM, tokens: torch.Tensor,
             cache: KVCache, store: Optional[SharedKVStore] = None,
+            frontend_embeds: Optional[torch.Tensor] = None,
             start_pos: int = 0, true_len: Optional[int] = None,
             rec: Optional[obs.DeviceRecorder] = None
             ) -> Tuple[torch.Tensor, KVCache]:
@@ -326,9 +377,13 @@ def prefill(cfg: ModelConfig, params: DenseLM, tokens: torch.Tensor,
 
     ``true_len``: real prompt length when ``tokens`` is right-padded to a
     prefill bucket — logits are taken at position ``true_len - 1`` and the
-    cache lengths record ``true_len``.
+    cache lengths record ``true_len``. Not supported together with
+    ``frontend_embeds``, whose P patches take positions ``start_pos ..
+    start_pos + P - 1`` ahead of the tokens (the cache holds P + S).
     """
-    x = params.embed["embed"][tokens]
+    if true_len is not None and frontend_embeds is not None:
+        raise ValueError("true_len is not supported with frontend_embeds")
+    x = embed_inputs(cfg, params, tokens, frontend_embeds)
     B, S, _ = x.shape
     positions = start_pos + torch.arange(S, device=x.device)
     use_store = store is not None and cfg.moska.enabled

@@ -1,13 +1,16 @@
 """Model facade: one API over the family implementations.
 
-Port of the reference ``models/model.py``; this slice carries the dense
-family, with the slotted and the paged unique-KV layouts. Other families
-(SSM, hybrid, enc-dec, VLM, MoE) come in later slices of the port.
+Port of the reference ``models/model.py``. The port carries the dense
+family (dense, VLM and MoE, all in ``models/dense.py``), with the slotted
+and the paged unique-KV layouts. The other families (SSM, hybrid,
+enc-dec) come in later slices of the port.
 
     model = build_model(cfg)
     params = model.init(torch.Generator(device).manual_seed(0), device)
     cache = model.init_cache(batch_size, max_seq, device=device)
     logits, cache = model.prefill(params, tokens, cache, store=...)
+    logits, cache = model.prefill(params, tokens, cache,
+                                  frontend_embeds=...)     # VLM
     logits, cache = model.decode_step(params, tokens, cache, store=...)
     pool = model.init_paged_cache(num_blocks, block_size, device=device)
     logits, pool = model.decode_step_paged(params, tokens, pool, table,
@@ -27,10 +30,10 @@ from repro_torch.models import dense
 
 class Model:
     def __init__(self, cfg: ModelConfig):
-        if cfg.family != DENSE or cfg.moe.enabled:
+        if cfg.family not in (DENSE, VLM, MOE):
             raise NotImplementedError(
                 f"family {cfg.family!r} is ported in a later slice of the "
-                "port; this slice serves the dense family")
+                "port; the port serves the dense family (dense, VLM, MoE)")
         self.cfg = cfg
 
     def init(self, generator: torch.Generator, device=None) -> dense.DenseLM:
@@ -42,9 +45,14 @@ class Model:
         return init_kv_cache(cfg.num_layers, batch, max_seq,
                              cfg.num_kv_heads, cfg.head_dim, dtype, device)
 
-    def prefill(self, params, tokens, cache, store=None, start_pos: int = 0,
-                true_len=None, rec=None):
+    def prefill(self, params, tokens, cache, store=None,
+                frontend_embeds=None, start_pos: int = 0, true_len=None,
+                rec=None):
+        # frontend_embeds: the VLM's stub patch embeddings (B, P, d_model)
+        if self.cfg.family != VLM:
+            frontend_embeds = None
         return dense.prefill(self.cfg, params, tokens, cache, store=store,
+                             frontend_embeds=frontend_embeds,
                              start_pos=start_pos, true_len=true_len, rec=rec)
 
     def decode_step(self, params, tokens, cache, store=None, positions=None,

@@ -239,8 +239,9 @@ class DeviceRecorder:
     """Queue of metric records whose values are 0-d device tensors.
 
     ``inc``/``observe`` only keep a reference to the tensor (no sync);
-    ``flush`` stacks every pending value, copies them to the host in one
-    transfer and applies them to a registry in the order they were queued.
+    ``flush`` stacks every pending tensor, copies them to the host in one
+    transfer and applies every value to a registry in the order they were
+    queued. A value that is a host number is applied as it is.
     """
 
     def __init__(self):
@@ -262,8 +263,11 @@ class DeviceRecorder:
         import torch
         reg = reg if reg is not None else get_registry()
         pending, self._pending = self._pending, []
-        vals = torch.stack([torch.as_tensor(v).float().reshape(())
-                            for _, _, _, v in pending]).tolist()
+        dev = [v for _, _, _, v in pending if isinstance(v, torch.Tensor)]
+        host = iter(torch.stack([v.float().reshape(()) for v in dev]).tolist()
+                    if dev else ())
+        vals = [next(host) if isinstance(v, torch.Tensor) else v
+                for _, _, _, v in pending]
         for (kind, name, edges, _), v in zip(pending, vals):
             if kind == "inc":
                 reg.inc(name, v)

@@ -54,7 +54,10 @@ def _close(got, want, tol):
 # chunks, capacity 32, tinyllama's 32 heads over 4 kv heads), the routed
 # prefill's (2 groups of 128 queries x top-8, capacity 8 slots of 128
 # rows), a case with a chunk of no valid slot and a chunk of a single one,
-# and D = 16 and 128 with C not a multiple of the 64-key tile.
+# and D = 16 and 128 with C not a multiple of the 64-key tile; then the
+# dense family's served groupings at small E and C: granite's (16 heads
+# over 8 kv heads, G = 2), qwen's (MHA, G = 1), internvl2's (G = 8 at
+# D = 128) and mistral-large's (G = 12 at D = 128).
 SHARED_SHAPES = [
     (3, 8, 4, 2, 32, 64),
     (2, 16, 8, 8, 64, 128),
@@ -67,6 +70,10 @@ SHARED_SHAPES = [
     (3, 8, 8, 2, 64, 100),      # chunks of 0, 1 and 2 valid slots
     (3, 24, 8, 2, 16, 100),
     (2, 16, 8, 2, 128, 200),
+    (4, 16, 16, 8, 64, 128),    # granite, G = 2
+    (4, 16, 16, 16, 64, 128),   # qwen, G = 1
+    (3, 8, 64, 8, 128, 100),    # internvl2, G = 8, D = 128
+    (3, 8, 96, 8, 128, 100),    # mistral-large, G = 12, D = 128
 ]
 # Where a shape is named here, chunk e has its first (e % 3) * width slots
 # valid and no other (the routed prefill fills each chunk's slots from 0:
@@ -132,7 +139,11 @@ DECODE_LENS = {
     (2, 64, 4, 64, 200),        # G = 16: two blocks per kv head
     (2, 64, 1, 32, 70),         # G = 64, the most the kernels take
     (3, 6, 2, 32, 70),          # G = 3: a masked row in the block
-])
+    (3, 16, 8, 64, 100),        # granite, G = 2
+    (3, 16, 16, 64, 100),       # qwen, G = 1
+    (2, 64, 8, 128, 130),       # internvl2, G = 8, D = 128
+    (2, 96, 8, 128, 130),       # mistral-large, G = 12: a second block
+])                              # per kv head with 4 of 8 heads live
 def test_decode_attention_kernel(cuda, dtype, B, H, KH, D, S):
     g = np.random.default_rng(1)
     q = _randn(g, (B, H, D), dtype, cuda)
@@ -228,6 +239,10 @@ SLAB_LEN = {
     (7, 32, 4, 64, 240, 16, 32),   # every split and tile edge, and M * bs
     (2, 32, 4, 64, 520, 16, 256),  # a long cache: 4,096 positions
     (3, 32, 8, 128, 40, 16, 8),    # llama3's grouping, G = 4, D = 128
+    (3, 16, 8, 64, 20, 16, 6),     # granite, G = 2
+    (3, 16, 16, 64, 20, 16, 6),    # qwen, G = 1
+    (2, 64, 8, 128, 20, 16, 8),    # internvl2, G = 8, D = 128
+    (2, 96, 8, 128, 20, 16, 8),    # mistral-large, G = 12, D = 128
 ])
 def test_paged_decode_attention_kernel(cuda, dtype, B, H, KH, D, N, bs, M):
     """Against the plain version (gather + decode), and bit for bit
@@ -338,7 +353,11 @@ def test_shared_chunk_attention_q8_kernel(cuda, dtype, E, cap, H, KH, D, C):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("P,N,H,D", [(2, 64, 4, 32), (3, 7, 2, 16),
-                                     (4, 128, 8, 64), (8, 64, 32, 64)])
+                                     (4, 128, 8, 64), (8, 64, 32, 64),
+                                     # granite's and qwen's 16 heads of
+                                     # 64, internvl2's and mistral's
+                                     (8, 16, 16, 64), (8, 8, 64, 128),
+                                     (8, 8, 96, 128)])
 def test_lse_merge_kernel(cuda, dtype, P, N, H, D):
     """The dense entry against its plain version; the pair entry on the
     first two partials equals the dense entry on them stacked, bitwise."""
@@ -370,6 +389,9 @@ ROUTED_SHAPES = [
     (64, 1, 32, 128, 16, 8),
     (10, 3, 2, 16, 4, 3),
     (7, 1, 6, 32, 5, 9),          # K > 8: two batches of partials
+    (192, 1, 16, 64, 16, 8),      # granite's and qwen's heads
+    (48, 1, 64, 128, 4, 8),       # internvl2's
+    (48, 1, 96, 128, 4, 8),       # mistral-large's
 ]
 
 
@@ -409,6 +431,10 @@ ROUTER_SHAPES = [
     (6, 8, 8, 32, 40),          # KH = H
     (16, 8, 2, 16, 24), (16, 32, 8, 128, 64),
     (7, 8, 2, 16, 9),           # misaligned: scalar loads
+    (16, 16, 8, 64, 16),        # granite, G = 2
+    (16, 16, 16, 64, 16),       # qwen, G = 1
+    (8, 64, 8, 128, 8),         # internvl2, G = 8, D = 128
+    (8, 96, 8, 128, 8),         # mistral-large, G = 12, D = 128
 ]
 ROUTER_OFFSET = {(7, 8, 2, 16, 9)}
 
@@ -467,6 +493,45 @@ def test_dense_decode_step_card_matches_cpu(cuda):
     on_cpu = run(torch.device("cpu"))
     for a, b in zip(on_card, on_cpu):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "arctic-480b"])
+def test_moe_decode_step_card_matches_cpu(cuda, arch):
+    """A reduced fp32 MoE model with granite's G = 2 (Arctic: its dense
+    residual beside the experts): prefill and two MoSKA decode steps on
+    the card (kernels, the expert dispatch on the card) and on the CPU
+    (plain versions) give the same logits and greedy tokens."""
+    base = get_config(arch).reduced()
+    cfg = dataclasses.replace(base, dtype="float32", num_kv_heads=2)
+    params = dense.init_params(cfg, torch.Generator().manual_seed(1))
+    g = np.random.default_rng(6)
+    corpus = torch.from_numpy(g.integers(0, cfg.vocab_size, (1, 256)))
+    prompts = torch.from_numpy(g.integers(0, cfg.vocab_size, (4, 24)))
+
+    def run(device):
+        p = copy.deepcopy(params).to(device)
+
+        def cache(batch, max_seq):
+            return init_kv_cache(cfg.num_layers, batch, max_seq,
+                                 cfg.num_kv_heads, cfg.head_dim,
+                                 torch.float32, device)
+
+        cc = cache(1, 256)
+        dense.prefill(cfg, p, corpus.to(device), cc)
+        store = build_store(cc.k[:, 0], cc.v[:, 0], cfg.moska.chunk_size)
+        c = cache(4, 32)
+        out = [dense.prefill(cfg, p, prompts.to(device), c, store=store,
+                             start_pos=256)[0]]
+        for _ in range(2):
+            out.append(dense.decode_step(cfg, p, out[-1].argmax(-1), c,
+                                         store=store)[0])
+        return [x.cpu() for x in out]
+
+    on_card = run(cuda)
+    on_cpu = run(torch.device("cpu"))
+    for a, b in zip(on_card, on_cpu):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+        assert torch.equal(a.argmax(-1), b.argmax(-1))
 
 
 def test_paged_decode_step_and_int8_store_card_match_cpu(cuda):

@@ -490,6 +490,12 @@ def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((ROOT / "src/repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    # the new modules of the dense family's slice, examples included
+    for rel in ("models/moe.py", "examples/quickstart.py",
+                "examples/serve_shared_corpus.py",
+                "examples/long_context_decode.py",
+                "configs/granite_moe_1b_a400m.py"):
+        assert ROOT / "src/repro_torch" / rel in files, rel
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
