@@ -84,6 +84,25 @@ Phases, each printed as it runs; any failure exits non-zero:
             of 16 requests and 16 decode steps through ``Model`` with exact
             launch counts; an fp32 decode step of 4 slots card vs CPU
             (mistral and internvl2 with 1 layer).
+  3f. families the SSM, hybrid and enc-dec families at full width and
+            depth, bf16, seeded weights: mamba2-130m (24 layers, d_model
+            768) serves phase 3's 128 requests through ``ServingEngine``
+            with no corpus, then a ``shared_state`` warm start from 16,384
+            corpus tokens tiled to 64 requests, prefilled and decoded 16
+            steps; recurrentgemma-9b (38 layers, d_model 4,096, 9.57 B
+            parameters) serves 64 requests of 256 and 2,040 prompt tokens,
+            32 new each (its 2,048-key rings wrap); whisper-tiny: 64
+            requests of 16 tokens behind one audio's 1,500 stub frames, 32
+            decode steps with the cross-attention routed over a store of
+            that audio's cross K/V (4 chunks of 375, top-2) and 32 without
+            it, after each of its kernels was held against its plain
+            version at those shapes (C 375, E 4, H = KH = 6, decode over
+            1,500 frames). Launches exact (none for mamba2 and
+            recurrentgemma); an fp32 decode step of each on the card
+            against the CPU within 1e-3, equal greedy tokens
+            (recurrentgemma with one cycle of 3 layers). One decode step of
+            each family profiled as in phase 6 (whisper's with and without
+            the store).
   4. agree  one decode step of 8 slots on the card, and the same step on the
             CPU (plain versions) from copies of the same weights, store and
             cache, in fp32: logits within 1e-3 and equal greedy tokens; the
@@ -110,8 +129,8 @@ Phases, each printed as it runs; any failure exits non-zero:
             ``STEP_LAUNCHES`` (printed beside 2,547 and 2,787, the counts
             before the merge's routed and pair entries).
 
-Phases 3m and 3w run last, after phase 6, so that phases 1-6 run as they
-ran before them (cuBLAS picks GEMM kernels by what the process ran
+Phases 3m, 3w and 3f run last, after phase 6, so that phases 1-6 run as
+they ran before them (cuBLAS picks GEMM kernels by what the process ran
 earlier, and phase 6 counts kernels exactly). Each phase prints its
 seconds. It then prints the kernels' JSON line (each
 kernel's launches summed over every phase), the card's name and power
@@ -179,6 +198,13 @@ MOE_ARGV[MOE_ARGV.index("--corpus-tokens") + 1] = str(MOE_CORPUS)
 WIDTH_ARCHS = (("qwen1.5-0.5b", None), ("mistral-large-123b", 2),
                ("internvl2-76b", 2))
 WIDTH_CORPUS, WIDTH_REQUESTS, WIDTH_STEPS = 16384, 16, 16
+
+# phase 3f: the SSM, hybrid and enc-dec families at full width and depth
+SSM_ARCH, HYBRID_ARCH, AUDIO_ARCH = ("mamba2-130m", "recurrentgemma-9b",
+                                     "whisper-tiny")
+SSM_REQUESTS, SSM_CORPUS, SSM_WARM_STEPS = 128, 16384, 16
+HYBRID_REQUESTS, HYBRID_PROMPTS = 64, (256, 2040)
+AUDIO_REQUESTS, AUDIO_PROMPT, AUDIO_STEPS = 64, 16, 32
 
 # phase 3h: the host tier's stream, pool and tier
 TIER_CORPUS, TIER_PROMPTS = 16384, 128
@@ -1459,8 +1485,291 @@ def agree_arch(cfg, dev, B, corpus_len, tag):
                 dev, tag=tag)
 
 
+def phase_families(dev, errs):
+    """Phase 3f: the SSM, hybrid and enc-dec families at full width and
+    depth, bf16 with seeded random weights. mamba2-130m: 128 requests of
+    256 tokens (32 new, 64 slots) through ``ServingEngine``, then a
+    ``shared_state`` warm start from a 16,384-token corpus tiled to 64
+    requests, prefilled and decoded 16 steps through ``Model``.
+    recurrentgemma-9b: 64 requests through ``ServingEngine``, half of 256
+    and half of 2,040 prompt tokens, 32 new each (the ring wraps in
+    decode). whisper-tiny: one audio's 1,500 stub frames behind 64
+    requests of 16 tokens, 32 decode steps through ``Model`` with the
+    cross-attention routed over a store of that audio's cross K/V (4
+    chunks of 375, top-2), and again without the store. Every kernel's
+    launches are exact (none for mamba2 and recurrentgemma); whisper's
+    kernels are held against their plain versions at its shapes first;
+    each arch ends with an fp32 decode step on the card against the CPU
+    (recurrentgemma with one cycle of its 38 layers). ``errs`` takes the
+    bf16 errors. Returns the launch counts, summed."""
+    from repro_torch.configs import get_config
+    total = collections.Counter()
+    for arch, run_arch in ((SSM_ARCH, family_ssm),
+                           (HYBRID_ARCH, family_hybrid),
+                           (AUDIO_ARCH, family_audio)):
+        t0 = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        total.update(run_arch(get_config(arch), dev, errs))
+        torch.cuda.empty_cache()
+        say(f"[families] {arch}: {time.perf_counter() - t0:.1f} s")
+    return dict(total)
+
+
+def serve_state_family(cfg, dev, prompts, max_seq):
+    """``ServingEngine`` (slotted, no corpus) over ``prompts``, NEW_TOKENS
+    new tokens each on SLOTS slots, with no kernel launched; then one
+    decode step of the engine's batch state profiled as in phase 6.
+    Returns (model, params)."""
+    from repro_torch import obs
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    reg = obs.MetricsRegistry()
+    prev = obs.set_registry(reg)
+    try:
+        eng = ServingEngine(cfg, params, EngineConfig(
+            max_slots=SLOTS, max_seq=max_seq, cache_dtype=torch.bfloat16))
+        for p in prompts:
+            eng.submit(p, max_new_tokens=NEW_TOKENS)
+        ops.reset_launches()
+        done = list(eng.run())
+        counts = ops.launch_counts()
+    finally:
+        obs.set_registry(prev)
+    say(f"[families] {cfg.name} served: launches {json.dumps(counts)}")
+    check(not any(counts.values()), (cfg.name, "launches", counts))
+    check(len(done) == len(prompts) and
+          all(len(r.generated) == NEW_TOKENS and
+              all(0 <= t < cfg.vocab_size for t in r.generated)
+              for r in done), (cfg.name, "served", len(done)))
+    say(f"[families] {cfg.name} ({cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}): {len(done)} requests of "
+        f"{sorted({len(p) for p in prompts})} prompt tokens, {NEW_TOKENS} "
+        f"new, {SLOTS} slots: decode steps {eng.metrics['decode_steps']}, "
+        f"decode step p50 {np.median(eng.metrics['decode_step_s']):.4f} s, "
+        f"tokens/s {reg.gauge('engine/last_run_tokens_per_s').value:.1f}, "
+        f"wall {eng.metrics['wall_s']:.2f} s, batch state "
+        f"{int(reg.gauge('engine/decode_cache_bytes').value)} B, peak device "
+        f"memory {torch.cuda.max_memory_allocated(dev)} B")
+    tokens = torch.randint(0, cfg.vocab_size, (SLOTS,), device=dev)
+    profile_family_step(f"{cfg.name} decode step", lambda: model.decode_step(
+        params, tokens, eng._cache))
+    return model, params
+
+
+def profile_family_step(label, step):
+    """``_profile_step`` of one decode step of a family (its unprofiled
+    wall the median of 8)."""
+    for _ in range(2):
+        step()
+    walls = []
+    for _ in range(8):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    _profile_step(label, step, float(np.median(walls)))
+
+
+def family_ssm(cfg, dev, errs):
+    """mamba2-130m: served, then the warm start through ``Model``, then the
+    fp32 card-vs-CPU step."""
+    from repro_torch.data.pipeline import CorpusSpec, synthesize_corpus
+    from repro_torch.kernels import ops
+    from repro_torch.models import ssm
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    prompts = torch.randint(0, cfg.vocab_size, (SSM_REQUESTS, PROMPT),
+                            generator=g, device=dev).tolist()
+    model, params = serve_state_family(cfg, dev, prompts, 512)
+    corpus = torch.from_numpy(synthesize_corpus(CorpusSpec(
+        cfg.name, SSM_CORPUS, cfg.vocab_size, seed=0))).long().to(dev)[None]
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    state = ssm.shared_state(cfg, params, corpus)["state"]
+    torch.cuda.synchronize()
+    corpus_s = time.perf_counter() - t0
+    warm = {"state": state.expand(-1, SLOTS, -1, -1, -1).contiguous()}
+    prompts = torch.tensor(prompts[:SLOTS], device=dev)
+    cache = model.init_cache(SLOTS, PROMPT + SSM_WARM_STEPS, torch.bfloat16,
+                             dev)
+    logits, _ = model.prefill(params, prompts, cache, store=warm,
+                              start_pos=SSM_CORPUS)
+    walls = []
+    for _ in range(SSM_WARM_STEPS):
+        t0 = time.perf_counter()
+        logits, _ = model.decode_step(params, logits.argmax(-1), cache)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    counts = ops.launch_counts()
+    check(not any(counts.values()), ("ssm warm start launches", counts))
+    check(bool(torch.isfinite(logits).all()) and
+          tuple(logits.shape) == (SLOTS, cfg.vocab_size),
+          ("ssm warm start logits", tuple(logits.shape)))
+    say(f"[families] {cfg.name} warm start: shared_state of {SSM_CORPUS} "
+        f"corpus tokens {corpus_s:.2f} s, state "
+        f"{state.numel() * state.element_size()} B, tiled to {SLOTS}; "
+        f"{SSM_WARM_STEPS} decode steps p50 {np.median(walls):.4f} s")
+    del params, cache, warm
+    torch.cuda.empty_cache()
+    agree_family(cfg, dev, 8, PROMPT)
+    return counts
+
+
+def family_hybrid(cfg, dev, errs):
+    """recurrentgemma-9b: served (prompts of 256 and 2,040 tokens), then
+    the fp32 card-vs-CPU step with one cycle of layers."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    n = HYBRID_REQUESTS // 2
+    prompts = [torch.randint(0, cfg.vocab_size, (length,), generator=g,
+                             device=dev).tolist()
+               for length in [HYBRID_PROMPTS[0]] * n + [HYBRID_PROMPTS[1]] * n]
+    max_seq = HYBRID_PROMPTS[1] + NEW_TOKENS + 8
+    check(HYBRID_PROMPTS[1] + NEW_TOKENS > cfg.hybrid.window,
+          ("the ring does not wrap", HYBRID_PROMPTS))
+    _, params = serve_state_family(cfg, dev, prompts, max_seq)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    agree_family(dataclasses.replace(cfg, num_layers=len(cfg.hybrid.pattern)),
+                 dev, 4, PROMPT)
+    return dict.fromkeys(SOURCES, 0)
+
+
+def family_audio(cfg, dev, errs):
+    """whisper-tiny through ``Model``: its kernels at its shapes, the
+    prefill of 64 requests behind one audio, 32 decode steps routed over
+    the audio's store and 32 without it, each with exact launches; then
+    the fp32 card-vs-CPU step over the store."""
+    from repro_torch.core.shared_kv import build_store
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+
+    F_, B, S, steps = (cfg.encoder.frontend_seq, AUDIO_REQUESTS,
+                       AUDIO_PROMPT, AUDIO_STEPS)
+    bf16, fp32 = torch.bfloat16, torch.float32
+    slab = S + steps
+    self_attn = dict(corpus=F_, slots=B, slab=slab, lens=(S + 1, slab + 1))
+    cross = dict(corpus=F_, slots=B, slab=F_, lens=(F_, F_ + 1))
+    agree = dict(corpus=F_, slots=8, slab=S + 8, lens=(S + 1, S + 2))
+    check_kernels_at(cfg, dev, "families", errs, WIDTH_KERNELS,
+                     decodes=[(bf16, self_attn), (bf16, cross),
+                              (fp32, self_attn), (fp32, cross),
+                              (fp32, agree), (fp32, dict(agree, slab=F_,
+                                                         lens=(F_, F_ + 1)))])
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    frames, prompts = audio_inputs(cfg, dev, B, S, seed=2)
+    cache = model.init_cache(B, slab, bf16, dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    logits, _ = model.prefill(params, prompts, cache, frontend_embeds=frames)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    check(not any(ops.launch_counts().values()), "whisper prefill launches")
+    store = build_store(cache["cross_k"][:, 0], cache["cross_v"][:, 0],
+                        cfg.moska.chunk_size)
+    check(store.num_chunks == F_ // cfg.moska.chunk_size and
+          all(store.k[i].is_contiguous() and store.v[i].is_contiguous()
+              for i in range(cfg.num_layers)), "whisper store layout")
+    no_store_cache = {k: t.clone() for k, t in cache.items()}
+    total = collections.Counter()
+    L = cfg.num_layers
+    for label, st, c in (("store", store, cache),
+                         ("no store", None, no_store_cache)):
+        ops.reset_launches()
+        tok, walls = logits.argmax(-1), []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            out, _ = model.decode_step(params, tok, c, store=st)
+            tok = out.argmax(-1)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        counts = ops.launch_counts()
+        want = dict.fromkeys(SOURCES, 0)
+        if st is None:
+            want["decode_attention"] = 2 * L * steps
+        else:
+            want.update({k: L * steps for k in WIDTH_KERNELS})
+        say(f"[families] {cfg.name} {label}: launches {json.dumps(counts)}")
+        check(counts == want, (cfg.name, label, "launches", counts, want))
+        check(bool(torch.isfinite(out).all()) and
+              tuple(out.shape) == (B, cfg.vocab_size),
+              (cfg.name, label, "logits"))
+        say(f"[families] {cfg.name} {label}: {B} requests x {steps} decode "
+            f"steps, p50 {np.median(walls):.4f} s, tokens/s "
+            f"{B / np.median(walls):.1f}")
+        total.update(counts)
+        profile_family_step(f"{cfg.name} decode step ({label})",
+                            lambda: model.decode_step(params, tok, c,
+                                                      store=st))
+    say(f"[families] {cfg.name}: prefill of {B} x ({F_} frames + {S} "
+        f"tokens) {prefill_s:.3f} s; store {store.num_chunks} chunks of "
+        f"{store.chunk_size} ({store.nbytes} B); peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev)} B")
+    del params, cache, no_store_cache, store
+    torch.cuda.empty_cache()
+    agree_family(cfg, dev, 8, S, audio=True)
+    return dict(total)
+
+
+def audio_inputs(cfg, dev, batch, prompt, seed):
+    """(one audio's stub frames (1, F, d) expanded to ``batch`` requests,
+    prompts (batch, prompt))."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    F_, d = cfg.encoder.frontend_seq, cfg.d_model
+    frames = torch.randn((1, F_, d), generator=g, device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=g,
+                            device=dev)
+    return frames.to(cfg_dtype(cfg)).expand(batch, -1, -1), prompts
+
+
+def agree_family(cfg, dev, B, S, audio=False):
+    """One fp32 decode step of B requests on the card and on the CPU after
+    a prefill of B prompts of S tokens on the card (whisper's behind one
+    audio, its decode routed over the audio's store): logits within 1e-3,
+    equal greedy tokens."""
+    from repro_torch.core.shared_kv import build_store
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(1), dev)
+    cache = model.init_cache(B, S + 8, torch.float32, dev)
+    stores = {dev: None, torch.device("cpu"): None}
+    if audio:
+        frames, prompts = audio_inputs(cfg, dev, B, S, seed=3)
+        logits, _ = model.prefill(params, prompts, cache,
+                                  frontend_embeds=frames)
+        store = build_store(cache["cross_k"][:, 0], cache["cross_v"][:, 0],
+                            cfg.moska.chunk_size)
+        stores = {dev: store, torch.device("cpu"): on(torch.device("cpu"),
+                                                      store)}
+    else:
+        prompts = torch.randint(0, cfg.vocab_size, (B, S), device=dev,
+                                generator=torch.Generator(device=dev)
+                                .manual_seed(3))
+        logits, _ = model.prefill(params, prompts, cache)
+    card_vs_cpu(f"{cfg.name} ({cfg.num_layers} layers) {B}-request fp32 "
+                f"decode step{' over the store' if audio else ''}",
+                lambda p, t, c, d: model.decode_step(p, t, c,
+                                                     store=stores[d])[0],
+                params, params_on_cpu(cfg, params), logits.argmax(-1), cache,
+                dev, tag="families")
+
+
 def on(device, tensors):
-    """A copy of a cache or store (a NamedTuple of tensors) on ``device``."""
+    """A copy of a cache or store (a NamedTuple of tensors, or a state
+    family's dict) on ``device``."""
+    if isinstance(tensors, dict):
+        return {k: t.to(device, copy=True) for k, t in tensors.items()}
     return type(tensors)(*[t.to(device, copy=True) if t is not None
                            else None for t in tensors])
 
@@ -1484,8 +1793,8 @@ def card_vs_cpu(label, step, params, params_cpu, tokens, cache, dev,
 def params_on_cpu(cfg, params):
     """A CPU copy of the card's weights, built without a second card copy
     (a deep copy would hold both on the card)."""
-    from repro_torch.models import dense
-    out = dense.DenseLM(cfg, torch.device("cpu"))
+    from repro_torch.models.model import empty_params
+    out = empty_params(cfg, torch.device("cpu"))
     out.load_state_dict({k: v.cpu() for k, v in params.state_dict().items()})
     return out
 
@@ -1951,12 +2260,13 @@ def main() -> int:
     run("4 agree", phase_agree, cfg, dev)
     rows = run("5 time", phase_time, cfg, dev, launches, errs)
     run("6 profile", phase_profile, cfg, dev)
-    # the dense family's other members run last, so that phases 1-6 run as
-    # they did before them: cuBLAS picks its GEMM kernels by what the
+    # the dense family's other members and the other families run last,
+    # so that phases 1-6 run as they did before them: cuBLAS picks its GEMM kernels by what the
     # process ran before, and phase 6 counts the step's kernels exactly
     for counts in run("3m moe", phase_moe, dev, errs):
         launches.update(counts)
     launches.update(run("3w widths", phase_widths, dev, errs))
+    launches.update(run("3f families", phase_families, dev, errs))
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["max_abs_err"] = errs[row["name"]]

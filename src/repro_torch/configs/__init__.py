@@ -1,8 +1,7 @@
 """Config registry: ``get_config(arch_id)`` / ``list_archs()``.
 
-A copy of the reference package's registry, limited to the dense-family
-archs the port serves (dense, MoE and VLM). Arch ids use the dashed names
-(e.g. ``tinyllama-1.1b``).
+A copy of the reference package's registry: its 11 architectures, every
+family. Arch ids use the dashed names (e.g. ``tinyllama-1.1b``).
 """
 from __future__ import annotations
 
@@ -10,8 +9,8 @@ import importlib
 from typing import Dict, List
 
 from repro_torch.configs.base import (  # noqa: F401 (public re-exports)
-    DENSE, FAMILIES, MOE, VLM, EncoderConfig, MoEConfig, ModelConfig,
-    MoSKAConfig,
+    AUDIO, DENSE, FAMILIES, HYBRID, MOE, SSM, VLM, EncoderConfig,
+    HybridConfig, MoEConfig, ModelConfig, MoSKAConfig, SSMConfig,
 )
 
 _ARCH_MODULES: Dict[str, str] = {
@@ -22,9 +21,14 @@ _ARCH_MODULES: Dict[str, str] = {
     "internvl2-76b": "internvl2_76b",
     "arctic-480b": "arctic_480b",
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
-    # the paper's own model
+    "mamba2-130m": "mamba2_130m",
+    "recurrentgemma-9b": "recurrentgemma_9b",
+    "whisper-tiny": "whisper_tiny",
+    # the paper's own model (not part of the assigned 10)
     "moska-llama3.1-8b": "moska_llama31_8b",
 }
+
+ASSIGNED_ARCHS: List[str] = [k for k in _ARCH_MODULES if k != "moska-llama3.1-8b"]
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -352,7 +352,7 @@ def _logits(cfg: ModelConfig, params: DenseLM, x: torch.Tensor
     """fp32 logits of the final-normed hidden state (the reference's
     preferred_element_type=float32 unembedding)."""
     x = L.rms_norm(x, params.final_norm["scale"], cfg.rms_eps)
-    return x.float() @ params.unembed_matrix().float().T
+    return L.unembed(x, params.unembed_matrix())
 
 
 def embed_inputs(cfg: ModelConfig, params: DenseLM, tokens: torch.Tensor,

@@ -1,4 +1,4 @@
-"""Shared building blocks: norms, RoPE, attention, SwiGLU MLP.
+"""Shared building blocks: norms, RoPE, attention, SwiGLU/GeGLU/GELU MLPs.
 
 Port of the reference ``models/layers.py``. Parameters are mappings
 (``nn.ParameterDict`` or plain dicts of tensors) with the reference names.
@@ -30,9 +30,47 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return (y * (1.0 + scale.float())).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
 def swiglu_mlp(x: torch.Tensor, p) -> torch.Tensor:
     h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     return h @ p["w_down"]
+
+
+def geglu_mlp(x: torch.Tensor, p) -> torch.Tensor:
+    return (gelu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
+
+def gelu_mlp(x: torch.Tensor, p) -> torch.Tensor:
+    return gelu(x @ p["w_up"]) @ p["w_down"]
+
+
+def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """fp32 logits (..., V) of hidden states (..., d) over a (V, d) table:
+    the reference's ``preferred_element_type=float32`` unembedding."""
+    return x.float() @ table.float().T
+
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """Causal depthwise conv over (B, S, C) with a (W, C) kernel and a (C,)
+    bias: W - 1 zeros padded in front, the taps summed in order."""
+    W, S = w.shape[0], x.shape[1]
+    pad = F.pad(x, (0, 0, W - 1, 0))
+    return sum(pad[:, i:i + S] * w[i][None, None]
+               for i in range(W)) + b[None, None]
 
 
 def rope_freqs(head_dim: int, theta: float,

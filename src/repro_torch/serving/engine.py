@@ -47,6 +47,16 @@ tier has also evicted the entry does the engine rebuild from tokens. The
 scheduler's offload admission path moves cold pages to the tier under
 block-budget pressure.
 
+State families (SSM, hybrid; slotted layout only): the batch cache is
+the model's state dict ((L, B, ...) leaves: SSM states and conv tails,
+the hybrid's rings and LRU states), allocated once like the slab. An
+admission prefills the exact prompt into a fresh 1-batch state, without
+a store, and copies each leaf into its batch slot in place
+(``write_slot_state``; ``_merge_slot_cache`` is the full-copy oracle).
+They have no KV to chunk, so ``register_corpus`` refuses them; the
+engine refuses the enc-dec family, whose prefill needs audio frames the
+engine has no way to take (serve it through ``Model``).
+
 Async pipeline (paged layout): ``prefetch_depth`` host->device copies of
 the entries the scheduler's lookahead predicts will be admitted next run
 on a side stream during the decode wave (``kvcache/transfer.py``);
@@ -68,7 +78,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import AUDIO, HYBRID, SSM, ModelConfig
 from repro_torch.core.scheduler import Request, Scheduler, SchedulerConfig
 from repro_torch.core.shared_kv import SharedKVStore, build_store
 from repro_torch.kvcache.block_table import (SlotTables, blocks_for,
@@ -190,6 +200,11 @@ class EngineConfig:
 
 class ServingEngine:
     def __init__(self, cfg: ModelConfig, params, engine_cfg: EngineConfig):
+        if cfg.family == AUDIO:
+            raise NotImplementedError(
+                f"ServingEngine cannot serve the {cfg.family!r} family: its "
+                "prefill needs audio frames (frontend_embeds), which the "
+                "engine has no way to pass; use Model.prefill/decode_step")
         self.cfg = cfg
         self.ecfg = engine_cfg
         self.model = build_model(cfg)
@@ -206,7 +221,8 @@ class ServingEngine:
         self.scheduler.set_store_evictor(self._on_store_evicted)
         self._buckets = resolve_prefill_buckets(engine_cfg.prefill_buckets,
                                                 engine_cfg.max_seq)
-        self._cache: Optional[KVCache] = None   # persistent batch cache
+        # persistent batch cache: a KVCache, or a state family's dict
+        self._cache: Union[KVCache, Dict[str, torch.Tensor], None] = None
         self._paged = engine_cfg.kv_layout == "paged"
         if self._paged:
             self._init_paged_state()
@@ -290,6 +306,11 @@ class ServingEngine:
     # ------------------------------------------------------------------
     def register_corpus(self, corpus_id: str, tokens: np.ndarray) -> int:
         """Precompute + chunk a shared corpus' KV. Returns #chunks."""
+        if self.cfg.family in (SSM, HYBRID):
+            raise NotImplementedError(
+                f"register_corpus: the {self.cfg.family!r} family keeps no "
+                "KV cache to chunk into a shared store (an SSM's warm start "
+                "is models.ssm.shared_state, through Model.prefill)")
         C = self.cfg.moska.chunk_size
         n = (len(tokens) // C) * C
         if n == 0:
@@ -368,7 +389,7 @@ class ServingEngine:
                 self._cache = self.model.init_cache(
                     ecfg.max_slots, ecfg.max_seq, ecfg.cache_dtype,
                     self.device)
-            nbytes = self._cache.nbytes
+            nbytes = _cache_nbytes(self._cache)
         self.registry.set_gauge("engine/decode_cache_bytes_copied", 0)
         self.registry.set_gauge("engine/decode_cache_bytes", nbytes)
 
@@ -446,7 +467,7 @@ class ServingEngine:
                     self._prepare_wave_blocks(active)
                     self._note_hbm(self._pool.nbytes)
                 else:
-                    self._note_hbm(self._cache.nbytes)
+                    self._note_hbm(_cache_nbytes(self._cache))
                 reg.observe("engine/wave_batch_density",
                             len(active) / B, obs.FRACTION_EDGES)
                 reg.observe("engine/wave_active_slots", len(active),
@@ -569,11 +590,29 @@ class ServingEngine:
     def _prefill_slot(self, req: Request) -> int:
         """Slotted admission: bucket-padded prefill, then an in-place write
         into batch slot ``req.slot``. Returns the first generated token."""
+        if not isinstance(self._cache, KVCache):
+            return self._prefill_slot_state(req)
         store, start = self._store_for(req)
         first, slot_cache = self._bucketed_prefill(req, store, start)
         write_slot_prefix(self._cache, slot_cache, req.slot, len(req.prompt))
         self._count_prefill(len(req.prompt))
         return first
+
+    def _prefill_slot_state(self, req: Request) -> int:
+        """A state family's admission: the exact prompt into a fresh
+        1-batch state (no store: these families register no corpus), the
+        argmax as the first token, then each leaf's batch slot written in
+        place. Counts the prefill but not its tokens, as the reference's
+        fallback path does."""
+        slot_cache = self.model.init_cache(1, self.ecfg.max_seq,
+                                           self.ecfg.cache_dtype, self.device)
+        toks = torch.as_tensor(np.asarray(req.prompt, np.int64)[None],
+                               device=self.device)
+        logits, slot_cache = self.model.prefill(self.params, toks, slot_cache)
+        write_slot_state(self._cache, slot_cache, req.slot)
+        self.metrics["prefills"] += 1
+        self.registry.inc("engine/prefills")
+        return int(logits[0].argmax())                     # device sync
 
     # -- paged KV layout ------------------------------------------------
     def _corpus_fingerprint(self, corpus_id: Optional[str]) -> Optional[str]:
@@ -910,3 +949,46 @@ class ServingEngine:
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
+
+
+def _cache_nbytes(cache) -> int:
+    if isinstance(cache, KVCache):
+        return cache.nbytes
+    return sum(_nbytes(t) for t in cache.values())
+
+
+def write_slot_state(cache: Dict[str, torch.Tensor],
+                     slot_cache: Dict[str, torch.Tensor], slot: int) -> None:
+    """Copy a 1-batch state dict into batch slot ``slot`` of ``cache``, in
+    place: a (B,) leaf takes element 0; an (L, B, ...) leaf takes the
+    (L, 1, ...) source over the leading corner of the slot (the
+    reference's ``dynamic_update_slice`` at (0, slot, 0, ...)), so no
+    other slot is touched or copied."""
+    for name, dst in cache.items():
+        src = slot_cache[name]
+        if dst.dim() == 1:
+            dst[slot] = src[0]
+        else:
+            corner = tuple(slice(0, n) for n in src.shape[2:])
+            dst[(slice(None), slot) + corner] = src[:, 0]
+
+
+def _merge_slot_cache(cache: Dict[str, torch.Tensor],
+                      slot_cache: Dict[str, torch.Tensor],
+                      slot: int) -> Dict[str, torch.Tensor]:
+    """The full-copy merge of a 1-batch state dict into batch slot
+    ``slot``: a new dict, ``cache`` untouched. The test oracle of
+    ``write_slot_state``, as the reference's ``_merge_slot_cache``."""
+    out = {}
+    for name, dst in cache.items():
+        src, new = slot_cache[name], dst.clone()
+        if dst.dim() == 1:
+            new[slot] = src[0]
+        elif src.shape[0] == dst.shape[0] and src.shape[1] == 1 and \
+                src.shape[2] <= dst.shape[2]:
+            new[:, slot, :src.shape[2]] = src[:, 0]
+        else:
+            raise ValueError(f"unmergeable cache leaf {tuple(dst.shape)} <- "
+                             f"{tuple(src.shape)}")
+        out[name] = new
+    return out

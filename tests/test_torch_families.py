@@ -59,10 +59,31 @@ def test_config_equals_reference(arch):
 @pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-9b",
                                   "whisper-tiny"])
 def test_model_refuses_other_families(arch):
+    """The SSM, hybrid and enc-dec families build, and refuse the paged
+    layout (dense-family caches only), as the reference's facade does."""
     cfg = _to_port(jget(arch))
     assert type(cfg) is tbase.ModelConfig
-    with pytest.raises(NotImplementedError, match=cfg.family):
-        Model(cfg)
+    model = Model(cfg)
+    assert model.cfg is cfg
+    for what in ("init_paged_cache", "decode_step_paged", "prefill_chunk"):
+        with pytest.raises(NotImplementedError, match=cfg.family):
+            model._require_paged(what)
+
+
+def test_registry_has_every_reference_arch():
+    """All 11 of the reference's archs, ``ASSIGNED_ARCHS`` as the
+    reference's, and a ``Model`` for each of the six families."""
+    from repro.configs import ASSIGNED_ARCHS as JASSIGNED
+    from repro.configs import list_archs as jlist
+    from repro_torch.configs import ASSIGNED_ARCHS
+    assert list_archs() == jlist() and len(list_archs()) == 11
+    assert ASSIGNED_ARCHS == JASSIGNED
+    families = set()
+    for arch in list_archs():
+        assert dataclasses.asdict(tget(arch)) == dataclasses.asdict(
+            jget(arch)), arch
+        families.add(Model(tget(arch)).cfg.family)
+    assert families == set(tbase.FAMILIES)
 
 
 def _cfgs(arch, dtype="float32", **kw):

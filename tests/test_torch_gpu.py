@@ -7,7 +7,9 @@ against its dense entry), plus dense decode steps on the card (slotted,
 paged, over an int8 store) against the same steps on the CPU, and the
 host tier on the card: a pinned offload, side-stream prefetch and swap-in
 round trip, and a host-tier engine whose generations equal the tier-off
-engine's.
+engine's; whisper-tiny's shapes in every kernel it runs, and a prefill
+and decode step of each of the SSM, hybrid and enc-dec families on the
+card against the same on the CPU.
 
 These tests need an NVIDIA card with the CUDA toolkit; elsewhere they skip.
 This file imports no JAX, so it also runs where JAX is not installed:
@@ -26,6 +28,7 @@ from repro_torch.core.shared_kv import build_store
 from repro_torch.kernels import ops, ref
 from repro_torch.kvcache.cache import KVCache, init_kv_cache
 from repro_torch.models import dense
+from repro_torch.models.model import build_model
 
 pytestmark = pytest.mark.gpu
 
@@ -57,7 +60,9 @@ def _close(got, want, tol):
 # and D = 16 and 128 with C not a multiple of the 64-key tile; then the
 # dense family's served groupings at small E and C: granite's (16 heads
 # over 8 kv heads, G = 2), qwen's (MHA, G = 1), internvl2's (G = 8 at
-# D = 128) and mistral-large's (G = 12 at D = 128).
+# D = 128) and mistral-large's (G = 12 at D = 128); whisper-tiny's routed
+# cross-attention (4 chunks of 375 frames, 6 heads over 6, capacity 64 of
+# a top-2 over 64 queries).
 SHARED_SHAPES = [
     (3, 8, 4, 2, 32, 64),
     (2, 16, 8, 8, 64, 128),
@@ -74,6 +79,7 @@ SHARED_SHAPES = [
     (4, 16, 16, 16, 64, 128),   # qwen, G = 1
     (3, 8, 64, 8, 128, 100),    # internvl2, G = 8, D = 128
     (3, 8, 96, 8, 128, 100),    # mistral-large, G = 12, D = 128
+    (4, 64, 6, 6, 64, 375),     # whisper-tiny, C = 375
 ]
 # Where a shape is named here, chunk e has its first (e % 3) * width slots
 # valid and no other (the routed prefill fills each chunk's slots from 0:
@@ -122,6 +128,7 @@ DECODE_LENS = {
     (7, 32, 4, 64, 512): [1, 64, 65, 128, 129, 257, 512],
     (5, 8, 2, 64, 160): [1, 31, 32, 33, 160],
     (2, 32, 4, 64, 4096): [4096, 3001],
+    (64, 6, 6, 64, 1500): [1500] * 64,   # whisper's cross cache, F frames
 }
 
 
@@ -143,7 +150,10 @@ DECODE_LENS = {
     (3, 16, 16, 64, 100),       # qwen, G = 1
     (2, 64, 8, 128, 130),       # internvl2, G = 8, D = 128
     (2, 96, 8, 128, 130),       # mistral-large, G = 12: a second block
-])                              # per kv head with 4 of 8 heads live
+                                # per kv head with 4 of 8 heads live
+    (64, 6, 6, 64, 48),         # whisper's self-attention, G = 1
+    (64, 6, 6, 64, 1500),       # whisper's cross-attention without a store
+])
 def test_decode_attention_kernel(cuda, dtype, B, H, KH, D, S):
     g = np.random.default_rng(1)
     q = _randn(g, (B, H, D), dtype, cuda)
@@ -392,6 +402,7 @@ ROUTED_SHAPES = [
     (192, 1, 16, 64, 16, 8),      # granite's and qwen's heads
     (48, 1, 64, 128, 4, 8),       # internvl2's
     (48, 1, 96, 128, 4, 8),       # mistral-large's
+    (256, 1, 6, 64, 64, 2),       # whisper's: 64 queries, top-2 of 4 chunks
 ]
 
 
@@ -435,6 +446,7 @@ ROUTER_SHAPES = [
     (16, 16, 16, 64, 16),       # qwen, G = 1
     (8, 64, 8, 128, 8),         # internvl2, G = 8, D = 128
     (8, 96, 8, 128, 8),         # mistral-large, G = 12, D = 128
+    (64, 6, 6, 64, 4),          # whisper-tiny, E = 4
 ]
 ROUTER_OFFSET = {(7, 8, 2, 16, 9)}
 
@@ -693,3 +705,64 @@ def test_host_tier_engine_on_card(cuda):
     assert c_on["kvcache/prefetch_hits"] >= 1
     assert ops.paged_decode_attention.launches > n0
 
+
+
+def _family_steps(cfg, params, device, B, S, steps, frames=None,
+                  store_chunk=None):
+    """Prefill B prompts of S tokens (behind ``frames`` for the enc-dec
+    model) and ``steps`` greedy decode steps on ``device``; with
+    ``store_chunk`` the decode routes the cross-attention over a store of
+    the first request's cross K/V. Returns every step's logits on the
+    CPU."""
+    model = build_model(cfg)
+    p = copy.deepcopy(params).to(device)
+    g = np.random.default_rng(9)
+    toks = torch.from_numpy(g.integers(0, cfg.vocab_size, (B, S)))
+    cache = model.init_cache(B, S + steps, torch.float32, device)
+    kw = {} if frames is None else {"frontend_embeds": frames.to(device)}
+    out = [model.prefill(p, toks.to(device), cache, **kw)[0]]
+    store = None
+    if store_chunk is not None:
+        store = build_store(cache["cross_k"][:, 0], cache["cross_v"][:, 0],
+                            store_chunk)
+    for _ in range(steps):
+        out.append(model.decode_step(p, out[-1].argmax(-1), cache,
+                                     store=store)[0])
+    return [x.cpu() for x in out]
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-9b",
+                                  "whisper-tiny"])
+def test_family_steps_card_match_cpu(cuda, arch):
+    """A reduced fp32 model of each family: a prefill (the hybrid's past
+    its 64-key window) and three decode steps on the card and on the CPU
+    give the same logits and greedy tokens. whisper-tiny routes its
+    cross-attention over 4 chunks of its 256 frames on the card through
+    ``router_scores``, ``shared_chunk_attention``, the routed
+    ``lse_merge`` and ``decode_attention``; SSM and hybrid run no kernel."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    frames = chunk = None
+    if arch == "whisper-tiny":
+        cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+            cfg.encoder, frontend_seq=256))
+        g = np.random.default_rng(10)
+        frames = torch.from_numpy(np.broadcast_to(
+            g.standard_normal((1, 256, cfg.d_model)),
+            (6, 256, cfg.d_model)).astype(np.float32).copy())
+        chunk = cfg.moska.chunk_size
+    params = build_model(cfg).init(torch.Generator().manual_seed(2))
+    S = 80 if arch == "recurrentgemma-9b" else 20
+    n0 = ops.launch_counts()
+    on_card = _family_steps(cfg, params, cuda, 6, S, 3, frames, chunk)
+    n1 = ops.launch_counts()
+    L_ = cfg.num_layers
+    want = {k: 0 for k in n0}
+    if arch == "whisper-tiny":
+        want.update(decode_attention=3 * L_, router_scores=3 * L_,
+                    shared_chunk_attention=3 * L_, lse_merge=3 * L_)
+    assert {k: n1[k] - n0[k] for k in n0} == want
+    on_cpu = _family_steps(cfg, params, torch.device("cpu"), 6, S, 3,
+                           frames, chunk)
+    for a, b in zip(on_card, on_cpu):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+        assert torch.equal(a.argmax(-1), b.argmax(-1))
