@@ -129,7 +129,30 @@ Phases, each printed as it runs; any failure exits non-zero:
             ``STEP_LAUNCHES`` (printed beside 2,547 and 2,787, the counts
             before the merge's routed and pair entries).
 
-Phases 3m, 3w and 3f run last, after phase 6, so that phases 1-6 run as
+  7. train the port's training on the card, bf16, through its own
+            ``training.train_loop.train`` with the reference loop's lr
+            3e-4 and 10 warmup steps, batches of 8 x 256 from the
+            synthetic stream, TF32 asserted off, and no kernel of the port
+            launched (the training path is plain PyTorch under autograd):
+            tinyllama-1.1b at full width and depth, 20 steps with remat,
+            whose loss must descend; a save at step 10 and a fresh
+            ``train`` resuming from it (tinyllama at full width and 2
+            layers: a full-depth checkpoint is 13.2 GB of npz), whose
+            steps 10-19 must match the uninterrupted run within 1e-3
+            relative; mamba2-130m at full width and depth through
+            ``repro_torch.examples.train_tiny`` (batch 4 x 256, cut from its
+            200 steps to 100), ending with the example's descent assert;
+            granite-moe-1b-a400m at full width and depth, 10 steps,
+            ``moe_aux`` finite and above 0; recurrentgemma-9b at full width
+            cut to 3 layers (its full-depth fp32 moments alone take 75 GB)
+            and whisper-tiny at full width and depth, 5 steps each, losses
+            finite. Each run prints its step p50, training tokens/s, peak
+            device memory and first and last loss, beside the card's name
+            and power limit; one more step of tinyllama, whisper and
+            mamba2 is profiled as in phase 6 (device time by kernel, idle
+            share, host time, synchronizing calls).
+
+Phases 3m, 3w, 3f and 7 run last, after phase 6, so that phases 1-6 run as
 they ran before them (cuBLAS picks GEMM kernels by what the process ran
 earlier, and phase 6 counts kernels exactly). Each phase prints its
 seconds. It then prints the kernels' JSON line (each
@@ -175,7 +198,7 @@ SERVE_ARGV = ["--arch", ARCH, "--full", "--device", "cuda",
 # phase 6: each profiled step's unique decode kernel, and its launches
 STEP_DECODE_KERNEL = {"decode step": "decode_slab_kernel",
                       "paged decode step": "decode_pages_kernel"}
-STEP_LAUNCHES = {"decode step": 2283, "paged decode step": 2523}
+STEP_LAUNCHES = {"decode step": 2283, "paged decode step": 2272}
 # the same steps before the merge read its partials where they lie
 STEP_LAUNCHES_GATHERED = {"decode step": 2547, "paged decode step": 2787}
 
@@ -205,6 +228,19 @@ SSM_ARCH, HYBRID_ARCH, AUDIO_ARCH = ("mamba2-130m", "recurrentgemma-9b",
 SSM_REQUESTS, SSM_CORPUS, SSM_WARM_STEPS = 128, 16384, 16
 HYBRID_REQUESTS, HYBRID_PROMPTS = 64, (256, 2040)
 AUDIO_REQUESTS, AUDIO_PROMPT, AUDIO_STEPS = 64, 16, 32
+
+# phase 7: training at full width, bf16, the reference loop's lr 3e-4 and
+# 10 warmup steps. tinyllama at full depth; its save-and-resume check at
+# 2 layers (a full-depth checkpoint is 13.2 GB of npz); mamba2 through
+# the training example at its batch 4 x 256; granite at full depth;
+# recurrentgemma cut to 3 layers (its full-depth fp32 moments alone take
+# 75 GB) and whisper at full depth
+TRAIN_BATCH, TRAIN_SEQ = 8, 256
+TRAIN_STEPS, RESUME_AT, RESUME_LAYERS = 20, 10, 2
+TINY_STEPS, TINY_BATCH, TINY_SEQ = 100, 4, 256   # the example: 200 steps
+MOE_TRAIN_STEPS, FAMILY_TRAIN_STEPS = 10, 5
+FAMILY_TRAIN = (("recurrentgemma-9b", 3), ("whisper-tiny", None))
+RESUME_TOL = 1e-3                      # relative, steps after the resume
 
 # phase 3h: the host tier's stream, pool and tier
 TIER_CORPUS, TIER_PROMPTS = 16384, 128
@@ -1562,7 +1598,7 @@ def serve_state_family(cfg, dev, prompts, max_seq):
     return model, params
 
 
-def profile_family_step(label, step):
+def profile_family_step(label, step, what="64 slots"):
     """``_profile_step`` of one decode step of a family (its unprofiled
     wall the median of 8)."""
     for _ in range(2):
@@ -1574,7 +1610,7 @@ def profile_family_step(label, step):
         step()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    _profile_step(label, step, float(np.median(walls)))
+    _profile_step(label, step, float(np.median(walls)), what)
 
 
 def family_ssm(cfg, dev, errs):
@@ -2180,8 +2216,9 @@ def phase_profile(cfg, dev):
         check(launches == STEP_LAUNCHES[label], (label, "launches", launches))
 
 
-def _profile_step(label, step, wall):
-    """One profiled run of ``step`` (its unprofiled median ``wall`` given):
+def _profile_step(label, step, wall, what="64 slots"):
+    """One profiled run of ``step`` (its unprofiled median ``wall`` given,
+    ``what`` it runs named in the report):
     device time by kernel, the device's idle share, the host operations
     that took the most host time, and every call in the step that made the
     host wait for the card (``torch.cuda.set_sync_debug_mode``). Returns
@@ -2211,7 +2248,7 @@ def _profile_step(label, step, wall):
                if e.device_type.name == "CUDA" and e.self_device_time_total > 0
                and e.key != MOE_RANGE]
     busy_us = sum(e.self_device_time_total for e in kernels)
-    say(f"[profile] {label}, 64 slots, unprofiled wall (8 runs in turns) "
+    say(f"[profile] {label}, {what}, unprofiled wall (8 runs in turns) "
         f"median={wall * 1e3:.2f} ms; profiled wall="
         f"{prof_wall * 1e3:.2f} ms, device busy={busy_us / 1e3:.2f} ms, "
         f"idle share={1 - busy_us / 1e6 / prof_wall:.3f} "
@@ -2225,6 +2262,192 @@ def _profile_step(label, step, wall):
         say(f"[profile] host {e.self_cpu_time_total / 1e3:9.3f} ms "
             f"{e.count:5d}x  {e.key[:80]}")
     return [e.key for e in kernels], sum(e.count for e in kernels)
+
+
+# ---------------------------------------------------------------------------
+# phase 7: training
+# ---------------------------------------------------------------------------
+
+def card_name_and_limit() -> str:
+    """``nvidia-smi``'s name and power limit of the card."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], check=True,
+                          capture_output=True,
+                          text=True).stdout.strip().splitlines()[0]
+
+
+def train_report(label, hist, batch, seq):
+    """Check a run's losses are finite, then print its step p50 (each
+    logged interval's seconds a step, the first step's lazy set-up left
+    out), training tokens/s, peak device memory, and first and last
+    loss. Returns the step p50 in seconds."""
+    losses = [h["loss"] for h in hist]
+    check(all(np.isfinite(losses)), (label, "losses", losses))
+    per = [(b["elapsed_s"] - a["elapsed_s"]) / (b["step"] - a["step"])
+           for a, b in zip(hist, hist[1:])]
+    p50 = float(np.median(per))
+    say(f"[train] {label}: {hist[-1]['step'] + 1} steps of {batch} x "
+        f"{seq}, step p50 {p50 * 1e3:.2f} ms, "
+        f"{batch * seq / p50:.1f} tokens/s, peak "
+        f"{torch.cuda.max_memory_allocated()} B, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}")
+    return p50
+
+
+def train_run(cfg, dev, steps, batches=None, **loop):
+    """``train`` on the card from the loop's seeded init, every step
+    logged; no kernel of the port launches (the training path is plain
+    PyTorch under autograd, as the reference's is jnp)."""
+    from repro_torch.kernels import ops
+    from repro_torch.training.train_loop import TrainLoopConfig, train
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    n0 = ops.launch_counts()
+    out = train(cfg, TrainLoopConfig(num_steps=steps, log_every=1, **loop),
+                batches, device=dev)
+    check(ops.launch_counts() == n0, (cfg.name, "kernel launches"))
+    check(all(p.is_cuda for p in out["params"].parameters()),
+          (cfg.name, "parameters on the card"))
+    return out
+
+
+def profile_train_step(cfg, out, dev, batch, seq):
+    """``profile_family_step`` of one more training step (loss, backward,
+    AdamW) of a run's parameters and state, on one batch of the stream:
+    device time by kernel, idle share, host time, synchronizing calls."""
+    from repro_torch.data.pipeline import make_train_batches
+    from repro_torch.models.model import build_model
+    from repro_torch.training import train_loop as tl
+    loop = tl.TrainLoopConfig(batch_size=batch, seq_len=seq)
+    step_fn = tl.make_train_step(build_model(cfg), loop)
+    b = tl.to_device(next(make_train_batches(cfg, batch, seq)), dev)
+    state = [out["params"], out["opt_state"]]
+
+    def step():
+        state[0], state[1], _ = step_fn(state[0], state[1], b)
+    with tl.trainable(out["params"]):
+        profile_family_step(f"{cfg.name} train step", step,
+                            f"{batch} x {seq} tokens")
+
+
+def train_resume(cfg, dev):
+    """tinyllama at full width, RESUME_LAYERS layers: TRAIN_STEPS steps in
+    one run that saves at RESUME_AT, against a fresh ``train`` that
+    resumes from that checkpoint (hard links of its files) for the
+    remaining steps on the same batches. Card atomics (the embedding's
+    and the experts' backward scatter-adds) may order sums otherwise, so
+    the losses after the resume are held within RESUME_TOL relative; the
+    step-RESUME_AT loss, computed by the forward pass from the restored
+    weights, is printed beside whether it is bit-equal."""
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.data.pipeline import make_train_batches
+    cfg = dataclasses.replace(cfg, num_layers=RESUME_LAYERS)
+    batches = list(make_train_batches(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                      num_batches=TRAIN_STEPS))
+    with tempfile.TemporaryDirectory() as tmp:
+        full, part = os.path.join(tmp, "full"), os.path.join(tmp, "part")
+        loop = dict(ckpt_every=RESUME_AT, batch_size=TRAIN_BATCH,
+                    seq_len=TRAIN_SEQ)
+        t = time.perf_counter()
+        a = train_run(cfg, dev, TRAIN_STEPS, ckpt_dir=full,
+                      batches=iter(batches), **loop)
+        t_full = time.perf_counter() - t
+        name = f"step_{RESUME_AT:08d}"
+        shutil.copytree(os.path.join(full, name), os.path.join(part, name),
+                        copy_function=os.link)
+        with open(os.path.join(part, "LATEST"), "w") as f:
+            f.write(name)
+        size = sum(os.path.getsize(os.path.join(full, name, n))
+                   for n in os.listdir(os.path.join(full, name)))
+        t = time.perf_counter()
+        b = train_run(cfg, dev, TRAIN_STEPS, ckpt_dir=part,
+                      batches=iter(batches[RESUME_AT:]), **loop)
+        t_part = time.perf_counter() - t
+    ha, hb = a["history"][RESUME_AT:], b["history"]
+    check([h["step"] for h in hb] == list(range(RESUME_AT, TRAIN_STEPS)),
+          ("resume steps", [h["step"] for h in hb]))
+    rel = max(abs(x["loss"] - y["loss"]) / abs(x["loss"])
+              for x, y in zip(ha, hb))
+    check(rel <= RESUME_TOL, ("resumed losses", rel))
+    dp = max(float((x.float() - y.float()).abs().max())
+             for x, y in zip(a["params"].parameters(),
+                             b["params"].parameters()))
+    check(b["opt_state"].step == a["opt_state"].step == TRAIN_STEPS,
+          "resumed optimizer step")
+    say(f"[train] resume ({RESUME_LAYERS} layers, checkpoint {size} B at "
+        f"step {RESUME_AT}): steps {RESUME_AT}-{TRAIN_STEPS - 1} "
+        f"within {rel:.3e} relative of the uninterrupted run (tolerance "
+        f"{RESUME_TOL}); step-{RESUME_AT} loss bit-equal: "
+        f"{ha[0]['loss'] == hb[0]['loss']}; final parameters differ by at "
+        f"most {dp:.3e}; the uninterrupted run with its 2 saves "
+        f"{t_full:.1f} s, the resumed run with its restore and 1 save "
+        f"{t_part:.1f} s")
+
+
+def phase_train(dev):
+    """Phase 7: the port's training on the card, bf16, through its own
+    ``train`` (and ``examples/train_tiny.py``), with the reference loop's
+    lr 3e-4 and 10 warmup steps, batches of TRAIN_BATCH x TRAIN_SEQ.
+    tinyllama-1.1b at full width and depth for TRAIN_STEPS steps (remat
+    on): the loss must descend; then its save-and-resume check
+    (``train_resume``). mamba2-130m at full width and depth through the
+    example, cut from its 200 steps to TINY_STEPS, ending with the
+    example's own descent assert. granite-moe-1b-a400m at full width and
+    depth for MOE_TRAIN_STEPS steps: ``moe_aux`` finite and above 0 at
+    every step. recurrentgemma-9b at full width and 3 layers, whisper-tiny
+    at full width and depth: FAMILY_TRAIN_STEPS steps each, losses
+    finite. TF32 must be off. Each run prints its step p50, tokens/s,
+    peak memory and first and last loss; one more step of tinyllama,
+    whisper and mamba2 (batch 4 x 256, as the example) is profiled."""
+    from repro_torch.configs import get_config
+    from repro_torch.examples import train_tiny
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    say(f"[train] card: {card_name_and_limit()}")
+    cfg = get_config(ARCH)
+    out = train_run(cfg, dev, TRAIN_STEPS)
+    hist = out["history"]
+    train_report(f"{ARCH} ({cfg.num_layers} layers)", hist, TRAIN_BATCH,
+                 TRAIN_SEQ)
+    check(hist[-1]["loss"] < hist[0]["loss"], (ARCH, "loss did not descend"))
+    profile_train_step(cfg, out, dev, TRAIN_BATCH, TRAIN_SEQ)
+    del out
+    train_resume(cfg, dev)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    hist = train_tiny.main(["--steps", str(TINY_STEPS), "--batch",
+                            str(TINY_BATCH), "--seq", str(TINY_SEQ)])
+    train_report(f"{SSM_ARCH} (train_tiny, {TINY_STEPS} of its 200 steps)",
+                 hist, TINY_BATCH, TINY_SEQ)
+
+    out = train_run(get_config(MOE_ARCH), dev, MOE_TRAIN_STEPS)
+    aux = [h["moe_aux"] for h in out["history"]]
+    check(all(np.isfinite(aux)) and min(aux) > 0, (MOE_ARCH, "moe_aux", aux))
+    train_report(MOE_ARCH, out["history"], TRAIN_BATCH, TRAIN_SEQ)
+    say(f"[train] {MOE_ARCH}: moe_aux {aux[0]:.4f} -> {aux[-1]:.4f}")
+    del out
+
+    for arch, layers in FAMILY_TRAIN:
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        out = train_run(cfg, dev, FAMILY_TRAIN_STEPS)
+        train_report(f"{arch} ({cfg.num_layers} layers)", out["history"],
+                     TRAIN_BATCH, TRAIN_SEQ)
+        if arch == AUDIO_ARCH:
+            profile_train_step(cfg, out, dev, TRAIN_BATCH, TRAIN_SEQ)
+        del out
+    # the example keeps its run to itself: one step of mamba2 to profile
+    cfg = get_config(SSM_ARCH)
+    profile_train_step(cfg, train_run(cfg, dev, 1, batch_size=TINY_BATCH,
+                                      seq_len=TINY_SEQ),
+                       dev, TINY_BATCH, TINY_SEQ)
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -2267,15 +2490,13 @@ def main() -> int:
         launches.update(counts)
     launches.update(run("3w widths", phase_widths, dev, errs))
     launches.update(run("3f families", phase_families, dev, errs))
+    run("7 train", phase_train, dev)
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["max_abs_err"] = errs[row["name"]]
     say(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], check=True,
-                         capture_output=True, text=True).stdout.strip()
-    print(smi.splitlines()[0])
+    print(card_name_and_limit())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

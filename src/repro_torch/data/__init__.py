@@ -1,1 +1,1 @@
-"""Synthetic shared corpora."""
+"""Synthetic shared corpora and training batches."""

@@ -1,3 +1,4 @@
 """Runnable examples of the port: ``python -m repro_torch.examples.<name>``
-(``quickstart``, ``serve_shared_corpus``, ``long_context_decode``). Each
-runs on the card; ``--device cpu`` takes the kernels' plain versions."""
+(``quickstart``, ``serve_shared_corpus``, ``long_context_decode``, and
+``train_tiny``, which trains). Each runs on the card; ``--device cpu``
+takes the kernels' plain versions."""

@@ -354,24 +354,46 @@ def gather_layer(pool_layer: torch.Tensor,
     return pool_layer[table.long()].reshape(B, M * bs, KH, D)
 
 
-def append_layer(pool_layer: torch.Tensor, new: torch.Tensor,
-                 table: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-    """Scatter one new token per slot into its current page, in place.
+def append_index(table: torch.Tensor, lengths: torch.Tensor,
+                 block_size: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Where one decode step's tokens land, for every layer's
+    :func:`append_layer`: (blocks, offsets, src), each (B,) int64.
 
-    pool_layer: (N, bs, KH, D); new: (B, KH, D); lengths: (B,) — token b
-    lands at ``(table[b, lengths[b] // bs], lengths[b] % bs)``. Inactive
-    slots' table rows are NULL, so their garbage tokens land in the null
-    page. The block index is clamped like the slotted path's append, so an
-    inactive slot whose stale length keeps growing writes to its last
-    table entry instead of out of bounds.
+    Token b lands at ``(table[b, lengths[b] // bs], lengths[b] % bs)``,
+    the block index clamped like the slotted path's append, so an inactive
+    slot whose stale length keeps growing writes to its last table entry
+    instead of out of bounds. Inactive slots' table rows are NULL, so
+    several of them can land on one row of the null page. The reference's
+    scatter keeps the last of such writers; a torch scatter with repeated
+    indices keeps any of them (which one, or a mix of their rows, varies
+    with the thread count on the CPU and from run to run on the card), and
+    inactive slots read that page back. So ``src[b]`` names the last slot
+    landing where slot b lands, and every writer of a row writes that
+    slot's token: the same value, whatever the order of the writes.
     """
     B, M = table.shape
-    bs = pool_layer.shape[1]
     lens = lengths.long()
-    idx = (lens // bs).clamp(0, M - 1)
     rows = torch.arange(B, device=table.device)
-    blocks = table[rows, idx].long()
-    pool_layer[blocks, lens % bs] = new.to(pool_layer.dtype)
+    blocks = table[rows, (lens // block_size).clamp(0, M - 1)].long()
+    offs = lens % block_size
+    dest = blocks * block_size + offs
+    src = torch.where(dest[:, None] == dest[None, :], rows[None, :],
+                      -1).amax(dim=1)
+    return blocks, offs, src
+
+
+def append_layer(pool_layer: torch.Tensor, new: torch.Tensor,
+                 index: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+                 ) -> torch.Tensor:
+    """Scatter one new token per slot into its current page, in place.
+
+    pool_layer: (N, bs, KH, D); new: (B, KH, D); ``index``: the step's
+    :func:`append_index` of its table and lengths, computed once for all
+    its layers.
+    """
+    blocks, offs, src = index
+    pool_layer[blocks, offs] = new[src].to(pool_layer.dtype)
     return pool_layer
 
 

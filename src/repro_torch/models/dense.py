@@ -38,7 +38,8 @@ from repro_torch.core import shared_attention as sa
 from repro_torch.core.shared_kv import SharedKVStore
 from repro_torch.kernels import ops
 from repro_torch.kvcache.cache import KVCache, append_token, write_prefix
-from repro_torch.kvcache.paged import PagedKVCache, append_layer
+from repro_torch.kvcache.paged import (PagedKVCache, append_index,
+                                      append_layer)
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 
@@ -283,21 +284,23 @@ def _layer_decode(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
 def _layer_decode_paged(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
                         positions: torch.Tensor, kp: torch.Tensor,
                         vp: torch.Tensor, table: torch.Tensor,
-                        lengths: torch.Tensor, shared: Optional[SharedLayer],
+                        lengths: torch.Tensor, index,
+                        shared: Optional[SharedLayer],
                         layer_idx: Optional[int] = None,
                         rec: Optional[obs.DeviceRecorder] = None
                         ) -> torch.Tensor:
     """Paged decode layer: ``_layer_decode``'s math with the unique KV in a
     page pool. kp/vp: (N, bs, KH, D) one layer's pages, written in place;
-    table: (B, M) int32; lengths: (B,). The new token is scattered into its
-    page, then the ``paged_decode_attention`` kernel reads each request's
-    pages through the table (no gathered copy) and its partial is merged
-    with the routed shared partial, as the slotted layer merges the
-    ``decode_attention`` partial."""
+    table: (B, M) int32; lengths: (B,); index: the step's
+    ``append_index``. The new token is scattered into its page, then the
+    ``paged_decode_attention`` kernel reads each request's pages through
+    the table (no gathered copy) and its partial is merged with the routed
+    shared partial, as the slotted layer merges the ``decode_attention``
+    partial."""
     q, k, v = (t[:, 0] for t in _qkv_rope(cfg, x[:, None], lp,
                                           positions[:, None]))
-    append_layer(kp, k, table, lengths)
-    append_layer(vp, v, table, lengths)
+    append_layer(kp, k, index)
+    append_layer(vp, v, index)
     o_u, lse_u = ops.paged_decode_attention(q, kp, vp, table, lengths + 1,
                                             window=cfg.attn_window)
     o = MA.moska_decode_merge(q, o_u, lse_u, _decode_context(cfg, q, shared),
@@ -341,6 +344,30 @@ def _layer_prefill_chunk(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
     o, _ = L.merge_partial_attention([o_u, part.out.reshape(B, C, H, D)],
                                      [lse_u, part.lse.reshape(B, C, H)])
     return _attn_out_mlp(cfg, x, o, lp, rec)
+
+
+def _layer_train(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
+                 positions: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence causal layer (the training path: no cache, no store).
+
+    x: (B, S, d); positions: (S,). Returns (x_out, moe_aux): the MoE FFN's
+    Switch aux loss (fp32), 0 for a dense FFN.
+    """
+    q, k, v = _qkv_rope(cfg, x, lp, positions)
+    o = L.flash_attention(q, k, v, causal=True, window=cfg.attn_window,
+                          block_k=cfg.attn_block_k)
+    x = x + o.reshape(*o.shape[:-2], -1) @ lp.attn["wo"]
+    h2 = L.rms_norm(x, lp.ln2["scale"], cfg.rms_eps)
+    if not cfg.moe.enabled:
+        zero = x.new_zeros((), dtype=torch.float32)
+        return x + L.swiglu_mlp(h2, lp.mlp), zero
+    B, S, d = h2.shape
+    y, aux = moe_lib.moe_ffn(h2.reshape(B * S, d), lp.moe, cfg.moe)
+    y = y.view(B, S, d)
+    if cfg.moe.dense_residual:
+        y = y + L.swiglu_mlp(h2, lp.mlp)
+    return x + y, aux
 
 
 # ---------------------------------------------------------------------------
@@ -437,11 +464,13 @@ def decode_step_paged(cfg: ModelConfig, params: DenseLM,
     """
     x = params.embed["embed"][tokens]                      # (B, d)
     positions = offsets + lengths                          # absolute (RoPE)
+    index = append_index(table, lengths, pool.block_size)
     use_store = store is not None and cfg.moska.enabled
     for i, lp in enumerate(params.layers):
         sh = _shared_layer(store, i) if use_store else None
         x = _layer_decode_paged(cfg, x, lp, positions, pool.k[i], pool.v[i],
-                                table, lengths, sh, layer_idx=i, rec=rec)
+                                table, lengths, index, sh, layer_idx=i,
+                                rec=rec)
     return _logits(cfg, params, x), pool
 
 
@@ -476,3 +505,68 @@ def prefill_chunk(cfg: ModelConfig, params: DenseLM, tokens: torch.Tensor,
     cache.length.add_(chunk_len)
     cache.offset.fill_(start_pos)
     return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def forward_hidden(cfg: ModelConfig, params: DenseLM, x: torch.Tensor,
+                   positions: torch.Tensor, *, remat: bool = True
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run the layer stack (the training path), each layer under
+    ``cfg.remat_policy`` when ``remat``. Returns (final-normed hidden,
+    the layers' summed MoE aux loss)."""
+    body = L.remat(_layer_train, cfg.remat_policy if remat else "none")
+    auxs = []
+    for lp in params.layers:
+        x, aux = body(cfg, x, lp, positions)
+        auxs.append(aux)
+    x = L.rms_norm(x, params.final_norm["scale"], cfg.rms_eps)
+    return x, torch.stack(auxs).sum()
+
+
+def _chunk_ce(h: torch.Tensor, t: torch.Tensor, m: torch.Tensor,
+              W: torch.Tensor) -> torch.Tensor:
+    """Summed masked cross-entropy of one sequence chunk; the logits are
+    fp32 products of the operands (bf16 ones are exact in fp32)."""
+    logits = L.unembed(h, W)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, t[..., None])[..., 0]
+    return torch.sum((lse - ll) * m)
+
+
+def lm_loss(cfg: ModelConfig, params, hidden: torch.Tensor,
+            targets: torch.Tensor, mask: torch.Tensor, *,
+            seq_chunk: int = 512) -> torch.Tensor:
+    """Chunked cross-entropy, mean over the mask: the (B, S, V) logits
+    never live at once. hidden: (B, S, d); targets (int64) and mask:
+    (B, S). Under autograd, with more than one chunk, each chunk's logits
+    are recomputed in the backward pass rather than kept. ``params``: a
+    ``DenseLM``, or a family's tree whose tied embedding unembeds."""
+    S = hidden.shape[1]
+    W = (params.unembed_matrix() if isinstance(params, DenseLM)
+         else params["embed"]["embed"])
+    pieces = [(a, min(a + seq_chunk, S)) for a in range(0, S, seq_chunk)]
+    ce = L.remat(_chunk_ce, "nothing" if len(pieces) > 1
+                 and torch.is_grad_enabled() else "none")
+    total = hidden.new_zeros((), dtype=torch.float32)
+    for a, b in pieces:
+        total = total + ce(hidden[:, a:b], targets[:, a:b], mask[:, a:b], W)
+    return total / torch.clamp(mask.sum(), min=1.0)
+
+
+def train_loss(cfg: ModelConfig, params: DenseLM, batch, *,
+               remat: bool = True):
+    """batch: "tokens", "targets" (B, S) int64, "mask" (B, S) fp32, and
+    for the VLM "frontend_embeds" (B, P, d), whose positions carry no
+    loss. Returns (ce_loss + moe_aux, {"ce_loss", "moe_aux"})."""
+    tokens = batch["tokens"]
+    x = embed_inputs(cfg, params, tokens, batch.get("frontend_embeds"))
+    S = x.shape[1]
+    positions = torch.arange(S, device=x.device)
+    hidden, aux = forward_hidden(cfg, params, x, positions, remat=remat)
+    P = S - tokens.shape[1]
+    loss = lm_loss(cfg, params, hidden[:, P:], batch["targets"],
+                   batch["mask"])
+    return loss + aux, {"ce_loss": loss, "moe_aux": aux}

@@ -38,7 +38,7 @@ from repro_torch.core.shared_kv import SharedKVStore
 from repro_torch.kvcache.cache import append_token, write_prefix
 from repro_torch.models import layers as L
 from repro_torch.models import params as P_
-from repro_torch.models.dense import torch_dtype
+from repro_torch.models.dense import lm_loss, torch_dtype
 from repro_torch.models.params import ParamTree
 
 Cache = Dict[str, torch.Tensor]
@@ -154,6 +154,53 @@ def _embed(cfg: ModelConfig, params: ParamTree, tokens: torch.Tensor,
            positions: torch.Tensor) -> torch.Tensor:
     x = params["embed"]["embed"][tokens]
     return x + sinusoid_pos(positions, cfg.d_model).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# training: teacher forcing
+# ---------------------------------------------------------------------------
+
+def _dec_layer_full(cfg: ModelConfig, lp, x: torch.Tensor,
+                    positions: torch.Tensor, xk: torch.Tensor,
+                    xv: torch.Tensor) -> torch.Tensor:
+    """Teacher-forced decoder layer. x: (B, S, d); xk/xv: (B, F, H, D)."""
+    H, KH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, k, v = L.qkv_project(_ln(x, lp["ln1"]), lp["attn"], H, KH, D)
+    x = _out(x, L.flash_attention(q, k, v, causal=True), lp["attn"])
+    qx, _, _ = L.qkv_project(_ln(x, lp["ln_x"]), lp["xattn"], H, H, D)
+    x = _out(x, L.flash_attention(qx, xk, xv, causal=False), lp["xattn"])
+    return x + L.gelu_mlp(_ln(x, lp["ln2"]), lp["mlp"])
+
+
+def forward_teacher_forced(cfg: ModelConfig, params: ParamTree,
+                           frames: torch.Tensor, tokens: torch.Tensor, *,
+                           remat: bool = True) -> torch.Tensor:
+    """Encode ``frames`` (B, F, d) and run the decoder over ``tokens``
+    (B, S), each decoder layer rematerialized when ``remat`` (its cross
+    K/V computed outside). Returns the final-normed hidden (B, S, d)."""
+    enc_out = encode(cfg, params, frames)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x = _embed(cfg, params, tokens, positions)
+    body = L.remat(_dec_layer_full, "nothing" if remat else "none")
+    for i in range(cfg.num_layers):
+        lp = P_.select(params["dec_layers"], i)
+        xk, xv = _cross_kv(cfg, lp, enc_out)
+        x = body(cfg, lp, x, positions, xk, xv)
+    return _ln(x, params["final_norm"])
+
+
+def train_loss(cfg: ModelConfig, params: ParamTree, batch, *,
+               remat: bool = True):
+    """batch: the dense family's, with "frontend_embeds" (B, F, d) stub
+    frames, cast to the weights' dtype. Returns (loss, {"ce_loss",
+    "moe_aux": 0})."""
+    W = params["embed"]["embed"]
+    hidden = forward_teacher_forced(
+        cfg, params, batch["frontend_embeds"].to(W.dtype), batch["tokens"],
+        remat=remat)
+    loss = lm_loss(cfg, params, hidden, batch["targets"], batch["mask"])
+    return loss, {"ce_loss": loss,
+                  "moe_aux": hidden.new_zeros((), dtype=torch.float32)}
 
 
 @torch.no_grad()

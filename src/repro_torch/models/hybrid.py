@@ -32,7 +32,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import params as P_
-from repro_torch.models.dense import torch_dtype
+from repro_torch.models.dense import lm_loss, torch_dtype
 from repro_torch.models.params import ParamTree
 
 Cache = Dict[str, torch.Tensor]
@@ -309,6 +309,50 @@ def _logits(cfg: ModelConfig, params: ParamTree,
             x: torch.Tensor) -> torch.Tensor:
     return L.unembed(L.rms_norm(x, params["final_norm"]["scale"],
                                 cfg.rms_eps), params["embed"]["embed"])
+
+
+def _run_layers(cfg: ModelConfig, layers, x: torch.Tensor,
+                positions: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
+    """Full-sequence blocks over ``layers`` ((kind, parameters) pairs)
+    from zero states."""
+    for kind, lp in layers:
+        if kind == "attn":
+            x = _attn_block_full(cfg, lp, x, positions)[0]
+        else:
+            x = _rec_block_full(cfg, lp, x, h0)[0]
+    return x
+
+
+def forward_hidden(cfg: ModelConfig, params: ParamTree, x: torch.Tensor,
+                   positions: torch.Tensor, *, remat: bool = True
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run the layers from zero states (the training path): each super
+    block (one pattern cycle) rematerialized when ``remat``, then the tail
+    layers as they are, as the reference's layout. Returns (final-normed
+    hidden, 0: no aux loss)."""
+    h0 = torch.zeros((x.shape[0], _lru_width(cfg)), dtype=torch.float32,
+                     device=x.device)
+    layers = [(kind, lp) for kind, lp, _ in _layers(cfg, params)]
+    per = len(cfg.hybrid.pattern)
+    nsb = _layout(cfg)[0]
+    body = L.remat(_run_layers, "nothing" if remat else "none")
+    for s in range(nsb):
+        x = body(cfg, layers[s * per:(s + 1) * per], x, positions, h0)
+    x = _run_layers(cfg, layers[nsb * per:], x, positions, h0)
+    x = L.rms_norm(x, params["final_norm"]["scale"], cfg.rms_eps)
+    return x, x.new_zeros((), dtype=torch.float32)
+
+
+def train_loss(cfg: ModelConfig, params: ParamTree, batch, *,
+               remat: bool = True):
+    """Next-token cross-entropy over the tied embedding; batch as the
+    dense family's. Returns (loss, {"ce_loss", "moe_aux": 0})."""
+    tokens = batch["tokens"]
+    x = params["embed"]["embed"][tokens]
+    positions = torch.arange(tokens.shape[1], device=x.device)
+    hidden, zero = forward_hidden(cfg, params, x, positions, remat=remat)
+    loss = lm_loss(cfg, params, hidden, batch["targets"], batch["mask"])
+    return loss, {"ce_loss": loss, "moe_aux": zero}
 
 
 @torch.no_grad()

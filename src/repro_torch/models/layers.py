@@ -9,11 +9,13 @@ plain PyTorch, as the reference's is jnp code.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.kernels import ops
 
@@ -203,3 +205,39 @@ def merge_partial_attention(outs, lses):
     else:
         out, lse = ops.lse_merge(torch.stack(o), torch.stack(l))
     return out.reshape(shape), lse.reshape(shape[:-1])
+
+
+# ---------------------------------------------------------------------------
+# training: rematerialization
+# ---------------------------------------------------------------------------
+
+#: matmuls without batch dimensions (JAX's
+#: ``dots_with_no_batch_dims_saveable``): ``x @ W`` runs as ``mm``, while
+#: attention's and the experts' batched products run as ``bmm``
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(fn: Callable, policy: str = "nothing") -> Callable:
+    """``fn`` under activation checkpointing: ``"nothing"`` saves only its
+    inputs and recomputes the rest in the backward pass, ``"dots"`` also
+    keeps the outputs of its unbatched matmuls, ``"none"`` returns ``fn``
+    as it is (the reference's ``jax.checkpoint`` policies)."""
+    if policy == "none":
+        return fn
+    if policy == "nothing":
+        context_fn = ckpt.noop_context_fn
+    elif policy == "dots":
+        context_fn = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+    else:
+        raise ValueError(f"remat policy {policy!r}: nothing | dots | none")
+
+    def wrapped(*args):
+        return ckpt.checkpoint(fn, *args, use_reentrant=False,
+                               context_fn=context_fn)
+    return wrapped

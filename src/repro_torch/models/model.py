@@ -10,6 +10,7 @@ it.
 
     model = build_model(cfg)
     params = model.init(torch.Generator(device).manual_seed(0), device)
+    loss, metrics = model.train_loss(params, batch, remat=True)
     cache = model.init_cache(batch_size, max_seq, device=device)
     logits, cache = model.prefill(params, tokens, cache, store=...)
     logits, cache = model.prefill(params, tokens, cache,
@@ -57,6 +58,13 @@ class Model:
 
     def init(self, generator: torch.Generator, device=None):
         return self._impl.init_params(self.cfg, generator, device)
+
+    def train_loss(self, params, batch, *, remat: bool = True):
+        """(loss, {"ce_loss", "moe_aux"}) of one batch of tensors on the
+        parameters' device (``training.train_loop.to_device``), under
+        autograd: "tokens"/"targets" (B, S) int64, "mask" (B, S), and the
+        VLM's patches or the audio model's frames as "frontend_embeds"."""
+        return self._impl.train_loss(self.cfg, params, batch, remat=remat)
 
     def init_cache(self, batch: int, max_seq: int, dtype=torch.bfloat16,
                    device=None):

@@ -28,7 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.dense import torch_dtype
+from repro_torch.models.dense import lm_loss, torch_dtype
 from repro_torch.models import params as P_
 from repro_torch.models.params import ParamTree
 
@@ -222,6 +222,37 @@ def _logits(cfg: ModelConfig, params: ParamTree,
     embedding."""
     return L.unembed(L.rms_norm(x, params["final_norm"]["scale"],
                                 cfg.rms_eps), params["embed"]["embed"])
+
+
+def _block_out(cfg: ModelConfig, lp, x: torch.Tensor,
+               h0: torch.Tensor) -> torch.Tensor:
+    return _block_full(cfg, lp, x, h0)[0]
+
+
+def forward_hidden(cfg: ModelConfig, params: ParamTree, x: torch.Tensor,
+                   *, remat: bool = True
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run the layer stack from zero states (the training path), each
+    layer rematerialized when ``remat``. Returns (final-normed hidden,
+    0: no aux loss)."""
+    _, P, NH, N, _ = _dims(cfg)
+    h0 = torch.zeros((x.shape[0], NH, P, N), dtype=torch.float32,
+                     device=x.device)
+    body = L.remat(_block_out, "nothing" if remat else "none")
+    for i in range(cfg.num_layers):
+        x = x + body(cfg, P_.select(params["layers"], i), x, h0)
+    x = L.rms_norm(x, params["final_norm"]["scale"], cfg.rms_eps)
+    return x, x.new_zeros((), dtype=torch.float32)
+
+
+def train_loss(cfg: ModelConfig, params: ParamTree, batch, *,
+               remat: bool = True):
+    """Next-token cross-entropy over the tied embedding; batch as the
+    dense family's. Returns (loss, {"ce_loss", "moe_aux": 0})."""
+    x = params["embed"]["embed"][batch["tokens"]]
+    hidden, zero = forward_hidden(cfg, params, x, remat=remat)
+    loss = lm_loss(cfg, params, hidden, batch["targets"], batch["mask"])
+    return loss, {"ce_loss": loss, "moe_aux": zero}
 
 
 @torch.no_grad()

@@ -2,9 +2,10 @@
 reduced configs, through the same ``main`` that ``python -m`` runs: the
 quickstart's exactness check (full routing equals the monolithic context
 within 1e-3) holds, the serving example finishes every request over two
-corpora, and the long-context decode's greedy tokens equal the reference
+corpora, the long-context decode's greedy tokens equal the reference
 model's (``repro.models.dense``, the steps of the reference's
-``examples/long_context_decode.py``) on the same weights and inputs."""
+``examples/long_context_decode.py``) on the same weights and inputs, and
+the training example's loss descends."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -18,7 +19,7 @@ from repro.kvcache import init_kv_cache as jinit
 from repro.models import dense as jd
 from repro_torch.convert import from_reference_params
 from repro_torch.examples import long_context_decode, quickstart
-from repro_torch.examples import serve_shared_corpus
+from repro_torch.examples import serve_shared_corpus, train_tiny
 
 
 def test_quickstart_exactness_check_passes():
@@ -81,8 +82,24 @@ def test_long_context_decode_runs():
     np.testing.assert_array_equal(toks.numpy(), np.stack(want))
 
 
+def test_train_tiny_descends():
+    """mamba2-130m ``.reduced()``, 20 steps at batch 2 x 32 tokens, with
+    the example's checkpoints (every 10 steps) and its descent assert (on
+    one torch thread: its many small ops gain nothing from intra-op
+    threads when the test workers share the cores)."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        hist = train_tiny.main(["--reduced", "--steps", "20", "--batch",
+                                "2", "--seq", "32", "--device", "cpu"])
+    finally:
+        torch.set_num_threads(prev)
+    assert [h["step"] for h in hist] == [0, 19]
+    assert hist[-1]["loss"] < hist[0]["loss"]
+
+
 @pytest.mark.parametrize("mod", [quickstart, serve_shared_corpus,
-                                 long_context_decode])
+                                 long_context_decode, train_tiny])
 def test_examples_default_to_the_card(mod, monkeypatch):
     """Without a card, the default ``--device cuda`` refuses to run
     instead of falling back to the CPU."""

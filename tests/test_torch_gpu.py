@@ -9,7 +9,9 @@ host tier on the card: a pinned offload, side-stream prefetch and swap-in
 round trip, and a host-tier engine whose generations equal the tier-off
 engine's; whisper-tiny's shapes in every kernel it runs, and a prefill
 and decode step of each of the SSM, hybrid and enc-dec families on the
-card against the same on the CPU.
+card against the same on the CPU; and training on the card: one fp32
+training step of tinyllama-1.1b at full width against the same step on
+the CPU, and a checkpoint saved from the card and restored onto it.
 
 These tests need an NVIDIA card with the CUDA toolkit; elsewhere they skip.
 This file imports no JAX, so it also runs where JAX is not installed:
@@ -766,3 +768,66 @@ def test_family_steps_card_match_cpu(cuda, arch):
     for a, b in zip(on_card, on_cpu):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
         assert torch.equal(a.argmax(-1), b.argmax(-1))
+
+
+def test_train_step_card_matches_cpu(cuda):
+    """tinyllama-1.1b at full width, 2 layers, fp32, TF32 off: the loss and
+    every gradient leaf of one training step on the card equal the CPU's
+    within the CPU parity tests' tolerances (the loss within 2e-5, each
+    leaf within 1e-4 of its largest magnitude); and an AdamW update of the
+    card's parameters by the CPU's gradients equals the CPU's update
+    within 2e-6."""
+    from repro_torch.data.pipeline import make_train_batches
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_loop as tl
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"), num_layers=2,
+                              dtype="float32")
+    model = build_model(cfg)
+    cpu = torch.device("cpu")
+    batch = next(make_train_batches(cfg, 2, 64, seed=4))
+    runs = {}
+    for dev in (cuda, cpu):
+        params = model.init(torch.Generator().manual_seed(3)).to(dev)
+        with tl.trainable(params):
+            loss, _ = model.train_loss(params, tl.to_device(batch, dev))
+            loss.backward()
+            grads = {n: p.grad.detach().clone()
+                     for n, p in params.named_parameters()}
+        runs[dev.type] = (params, loss.item(), grads)
+    (pc, lc, gc), (pp, lp, gp) = runs["cuda"], runs["cpu"]
+    assert abs(lc - lp) <= 2e-5
+    for n, g in gp.items():
+        tol = 1e-4 * float(g.abs().max())
+        torch.testing.assert_close(gc[n].cpu(), g, rtol=0, atol=tol)
+    sc, sp = opt.adamw_init(pc), opt.adamw_init(pp)
+    opt.adamw_update({n: g.to(cuda) for n, g in gp.items()}, sc, pc,
+                     lr=1e-3)
+    opt.adamw_update(gp, sp, pp, lr=1e-3)
+    for (n, a), (_, b) in zip(pc.named_parameters(), pp.named_parameters()):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=2e-6,
+                                   atol=2e-6)
+
+
+def test_checkpoint_round_trip_on_card(cuda, tmp_path):
+    """bf16 parameters and fp32 moments on the card, saved and restored
+    into fresh templates on the card: equal bit for bit."""
+    from repro_torch.training import checkpoint as ck
+    from repro_torch.training import optimizer as opt
+    cfg = get_config("granite-moe-1b-a400m").reduced()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(cuda).manual_seed(0), cuda)
+    grads = {n: torch.randn(p.shape, device=cuda).to(p.dtype)
+             for n, p in params.named_parameters()}
+    params, state = opt.adamw_update(grads, opt.adamw_init(params), params,
+                                     lr=1e-3)
+    path = ck.save_checkpoint(str(tmp_path), 1, params, state)
+    tmpl = model.init(torch.Generator(cuda).manual_seed(1), cuda)
+    step, p2, s2 = ck.restore_checkpoint(path, tmpl, opt.adamw_init(tmpl))
+    assert step == 1 and s2.step == 1
+    for (n, a), (_, b) in zip(params.state_dict().items(),
+                              p2.state_dict().items()):
+        assert b.is_cuda and torch.equal(a, b), n
+    for n, m in state.mu.items():
+        assert torch.equal(s2.mu[n], m) and torch.equal(s2.nu[n],
+                                                        state.nu[n]), n

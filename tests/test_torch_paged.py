@@ -199,8 +199,36 @@ def test_append_layer_matches_reference(dtype):
         (tj, tt), (lj, lt) = both(table), both(np.int32(lengths))
         kl = jpg.append_layer(pj.k[0], nj, tj, lj)
         pj = jpg.PagedKVCache(pj.k.at[0].set(kl), pj.v)
-        tpg.append_layer(pt.k[0], nt, tt, lt)
+        tpg.append_layer(pt.k[0], nt, tpg.append_index(tt, lt, BS))
         _same_pool(pt, pj)
+
+
+@pytest.mark.parametrize("threads", [1, 2, 4])
+def test_append_layer_repeated_rows_keep_the_last_writer(threads):
+    """Inactive slots of one length land on one row of the null page. The
+    reference keeps the last writer; so must the port, on any number of
+    threads: a plain torch scatter with repeated indices keeps any of
+    them, or a mix (at 2 or more threads and rows of 4 x 64, it does), and
+    inactive slots read that row back, so the MoE capacity ranks of a
+    decode step followed the thread count. 24 slots, 13 inactive, 20
+    draws."""
+    B, kh, d, bs = 24, 4, 64, 8
+    table = np.zeros((B, 2), np.int32)
+    table[::2, 0] = np.arange(1, 13)
+    lengths = np.full(B, 3, np.int32)
+    (tj, tt), (lj, lt) = both(table), both(lengths)
+    prev = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        for seed in range(20):
+            nj, nt = both(randn(seed, (B, kh, d)))
+            want = jpg.append_layer(jnp.zeros((13, bs, kh, d)), nj, tj, lj)
+            got = tpg.append_layer(torch.zeros(13, bs, kh, d), nt,
+                                   tpg.append_index(tt, lt, bs))
+            _exact(got, want)
+            _exact(got[0, 3], nt[B - 1])
+    finally:
+        torch.set_num_threads(prev)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
