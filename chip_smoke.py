@@ -152,7 +152,30 @@ Phases, each printed as it runs; any failure exits non-zero:
             mamba2 is profiled as in phase 6 (device time by kernel, idle
             share, host time, synchronizing calls).
 
-Phases 3m, 3w, 3f and 7 run last, after phase 6, so that phases 1-6 run as
+  8. disagg the disaggregated shared-KV pool (``core/disagg.py``) and
+            training under ``--host-mesh``: (a) ``router_scores``,
+            ``shared_chunk_attention`` and the routed ``lse_merge`` at
+            moska-llama3.1-8b's heads (32 over 8, D = 128) against their
+            plain versions, 64 decode queries over 64 chunks and over one
+            owner's 16, bf16 (2e-2) and fp32 (2e-5), masked rows 0 and
+            -1e30; (b) ``disaggregated_shared_attention`` in a world of one
+            over NCCL against ``shared_attention_batched`` with global
+            routing (fp32 3e-5, bf16 1e-3); (c) four owners spawned on the
+            one card over gloo (NCCL refuses two ranks on one device),
+            each owning 16 chunks of a one-layer 131,072-token store at
+            that width (512 MiB of bf16 K and V), 64 queries top-8 over
+            each owner's chunks: rank 0's merged output against the four
+            owners' partials composed here with the reference's combine
+            (bf16 1e-3, fp32 2e-5); printed: the call's wall (median of
+            8), its two all-reduces alone, and one process's batched
+            attention over all 64 chunks; (d) ``launch.train.run`` with
+            and without ``--host-mesh`` (FSDP over a world of one),
+            tinyllama-1.1b at full width and depth, bf16, 8 x 256, 10
+            steps: losses within 1e-3 relative, the largest gap, step p50
+            and peak memory printed. The launches of (b) and (c), every
+            rank's, count in the kernels' line.
+
+Phases 3m, 3w, 3f, 7 and 8 run last, after phase 6, so that phases 1-6 run as
 they ran before them (cuBLAS picks GEMM kernels by what the process ran
 earlier, and phase 6 counts kernels exactly). Each phase prints its
 seconds. It then prints the kernels' JSON line (each
@@ -241,6 +264,21 @@ TINY_STEPS, TINY_BATCH, TINY_SEQ = 100, 4, 256   # the example: 200 steps
 MOE_TRAIN_STEPS, FAMILY_TRAIN_STEPS = 10, 5
 FAMILY_TRAIN = (("recurrentgemma-9b", 3), ("whisper-tiny", None))
 RESUME_TOL = 1e-3                      # relative, steps after the resume
+
+# phase 8: the disaggregated shared-KV pool at moska-llama3.1-8b's width
+# (32 heads over 8 kv heads, D = 128): a one-layer store of 131,072 tokens
+# (64 chunks of 2,048, bf16: 512 MiB of K and V) split over 4 owners on
+# the one card, 64 decode queries routed top-8 over each owner's 16
+# chunks; then tinyllama trained under --host-mesh against the unmeshed
+# launcher
+DISAGG_ARCH, DISAGG_CORPUS, DISAGG_QUERIES = "moska-llama3.1-8b", 131072, 64
+DISAGG_OWNERS, DISAGG_REPS = 4, 8
+DISAGG_DEADLINE = 300                  # seconds for the spawned owners
+# bf16 errors measured 0 (one owner) and 6.1e-5 (four): a merged output
+# is ~1e-2, so a combine off by a factor or a missing sum fails 1e-3
+DISAGG_TOL = {torch.float32: 3e-5, torch.bfloat16: 1e-3}   # one owner
+OWNERS_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-3}   # four owners
+MESH_STEPS, MESH_TOL = 10, 1e-3        # relative, meshed vs unmeshed
 
 # phase 3h: the host tier's stream, pool and tier
 TIER_CORPUS, TIER_PROMPTS = 16384, 128
@@ -2450,6 +2488,271 @@ def phase_train(dev):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the disaggregated shared-KV pool, and training under a mesh
+# ---------------------------------------------------------------------------
+
+def disagg_inputs(cfg, dtype, dev, seed=0, corpus=None, queries=None):
+    """q (queries, H, D) and a one-layer store of ``corpus`` tokens
+    (default: DISAGG_QUERIES and DISAGG_CORPUS), (E, C, KH, D) K and V and
+    their mean-key embeddings, drawn on the device from ``seed`` (every
+    rank draws the same)."""
+    corpus, queries = corpus or DISAGG_CORPUS, queries or DISAGG_QUERIES
+    from repro_torch.core.shared_kv import chunk_embeddings
+    g = torch.Generator(device=dev).manual_seed(seed)
+    H, KH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    C = cfg.moska.chunk_size
+    E = corpus // C
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+    q, k, v = (randn(queries, H, D), randn(E, C, KH, D),
+               randn(E, C, KH, D))
+    return q, k, v, chunk_embeddings(k[None])[0]
+
+
+def combine_partials(outs, lses):
+    """The reference's cross-owner combine, in fp32, of the owners'
+    partials outs (P, B, H, D) and lses (P, B, H): weights exp(lse - max)
+    where an owner attended, 0 where it did not."""
+    m = lses.max(dim=0).values
+    w = torch.where(lses > -1e30 / 2, torch.exp(lses - m),
+                    torch.zeros_like(lses))
+    den = w.sum(dim=0)
+    out = (outs.float() * w[..., None]).sum(dim=0) \
+        / den.clamp_min(1e-37)[..., None]
+    lse = torch.where(den > 0, m + torch.log(den.clamp_min(1e-37)),
+                      torch.full_like(m, -1e30))
+    return out, lse
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _wall_ms(fn, dev, sync_all=None, n=DISAGG_REPS):
+    """Median host wall of ``fn`` to its device end over n calls after two
+    warm-ups (``sync_all``: a barrier over the ranks before each)."""
+    for _ in range(2):
+        fn()
+    walls = []
+    for _ in range(n):
+        if sync_all:
+            sync_all()
+        _sync(dev)
+        t = time.perf_counter()
+        fn()
+        _sync(dev)
+        walls.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(walls))
+
+
+def _disagg_rank(rank, world, tmp, cfg, dev, shape, backend):
+    """One owner of phase 8(c): gloo over CUDA tensors on the one card
+    (NCCL refuses two ranks on one device), or NCCL with a card a rank.
+    Draws the whole store (``shape``: disagg_inputs' corpus and queries),
+    keeps its chunk range, and runs ``disaggregated_shared_attention`` in
+    bf16 and fp32; times the call and its two all-reduces alone; writes
+    its launch counts, and rank 0 its outputs and times."""
+    import datetime
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.core import disagg
+    from repro_torch.kernels import ops
+    if dev.type == "cuda":
+        dev = torch.device("cuda", rank if backend == "nccl" else 0)
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"file://{tmp}/rdzv",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = init_device_mesh(dev.type, (world,),
+                                mesh_dim_names=("data",))
+        ops.reset_launches()
+        res = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, emb = disagg_inputs(cfg, dtype, dev, **shape)
+            kl, vl, el = disagg.local_chunks(k, v, emb, mesh)
+
+            def call():
+                return disagg.disaggregated_shared_attention(
+                    q, kl, vl, el, cfg.moska, mesh)
+            out, lse = call()
+            _sync(dev)
+            tag = str(dtype)[6:]
+            res[f"{tag}/out"], res[f"{tag}/lse"] = out.cpu(), lse.cpu()
+            res[f"{tag}/ms"] = _wall_ms(call, dev, dist.barrier)
+            B, H, D = q.shape
+            m = torch.zeros((B, H), device=dev)
+            buf = torch.zeros(B * H * D + B * H, device=dev)
+
+            def reduce():
+                dist.all_reduce(m, op=dist.ReduceOp.MAX)
+                dist.all_reduce(buf)
+            res[f"{tag}/allreduce_ms"] = _wall_ms(reduce, dev, dist.barrier)
+            del q, k, v, emb, kl, vl, el
+        res["launches"] = ops.launch_counts()
+        torch.save(res if rank == 0 else {"launches": res["launches"]},
+                   f"{tmp}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def disagg_one_rank(cfg, dev, mesh, counts):
+    """8(b): a world of one over NCCL: the owner of every chunk must equal
+    ``shared_attention_batched`` with global routing (the reference
+    test's check): fp32 within 3e-5, bf16 within 1e-3."""
+    from repro_torch.core import disagg, router
+    from repro_torch.core.shared_attention import shared_attention_batched
+    from repro_torch.kernels import ops
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, emb = disagg_inputs(cfg, dtype, dev)
+        ops.reset_launches()
+        out, lse = disagg.disaggregated_shared_attention(q, k, v, emb,
+                                                         cfg.moska, mesh)
+        counts.update(ops.launch_counts())
+        part = shared_attention_batched(
+            q[:, None], k, v, router.route(q, emb, cfg.moska.top_k_chunks),
+            capacity_factor=cfg.moska.query_capacity_factor)
+        torch.cuda.synchronize()
+        tol = DISAGG_TOL[dtype]
+        err = max(float((a.float() - b.float()).abs().max()) for a, b in
+                  ((out, part.out[:, 0]), (lse, part.lse[:, 0])))
+        say(f"[disagg] one rank (nccl) {str(dtype)[6:]:8s} vs batched "
+            f"attention, global routing: max_abs_err={err:.3e} tol={tol:g}")
+        check(err <= tol, ("disagg one rank", dtype, err))
+        del q, k, v, emb, part
+        torch.cuda.empty_cache()
+
+
+def disagg_owners(cfg, dev, counts, backend="gloo"):
+    """8(c): DISAGG_OWNERS ranks on the one card over gloo (or over NCCL,
+    a card a rank), each owning E / 4 chunks; rank 0's merged output
+    against the same owners' partials composed here (route + batched
+    attention per shard, the reference's combine in fp32); the four-rank
+    call's wall, the all-reduces' share of it, and one process's batched
+    attention over all chunks (global routing)."""
+    import tempfile
+    from repro_torch.core import router
+    from repro_torch.core.shared_attention import shared_attention_batched
+    torch.cuda.empty_cache()
+    shape = dict(corpus=DISAGG_CORPUS, queries=DISAGG_QUERIES)
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = torch.multiprocessing.start_processes(
+            _disagg_rank, args=(DISAGG_OWNERS, tmp, cfg, dev, shape,
+                                 backend),
+            nprocs=DISAGG_OWNERS, join=False, start_method="spawn")
+        deadline = time.monotonic() + DISAGG_DEADLINE
+        while not ctx.join(timeout=1):        # raises if a rank failed
+            if time.monotonic() > deadline:
+                for proc in ctx.processes:
+                    proc.kill()
+                check(False, ("disagg ranks outlasted", DISAGG_DEADLINE))
+        ranks = [torch.load(f"{tmp}/rank{r}.pt")
+                 for r in range(DISAGG_OWNERS)]
+    for r in ranks:
+        counts.update(r["launches"])
+    res = ranks[0]
+    K, cf = cfg.moska.top_k_chunks, cfg.moska.query_capacity_factor
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype)[6:]
+        q, k, v, emb = disagg_inputs(cfg, dtype, dev)
+        E = k.shape[0] // DISAGG_OWNERS
+        parts = [shared_attention_batched(
+            q[:, None], k[s:s + E], v[s:s + E],
+            router.route(q, emb[s:s + E], min(K, E)), capacity_factor=cf)
+            for s in range(0, k.shape[0], E)]
+        out, lse = combine_partials(
+            torch.stack([p.out[:, 0] for p in parts]),
+            torch.stack([p.lse[:, 0] for p in parts]))
+        tol = OWNERS_TOL[dtype]
+        err = max(float((a.float() - b.float().to(dev)).abs().max())
+                  for a, b in ((out.to(dtype), res[f"{tag}/out"]),
+                               (lse, res[f"{tag}/lse"])))
+        say(f"[disagg] {DISAGG_OWNERS} owners ({backend}) {tag:8s} vs their "
+            f"partials combined here: max_abs_err={err:.3e} tol={tol:g}")
+        check(err <= tol, ("disagg owners", dtype, err))
+
+        def batched():
+            return shared_attention_batched(
+                q[:, None], k, v, router.route(q, emb, K),
+                capacity_factor=cf)
+        one = _wall_ms(batched, dev)
+        ms, ar = res[f"{tag}/ms"], res[f"{tag}/allreduce_ms"]
+        byts = 2 * k.numel() * k.element_size()
+        say(f"[disagg] {tag}: {DISAGG_OWNERS}-owner call {ms:.3f} ms "
+            f"(median of {DISAGG_REPS}), its two all-reduces alone "
+            f"{ar:.3f} ms ({ar / ms:.1%}); one process over all "
+            f"{k.shape[0]} chunks {one:.3f} ms; the store's "
+            f"{byts} B at {HBM_BYTES_PER_S / 1e12:g} TB/s: "
+            f"{byts / HBM_BYTES_PER_S * 1e3:.3f} ms")
+        del q, k, v, emb, parts
+        torch.cuda.empty_cache()
+
+
+def mesh_train(dev):
+    """8(d): ``launch.train.run`` with and without ``--host-mesh`` (a world
+    of one over NCCL: FSDP over the data axis), tinyllama-1.1b at full
+    width and depth, bf16, TRAIN_BATCH x TRAIN_SEQ, MESH_STEPS steps:
+    every step's loss within MESH_TOL relative (bit for bit expected but
+    for the card's atomic scatter-adds); step p50 and peak memory of each;
+    no kernel of the port launched."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch
+    argv = ["--arch", ARCH, "--steps", str(MESH_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--device", dev.type]
+    hist = {}
+    for label, extra in (("unmeshed", []), ("--host-mesh", ["--host-mesh"])):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        n0 = ops.launch_counts()
+        hist[label] = launch.run(argv + extra, log_every=1)
+        check(ops.launch_counts() == n0, (label, "kernel launches"))
+        train_report(f"{ARCH} {label}", hist[label], TRAIN_BATCH, TRAIN_SEQ)
+    a, b = ([h["loss"] for h in hist[k]] for k in hist)
+    check(len(a) == len(b) == MESH_STEPS, ("mesh train steps", a, b))
+    gap = max(abs(x - y) / abs(x) for x, y in zip(a, b))
+    say(f"[disagg] --host-mesh vs unmeshed, {MESH_STEPS} steps: largest "
+        f"loss gap {gap:.3e} relative (tolerance {MESH_TOL}), bit for bit: "
+        f"{a == b}")
+    check(gap <= MESH_TOL, ("mesh train losses", gap))
+
+
+def phase_disagg(dev, errs):
+    """Phase 8: (a) the three kernels of the disaggregated path at
+    moska-llama3.1-8b's heads (G = 4, D = 128) against their plain
+    versions, at the single process's 64 chunks and at one owner's 16,
+    bf16 and fp32; (b) the path in a world of one over NCCL; (c) four
+    owners on the one card over gloo; (d) training under --host-mesh.
+    Returns the launches of (b) and (c)."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+    cfg = get_config(DISAGG_ARCH)
+    bf16, fp32 = torch.bfloat16, torch.float32
+    owner = DISAGG_CORPUS // DISAGG_OWNERS
+    check_kernels_at(
+        cfg, dev, "disagg", errs,
+        ("shared_chunk_attention", "lse_merge", "router_scores"),
+        decodes=[(dt, dict(corpus=c, slots=DISAGG_QUERIES))
+                 for dt in (bf16, fp32) for c in (DISAGG_CORPUS, owner)])
+    counts = collections.Counter()
+    created = init_distributed(dev.type)
+    try:
+        disagg_one_rank(cfg, dev, make_host_mesh(device=dev.type), counts)
+        disagg_owners(cfg, dev, counts)
+        mesh_train(dev)
+    finally:
+        if created:
+            dist.destroy_process_group()
+    say(f"[disagg] launches: {dict(counts)}")
+    for name in ("shared_chunk_attention", "lse_merge", "router_scores"):
+        check(counts[name] > 0, ("disagg path launched no", name))
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is present", file=sys.stderr)
@@ -2491,6 +2794,7 @@ def main() -> int:
     launches.update(run("3w widths", phase_widths, dev, errs))
     launches.update(run("3f families", phase_families, dev, errs))
     run("7 train", phase_train, dev)
+    launches.update(run("8 disagg", phase_disagg, dev, errs))
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["max_abs_err"] = errs[row["name"]]

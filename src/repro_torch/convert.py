@@ -20,6 +20,7 @@ from typing import Dict, Iterator, Mapping, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import DENSE, MOE, VLM, ModelConfig
 from repro_torch.models.dense import DenseLM
@@ -83,7 +84,12 @@ def from_reference_params(cfg: ModelConfig, tree: dict, device=None):
 
 
 def _to_numpy(t: torch.Tensor, bf16_as_float32: bool) -> np.ndarray:
-    t = t.detach().cpu()
+    """The whole value of ``t``: a ``DTensor`` is gathered from its
+    shards, a collective that every rank of its mesh must join."""
+    t = t.detach()
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
+    t = t.cpu()
     if t.dtype != torch.bfloat16:
         return t.numpy().copy()
     if bf16_as_float32:

@@ -5,10 +5,15 @@ together) for ``sm_90a`` and linked into one shared library with a plain C
 interface. The build lands in ``build/kernels-<hash>/`` at the repository
 root, keyed by a hash of the sources and flags, at first use; a later
 process with the same sources loads the library without compiling.
+Processes that start together (the ranks of one job) take a file lock
+beside the build directory first: one compiles, the others wait for it
+and load its library.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -82,9 +87,26 @@ def _nvcc() -> str:
     return path
 
 
+@contextlib.contextmanager
+def _locked(path: Path):
+    """An exclusive ``flock`` on ``path`` for the duration of the block."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build() -> BuildInfo:
     """Compile the library unless a build of the same sources exists."""
-    out_dir = BUILD_ROOT / f"kernels-{source_key()}"
+    key = source_key()
+    with _locked(BUILD_ROOT / f"kernels-{key}.lock"):
+        return _build(BUILD_ROOT / f"kernels-{key}")
+
+
+def _build(out_dir: Path) -> BuildInfo:
     lib = out_dir / LIB_NAME
     cus, _ = _sources()
     if lib.exists():

@@ -3,25 +3,36 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \
         --steps 200 --batch 8 --seq 256 [--reduced] [--device cpu] \
         [--ckpt-dir DIR --ckpt-every N]
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch tinyllama-1.1b --reduced --host-mesh --device cpu
 
-Port of the reference ``launch/train.py`` on one device: the card by
-default, or the CPU with ``--device cpu``. The reference's ``--host-mesh``
-and ``--multi-pod`` run its FSDP + TP sharding rules over a device mesh;
-the port has no sharding yet, so it refuses them rather than train on one
-device under a flag that promises a mesh.
+Port of the reference ``launch/train.py``: the card by default, or the CPU
+with ``--device cpu``. ``--host-mesh`` trains under the training rules
+over a ("data", "model") mesh of every rank of the process group (nccl on
+the card, gloo on the CPU; a world of one without ``torchrun``): FSDP over
+``data``. ``--multi-pod`` (the reference's production mesh) is refused:
+it waits for the production mesh of ROADMAP Queue 1 item 7. ``main``
+returns the last logged record; ``run`` returns every one.
 """
 from __future__ import annotations
 
 import argparse
+from typing import Dict, List
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import make_train_batches
+from repro_torch.launch.mesh import init_distributed, make_host_mesh
+from repro_torch.sharding import TRAIN_RULES, use_rules
 from repro_torch.training.train_loop import TrainLoopConfig, train
 
 
-def main(argv=None) -> dict:
+def run(argv=None, log_every: int = 10) -> List[Dict[str, float]]:
+    """Train as the command line ``argv`` asks; the history of records
+    logged every ``log_every`` steps and at the last (every rank logs the
+    same)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--steps", type=int, default=100)
@@ -31,18 +42,16 @@ def main(argv=None) -> dict:
     ap.add_argument("--reduced", action="store_true",
                     help="use the CPU-smoke reduced config")
     ap.add_argument("--host-mesh", action="store_true",
-                    help="refused: needs the sharding port")
+                    help="FSDP over a mesh of every rank (torchrun)")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="refused: needs the sharding port")
+                    help="refused: needs the production mesh")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
-    for flag in ("host_mesh", "multi_pod"):
-        if getattr(args, flag):
-            ap.error(f"--{flag.replace('_', '-')}: the port trains on one "
-                     "device; meshes need the sharding port (ROADMAP "
-                     "Queue 1)")
+    if args.multi_pod:
+        ap.error("--multi-pod: the production mesh is not ported yet "
+                 "(ROADMAP Queue 1 item 7)")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is present")
 
@@ -52,12 +61,31 @@ def main(argv=None) -> dict:
 
     loop_cfg = TrainLoopConfig(
         num_steps=args.steps, batch_size=args.batch, seq_len=args.seq,
-        lr=args.lr, ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)
+        lr=args.lr, ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+        log_every=log_every)
     batches = make_train_batches(cfg, args.batch, args.seq)
-    out = train(cfg, loop_cfg, batches, device=args.device)
-    final = out["history"][-1] if out["history"] else {}
-    print("final:", final)
-    return final
+    rank = 0
+    if not args.host_mesh:
+        out = train(cfg, loop_cfg, batches, device=args.device)
+    else:
+        created = init_distributed(args.device)
+        try:
+            rank = dist.get_rank()
+            mesh = make_host_mesh(device=args.device)
+            with use_rules(TRAIN_RULES):
+                out = train(cfg, loop_cfg, batches, device=args.device,
+                            mesh=mesh)
+        finally:
+            if created:
+                dist.destroy_process_group()
+    if rank == 0:
+        print("final:", out["history"][-1] if out["history"] else {})
+    return out["history"]
+
+
+def main(argv=None) -> Dict[str, float]:
+    hist = run(argv)
+    return hist[-1] if hist else {}
 
 
 if __name__ == "__main__":

@@ -42,6 +42,7 @@ from repro_torch.kvcache.paged import (PagedKVCache, append_index,
                                       append_layer)
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
+from repro_torch.sharding import data_parallel as dp
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -543,7 +544,10 @@ def lm_loss(cfg: ModelConfig, params, hidden: torch.Tensor,
     never live at once. hidden: (B, S, d); targets (int64) and mask:
     (B, S). Under autograd, with more than one chunk, each chunk's logits
     are recomputed in the backward pass rather than kept. ``params``: a
-    ``DenseLM``, or a family's tree whose tied embedding unembeds."""
+    ``DenseLM``, or a family's tree whose tied embedding unembeds. In a
+    data-parallel step the sum over this rank's rows is divided by the
+    mask count of the global batch: the ranks' losses add up to the
+    global mean."""
     S = hidden.shape[1]
     W = (params.unembed_matrix() if isinstance(params, DenseLM)
          else params["embed"]["embed"])
@@ -553,7 +557,7 @@ def lm_loss(cfg: ModelConfig, params, hidden: torch.Tensor,
     total = hidden.new_zeros((), dtype=torch.float32)
     for a, b in pieces:
         total = total + ce(hidden[:, a:b], targets[:, a:b], mask[:, a:b], W)
-    return total / torch.clamp(mask.sum(), min=1.0)
+    return total / torch.clamp(dp.global_sum(mask.sum()), min=1.0)
 
 
 def train_loss(cfg: ModelConfig, params: DenseLM, batch, *,

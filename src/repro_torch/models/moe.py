@@ -8,6 +8,12 @@ t*K .. t*K+K-1), and a slot's position in its expert's batch is its rank
 among the slots routed there, so earlier rows win capacity. The capacity
 counts every row handed in (padding and free slots too), as the
 reference's does: the same rows give the same drops.
+
+In a data-parallel training step (``sharding.data_parallel``) each rank
+holds its rows of the global batch, in row order, and the layer computes
+what the reference computes over the global batch: the capacity of the
+global token count, each slot's position after the slots of earlier
+ranks, and the aux loss's batch means over every rank.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ import torch.nn.functional as F
 from repro_torch import obs
 from repro_torch.configs.base import MoEConfig
 from repro_torch.core.router import top_k
+from repro_torch.sharding import data_parallel as dp
 
 
 @torch.no_grad()
@@ -59,9 +66,11 @@ def moe_ffn(x: torch.Tensor, p, cfg: MoEConfig,
     """
     T, d = x.shape
     E, K = cfg.num_experts, cfg.top_k
+    sharded = dp.data_group() is not None
+    T_all = T * dp.world()                 # the ranks hold equal rows
     if capacity is None:
-        capacity = moe_capacity(T, cfg)
-    capacity = min(capacity, T * K)
+        capacity = moe_capacity(T_all, cfg)
+    capacity = min(capacity, T_all * K)
 
     probs = torch.softmax(x.float() @ p["router"], dim=-1)        # (T, E)
     gates, ids = top_k(probs, K)                                  # (T, K)
@@ -72,20 +81,27 @@ def moe_ffn(x: torch.Tensor, p, cfg: MoEConfig,
         # load-balancing aux loss (Switch): E * sum(frac_tokens * frac_probs)
         me = probs.mean(dim=0)
         ce = F.one_hot(ids[:, 0], E).float().mean(dim=0)
+        if sharded:
+            me, ce = dp.global_mean(me), dp.global_sum(ce) / dp.world()
         aux = E * (me * ce).sum() * cfg.aux_loss_weight
 
     flat = ids.reshape(-1)                                        # (T*K,)
     onehot = F.one_hot(flat, E)
     pos = (onehot.cumsum(dim=0) - 1).mul_(onehot).sum(dim=1)
-    keep = pos < capacity
-    row = torch.where(keep, pos, capacity)                        # trash row
+    if sharded:
+        # a slot's place among its expert's slots of the global batch
+        keep = pos + dp.ranks_before(onehot.sum(dim=0))[flat] < capacity
+    else:
+        keep = pos < capacity
+    rows = min(capacity, T * K)            # this rank's kept slots fit
+    row = torch.where(keep, pos, rows)                            # trash row
     if rec is not None:
         rec.inc("moe/dispatched_slots", keep.sum(dtype=torch.float32))
         rec.inc("moe/routed_slots", T * K)
 
-    xe = x.new_zeros((E, capacity + 1, d))
+    xe = x.new_zeros((E, rows + 1, d))
     xe[flat, row] = x[:, None].expand(T, K, d).reshape(T * K, d)
-    xe = xe[:, :capacity]
+    xe = xe[:, :rows]
     h = F.silu(torch.bmm(xe, p["e_gate"])) * torch.bmm(xe, p["e_up"])
     ye = F.pad(torch.bmm(h, p["e_down"]), (0, 0, 0, 1))          # trash: 0
 

@@ -9,6 +9,10 @@ joined by ``/`` (the dense family's layers stacked into ``(L, ...)``
 leaves; the optimizer's ``.step``, ``.mu/<path>`` and ``.nu/<path>``), so
 a reference checkpoint restores into the port and a port checkpoint
 restores in the reference.
+
+Under FSDP the parameters and moments are ``DTensor`` shards: every rank
+joins the gathers of a save and rank 0 writes the whole tensors; a restore
+reads the whole leaves on every rank and keeps each rank's shard.
 """
 from __future__ import annotations
 
@@ -19,7 +23,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.convert import reference_paths, to_reference_params
 from repro_torch.training.optimizer import AdamWState
@@ -47,26 +53,40 @@ def _ref_flat(params: nn.Module, values=None) -> Dict[str, np.ndarray]:
 def save_checkpoint(ckpt_dir: str, step: int, params: nn.Module,
                     opt_state: Optional[AdamWState] = None,
                     extra: Optional[Dict[str, Any]] = None) -> str:
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Write step ``step``'s checkpoint; returns its directory. Sharded
+    parameters: every rank must call it (the leaves are gathered), rank 0
+    writes, and the ranks leave together."""
+    sharded = any(isinstance(p, DTensor) for p in params.parameters())
+    writer = not sharded or dist.get_rank() == 0
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
-    tmp = tempfile.mkdtemp(dir=ckpt_dir)
-    np.savez(os.path.join(tmp, "params.npz"), **_ref_flat(params))
+    if writer:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        tmp = tempfile.mkdtemp(dir=ckpt_dir)
+    flat = _ref_flat(params)
+    if writer:
+        np.savez(os.path.join(tmp, "params.npz"), **flat)
+    del flat
     if opt_state is not None:
         opt = {".step": np.asarray(opt_state.step, np.int32)}
         for field in ("mu", "nu"):
             for key, a in _ref_flat(params, getattr(opt_state,
                                                     field)).items():
                 opt[f".{field}/{key}"] = a
-        np.savez(os.path.join(tmp, "opt.npz"), **opt)
-    meta = {"step": int(step), **(extra or {})}
-    with open(os.path.join(tmp, "meta.json"), "w") as f:
-        json.dump(meta, f)
-    if os.path.exists(path):
-        raise FileExistsError(path)
-    os.rename(tmp, path)
-    # refresh "latest" pointer
-    with open(os.path.join(ckpt_dir, "LATEST"), "w") as f:
-        f.write(os.path.basename(path))
+        if writer:
+            np.savez(os.path.join(tmp, "opt.npz"), **opt)
+        del opt
+    if writer:
+        meta = {"step": int(step), **(extra or {})}
+        with open(os.path.join(tmp, "meta.json"), "w") as f:
+            json.dump(meta, f)
+        if os.path.exists(path):
+            raise FileExistsError(path)
+        os.rename(tmp, path)
+        # refresh "latest" pointer
+        with open(os.path.join(ckpt_dir, "LATEST"), "w") as f:
+            f.write(os.path.basename(path))
+    if sharded:
+        dist.barrier()
     return path
 
 
@@ -94,7 +114,12 @@ def _load(params: nn.Module, flat, prefix: str,
         if tuple(src.shape) != tuple(t.shape):
             raise ValueError(f"{key}: shape {tuple(src.shape)} != "
                              f"{tuple(t.shape)}")
-        t.copy_(src.to(t.dtype))
+        src = src.to(t.device, t.dtype)
+        if isinstance(t, DTensor):                # keep this rank's shard
+            src = distribute_tensor(src, t.device_mesh,
+                                    t.placements).to_local()
+            t = t.to_local()
+        t.copy_(src)
 
 
 def restore_checkpoint(path: str, params_template: nn.Module,
@@ -102,7 +127,8 @@ def restore_checkpoint(path: str, params_template: nn.Module,
                        ) -> Tuple[int, nn.Module, Optional[AdamWState]]:
     """Load a checkpoint into ``params_template`` (and the moments of
     ``opt_template``) in place, each leaf cast to the template's dtype and
-    kept on its device. Returns (step, params, opt state or None)."""
+    kept on its device (a ``DTensor``: this rank's shard of it). Returns
+    (step, params, opt state or None)."""
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
     with np.load(os.path.join(path, "params.npz")) as pf:

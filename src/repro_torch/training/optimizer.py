@@ -13,6 +13,11 @@ in place, one leaf at a time, so no more than one leaf's fp32
 temporaries live at once (the reference's functional update returns new
 trees). Scalars that the reference computes in fp32 (the schedule, the
 bias corrections) are computed in fp32 here too.
+
+Under FSDP the parameters, their gradients and the moments are
+``DTensor`` shards: the update is elementwise, so it runs on each rank's
+local shards where they lie, and the global norm adds every rank's sum
+of squares.
 """
 from __future__ import annotations
 
@@ -20,7 +25,9 @@ import math
 from typing import Callable, Dict, NamedTuple, Tuple, Union
 
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 Moments = Dict[str, torch.Tensor]
 
@@ -57,13 +64,26 @@ def cosine_schedule(base_lr: float, warmup: int, total: int
     return lr
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor``'s shard on this rank (a view), or the tensor itself."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def global_norm(grads: Moments) -> torch.Tensor:
     """sqrt of the sum of every gradient's fp32 squares: a 0-dim fp32
-    tensor on the gradients' device (no host sync)."""
-    total = 0
+    tensor on the gradients' device (no host sync). Sharded gradients
+    (``DTensor``) add their local squares, summed over the ranks of their
+    mesh once; the others are whole on every rank and count once."""
+    sharded, whole, group = 0, 0, None
     for g in grads.values():
-        total = total + torch.sum(torch.square(g.float()))
-    return torch.sqrt(total)
+        sq = torch.sum(torch.square(_local(g).float()))
+        if isinstance(g, DTensor):
+            sharded, group = sharded + sq, g.device_mesh.get_group()
+        else:
+            whole = whole + sq
+    if group is not None:
+        dist.all_reduce(sharded, group=group)
+    return torch.sqrt(sharded + whole)
 
 
 @torch.no_grad()
@@ -83,10 +103,11 @@ def adamw_update(grads: Moments, state: AdamWState, params: nn.Module, *,
     bc1 = float(1 - torch.pow(_f32(b1), _f32(step)))
     bc2 = float(1 - torch.pow(_f32(b2), _f32(step)))
     for name, p in params.named_parameters():
-        m, n = state.mu[name], state.nu[name]
-        g = grads[name].float() * scale
+        m, n = _local(state.mu[name]), _local(state.nu[name])
+        g = _local(grads[name]).float() * scale
         m.mul_(b1).add_((1 - b1) * g)
         n.mul_(b2).add_((1 - b2) * g * g)
+        p = _local(p)
         pf = p.float()
         delta = (m / bc1) / (torch.sqrt(n / bc2) + eps) + weight_decay * pf
         p.copy_(pf - lr_t * delta)

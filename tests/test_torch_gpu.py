@@ -9,9 +9,14 @@ host tier on the card: a pinned offload, side-stream prefetch and swap-in
 round trip, and a host-tier engine whose generations equal the tier-off
 engine's; whisper-tiny's shapes in every kernel it runs, and a prefill
 and decode step of each of the SSM, hybrid and enc-dec families on the
-card against the same on the CPU; and training on the card: one fp32
+card against the same on the CPU; training on the card: one fp32
 training step of tinyllama-1.1b at full width against the same step on
-the CPU, and a checkpoint saved from the card and restored onto it.
+the CPU, and a checkpoint saved from the card and restored onto it; and
+the disaggregated path on the card (moska-llama3.1-8b's G = 4 at D = 128
+in the three kernels it runs, ``disaggregated_shared_attention`` in a
+world of one over NCCL), two training steps under a mesh against the
+unmeshed steps, and granite-moe trained by a gloo world of 2 on the card
+(remat on) against the unmeshed run.
 
 These tests need an NVIDIA card with the CUDA toolkit; elsewhere they skip.
 This file imports no JAX, so it also runs where JAX is not installed:
@@ -82,6 +87,8 @@ SHARED_SHAPES = [
     (3, 8, 64, 8, 128, 100),    # internvl2, G = 8, D = 128
     (3, 8, 96, 8, 128, 100),    # mistral-large, G = 12, D = 128
     (4, 64, 6, 6, 64, 375),     # whisper-tiny, C = 375
+    (4, 16, 32, 8, 128, 256),   # moska-llama3.1-8b, G = 4, D = 128
+    (16, 64, 32, 8, 128, 2048),  # its disaggregated owner: 16 chunks
 ]
 # Where a shape is named here, chunk e has its first (e % 3) * width slots
 # valid and no other (the routed prefill fills each chunk's slots from 0:
@@ -405,6 +412,7 @@ ROUTED_SHAPES = [
     (48, 1, 64, 128, 4, 8),       # internvl2's
     (48, 1, 96, 128, 4, 8),       # mistral-large's
     (256, 1, 6, 64, 64, 2),       # whisper's: 64 queries, top-2 of 4 chunks
+    (1024, 1, 32, 128, 64, 8),    # moska-llama3.1-8b's owner: 64 queries
 ]
 
 
@@ -449,6 +457,8 @@ ROUTER_SHAPES = [
     (8, 64, 8, 128, 8),         # internvl2, G = 8, D = 128
     (8, 96, 8, 128, 8),         # mistral-large, G = 12, D = 128
     (64, 6, 6, 64, 4),          # whisper-tiny, E = 4
+    (64, 32, 8, 128, 16),       # moska-llama3.1-8b's owner, G = 4, D = 128
+    (64, 32, 8, 128, 64),       # its whole store
 ]
 ROUTER_OFFSET = {(7, 8, 2, 16, 9)}
 
@@ -831,3 +841,215 @@ def test_checkpoint_round_trip_on_card(cuda, tmp_path):
     for n, m in state.mu.items():
         assert torch.equal(s2.mu[n], m) and torch.equal(s2.nu[n],
                                                         state.nu[n]), n
+
+
+@pytest.fixture
+def nccl_world_of_one(cuda):
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+    assert init_distributed("cuda")
+    try:
+        yield make_host_mesh(device="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_disagg_world_of_one_matches_batched(nccl_world_of_one, dtype):
+    """One owner of every chunk over NCCL, at moska-llama3.1-8b's heads
+    (64 queries, 16 chunks of 2,048): equal to the batched attention with
+    global routing (fp32 3e-5, bf16 1e-3: a world of one's merge is exact,
+    w = 1), through the kernels."""
+    from repro_torch.core import router
+    from repro_torch.core.disagg import disaggregated_shared_attention
+    from repro_torch.core.shared_attention import shared_attention_batched
+    from repro_torch.core.shared_kv import chunk_embeddings
+    cfg = get_config("moska-llama3.1-8b")
+    g = np.random.default_rng(8)
+    H, KH, D, C = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                   cfg.moska.chunk_size)
+    cuda = torch.device("cuda")
+    q = _randn(g, (64, H, D), dtype, cuda)
+    k = _randn(g, (16, C, KH, D), dtype, cuda)
+    v = _randn(g, (16, C, KH, D), dtype, cuda)
+    emb = chunk_embeddings(k[None])[0]
+    n0 = ops.shared_chunk_attention.launches
+    out, lse = disaggregated_shared_attention(q, k, v, emb, cfg.moska,
+                                              nccl_world_of_one)
+    assert ops.shared_chunk_attention.launches == n0 + 1
+    part = shared_attention_batched(
+        q[:, None], k, v, router.route(q, emb, cfg.moska.top_k_chunks),
+        capacity_factor=cfg.moska.query_capacity_factor)
+    torch.cuda.synchronize()
+    tol = 3e-5 if dtype == torch.float32 else 1e-3
+    _close(out, part.out[:, 0], tol)
+    _close(lse, part.lse[:, 0], 3e-5)
+
+
+def _loss_after(cfg, params, batch):
+    """The loss of ``params`` (``DTensor`` leaves made whole) on one more
+    batch, without gradients."""
+    from repro_torch.training.train_loop import to_device
+    named = dict(params.named_parameters())
+    dev = next(iter(named.values())).device
+    fresh = build_model(cfg).init(torch.Generator(dev).manual_seed(0), dev)
+    with torch.no_grad():
+        for n, p in fresh.named_parameters():
+            q = named[n]
+            p.copy_(q.full_tensor() if hasattr(q, "full_tensor") else q)
+        loss, _ = build_model(cfg).train_loss(fresh, to_device(batch, dev),
+                                              remat=False)
+    return float(loss)
+
+
+def _assert_trained_alike(cfg, loop, a, b, batch, param_rel=1e-5,
+                          loss_rel=1e-5):
+    """Two runs of ``loop``'s steps: their final parameters within
+    ``param_rel`` of each leaf's scale, the larger of its largest element
+    and the sum of the steps' learning rates (how far AdamW can move an
+    element: the scale of a leaf that starts at 0), and their losses on
+    ``batch`` within ``loss_rel`` relative. Prints the largest gaps."""
+    from repro_torch.training.optimizer import cosine_schedule
+    lr = cosine_schedule(loop.lr, loop.warmup, loop.num_steps)
+    moved = sum(lr(s) for s in range(1, loop.num_steps + 1))
+    pb = dict(b["params"].named_parameters())
+    gaps = {}
+    for n, p in a["params"].named_parameters():
+        q = pb[n]
+        q = q.full_tensor() if hasattr(q, "full_tensor") else q
+        scale = max(float(p.abs().max()), moved)
+        gaps[n] = float((p - q).abs().max()) / scale
+    la, lb = _loss_after(cfg, a["params"], batch), \
+        _loss_after(cfg, b["params"], batch)
+    worst = max(gaps, key=gaps.get)
+    print(f"largest parameter gap {gaps[worst]:.3e} of its scale ({worst}),"
+          f" loss gap {abs(la - lb) / abs(la):.3e} relative")
+    assert gaps[worst] <= param_rel, worst
+    assert abs(la - lb) <= loss_rel * abs(la)
+
+
+def test_mesh_train_step_matches_unmeshed(nccl_world_of_one):
+    """tinyllama-1.1b at full width, 2 layers, fp32, TF32 off: two steps
+    under FSDP over a world of one and two without. The first loss is the
+    same forward (within 1e-6 relative), the second within 1e-4; the final
+    parameters within 1e-5 of each leaf's scale, and their loss on a third
+    batch within 1e-5 relative (the card's atomic scatter-adds reorder
+    the embedding's gradient sums)."""
+    from repro_torch.data.pipeline import make_train_batches
+    from repro_torch.sharding import TRAIN_RULES, use_rules
+    from repro_torch.training.train_loop import TrainLoopConfig, train
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"), num_layers=2,
+                              dtype="float32")
+    loop = TrainLoopConfig(num_steps=2, batch_size=2, seq_len=64,
+                           log_every=1, lr=1e-3, warmup=0)
+    runs = []
+    for mesh in (None, nccl_world_of_one):
+        with use_rules(TRAIN_RULES if mesh else None):
+            runs.append(train(cfg, loop, make_train_batches(cfg, 2, 64),
+                              device="cuda", mesh=mesh))
+    (la0, la1), (lb0, lb1) = ([h["loss"] for h in r["history"]]
+                              for r in runs)
+    assert abs(la0 - lb0) <= 1e-6 * abs(la0)
+    assert abs(la1 - lb1) <= 1e-4 * abs(la1)
+    batches = make_train_batches(cfg, 2, 64)
+    next(batches), next(batches)
+    _assert_trained_alike(cfg, loop, *runs, next(batches))
+
+
+MESH_ARCH, MESH_STEPS, MESH_BATCH, MESH_SEQ = (
+    "granite-moe-1b-a400m", 3, 4, 64)
+
+
+def _mesh_cfg():
+    """granite-moe reduced, fp32, capacity factor 0.5: experts drop
+    slots, so the global capacity and positions decide which."""
+    cfg = dataclasses.replace(get_config(MESH_ARCH).reduced(),
+                              dtype="float32")
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=0.5))
+
+
+def _mesh_loop():
+    from repro_torch.training.train_loop import TrainLoopConfig
+    return TrainLoopConfig(num_steps=MESH_STEPS, batch_size=MESH_BATCH,
+                           seq_len=MESH_SEQ, log_every=1)
+
+
+def _gloo_card_rank(rank, world, out_dir):
+    """One rank of a gloo world on the one card: ``train`` under the mesh,
+    remat on; each rank writes the history and its parameter shards."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import make_train_batches
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import TRAIN_RULES, use_rules
+    from repro_torch.training.train_loop import train
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/rdzv",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        cfg, loop = _mesh_cfg(), _mesh_loop()
+        assert loop.remat
+        with use_rules(TRAIN_RULES):
+            out = train(cfg, loop, make_train_batches(
+                cfg, MESH_BATCH, MESH_SEQ), device="cuda",
+                mesh=make_host_mesh(device="cuda"))
+        # each rank's shards (FSDP's dim, or None where a leaf is whole):
+        # ``full_tensor``'s functional all-gather is not run over gloo
+        shards = {n: (p.to_local().detach().cpu(), p.placements[0].dim)
+                  if hasattr(p, "to_local") else (p.detach().cpu(), None)
+                  for n, p in out["params"].named_parameters()}
+        torch.save({"history": out["history"], "shards": shards},
+                   f"{out_dir}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_mesh_train_world_of_two_on_the_card(cuda, tmp_path):
+    """granite-moe in a gloo world of 2 on the one card (NCCL refuses two
+    ranks on one device), remat on: autograd recomputes each MoE layer on
+    its device thread, which must take the global capacity, positions and
+    aux means as the forward did. Every step's loss and ``moe_aux`` within
+    1e-5 relative of the unmeshed run on the card, the final parameters
+    within 1e-4 of each leaf's scale, their loss on the next batch within
+    1e-5 relative. The ranks' GEMMs take half the rows, so their fp32
+    sums differ from the single process's more than on the CPU: a norm
+    scale's three AdamW steps differed by 1.6e-5 of its scale."""
+    import time
+    from repro_torch.data.pipeline import make_train_batches
+    from repro_torch.training.train_loop import train
+    ctx = torch.multiprocessing.start_processes(
+        _gloo_card_rank, args=(2, str(tmp_path)), nprocs=2, join=False,
+        start_method="spawn")
+    deadline = time.monotonic() + 300
+    while not ctx.join(timeout=1):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            raise TimeoutError("2 ranks outlasted 300 s")
+    ranks = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+    got = {"history": ranks[0]["history"], "params": {}}
+    for n, (t, dim) in ranks[0]["shards"].items():
+        got["params"][n] = t if dim is None else torch.cat(
+            [t, ranks[1]["shards"][n][0]], dim=dim)
+    cfg = _mesh_cfg()
+    want = train(cfg, _mesh_loop(), make_train_batches(cfg, MESH_BATCH,
+                                                       MESH_SEQ),
+                 device="cuda")
+    for key in ("loss", "moe_aux"):
+        a = [h[key] for h in got["history"]]
+        b = [h[key] for h in want["history"]]
+        assert len(a) == MESH_STEPS and all(
+            abs(x - y) <= 1e-5 * abs(y) for x, y in zip(a, b)), (key, a, b)
+    meshed = copy.deepcopy(want["params"])
+    with torch.no_grad():
+        for n, p in meshed.named_parameters():
+            p.copy_(got["params"][n].to(cuda))
+    batches = make_train_batches(cfg, MESH_BATCH, MESH_SEQ)
+    for _ in range(MESH_STEPS):
+        next(batches)
+    _assert_trained_alike(cfg, _mesh_loop(), {"params": meshed}, want,
+                          next(batches), param_rel=1e-4)

@@ -490,11 +490,14 @@ def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((ROOT / "src/repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
-    # the new modules of the dense family's slice, examples included
+    # the new modules of the dense family's slice, examples included, and
+    # of the disaggregation slice
     for rel in ("models/moe.py", "examples/quickstart.py",
                 "examples/serve_shared_corpus.py",
                 "examples/long_context_decode.py",
-                "configs/granite_moe_1b_a400m.py"):
+                "configs/granite_moe_1b_a400m.py", "core/disagg.py",
+                "sharding/specs.py", "sharding/data_parallel.py",
+                "launch/mesh.py"):
         assert ROOT / "src/repro_torch" / rel in files, rel
     for path in files:
         for mod in _imports(path):

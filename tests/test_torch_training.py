@@ -356,7 +356,9 @@ def test_launch_train_refuses_without_card_or_mesh(monkeypatch):
     monkeypatch.setattr("torch.cuda.is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
         tlaunch.main(["--arch", "tinyllama-1.1b", "--reduced"])
-    for flag in ("--host-mesh", "--multi-pod"):
-        with pytest.raises(SystemExit):
-            tlaunch.main(["--arch", "tinyllama-1.1b", "--reduced",
-                          "--device", "cpu", flag])
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        tlaunch.main(["--arch", "tinyllama-1.1b", "--reduced",
+                      "--host-mesh"])
+    with pytest.raises(SystemExit):
+        tlaunch.main(["--arch", "tinyllama-1.1b", "--reduced", "--device",
+                      "cpu", "--multi-pod"])
