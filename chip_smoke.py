@@ -175,9 +175,20 @@ Phases, each printed as it runs; any failure exits non-zero:
             and peak memory printed. The launches of (b) and (c), every
             rank's, count in the kernels' line.
 
-Phases 3m, 3w, 3f, 7 and 8 run last, after phase 6, so that phases 1-6 run as
-they ran before them (cuBLAS picks GEMM kernels by what the process ran
-earlier, and phase 6 counts kernels exactly). Each phase prints its
+  9. launch the launch tools: (a) a meshed checkpoint in a gloo world of 2
+            on the one card (tinyllama reduced, fp32, deterministic
+            algorithms): 5 steps saved at step 3, a fresh run resumed from
+            that save, its losses and every parameter and moment shard bit
+            for bit the uninterrupted run's; (b) the dry run's record of
+            tinyllama-1.1b x decode_32k on the 16x16 mesh traced on fake
+            CUDA tensors and on fake CPU tensors: flops, traffic,
+            collective bytes and peak equal; (c) phase 6's slotted decode
+            step traced by the dry run's counter: its flops, traffic and
+            bound beside phase 6's measured device busy and wall.
+
+Phases 3m, 3w, 3f, 7, 8 and 9 run last, after phase 6, so that phases 1-6
+run as they ran before them (cuBLAS picks GEMM kernels by what the process
+ran earlier, and phase 6 counts kernels exactly). Each phase prints its
 seconds. It then prints the kernels' JSON line (each
 kernel's launches summed over every phase), the card's name and power
 limit, and, as the last line, the device JSON. Without a card it exits 1 and prints no
@@ -279,6 +290,17 @@ DISAGG_DEADLINE = 300                  # seconds for the spawned owners
 DISAGG_TOL = {torch.float32: 3e-5, torch.bfloat16: 1e-3}   # one owner
 OWNERS_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-3}   # four owners
 MESH_STEPS, MESH_TOL = 10, 1e-3        # relative, meshed vs unmeshed
+
+# phase 9: the launch tools. (a) a meshed checkpoint in a gloo world of 2
+# on the one card: tinyllama reduced, fp32, LAUNCH_STEPS steps saved at
+# LAUNCH_SAVE and resumed from there; (b) one dry-run record on the card
+# machine and the same traced on the CPU; (c) the served decode step's
+# traced work (phase 6's step) against its measured time
+LAUNCH_STEPS, LAUNCH_SAVE, LAUNCH_BATCH, LAUNCH_SEQ = 5, 3, 4, 64
+LAUNCH_DEADLINE = 240                  # seconds for the spawned ranks
+DRY_ARCH, DRY_SHAPE = "tinyllama-1.1b", "decode_32k"
+DRY_KEYS = ("flops_per_chip", "bytes_per_chip", "collective_bytes_per_chip",
+            "peak_mem_per_chip", "collectives")
 
 # phase 3h: the host tier's stream, pool and tier
 TIER_CORPUS, TIER_PROMPTS = 16384, 128
@@ -1905,41 +1927,22 @@ def _time_ms(fn, n=30, read_flush=False):
 def _bound(name, args):
     """(bound_ms, bound_by): the larger of bytes over the HBM rate and
     operations over the bf16 tensor peak, counting what these inputs need
-    (each input read once, each output written once)."""
-    def nb(t):
-        return t.numel() * t.element_size()
-
+    (each input read once, each output written once): the kernel's work
+    as ``kernels/work.py`` counts it (the dry run's counter reads the same
+    function), with the counts that these inputs' data give (the
+    dispatched slots and the chunks with a query, the cached tokens)."""
+    from repro_torch.kernels import work
+    counts = {}
     if name in ("shared_chunk_attention", "shared_chunk_attention_q8"):
-        qd, k, v, qmask = args[:3] + args[-1:]
-        E, cap, H, D = qd.shape
-        C, KH = k.shape[1], k.shape[2]
-        valid = int(qmask.sum())
-        active = int(qmask.any(dim=1).sum())       # chunks with a query
-        # K/V (and the int8 store's f32 scales) of the chunks with a query
-        per_token = 2 * KH * (D * k.element_size() + 4 * (len(args) == 6))
-        byts = (valid * H * D * qd.element_size() + active * C * per_token
-                + nb(qmask) + nb(qd) + E * cap * H * 4)
-        ops_ = 4 * valid * H * C * D
+        qmask = args[-1]
+        counts = dict(valid=int(qmask.sum()),
+                      active=int(qmask.any(dim=1).sum()))
     elif name in ("decode_attention", "paged_decode_attention"):
-        q, k, lens = args[0], args[1], args[-1]
-        B, H, D = q.shape
-        KH = k.shape[-2]
+        k, lens = args[1], args[-1]
         paged = name == "paged_decode_attention"
         cap = args[3].shape[1] * k.shape[1] if paged else k.shape[1]
-        tokens = int(lens.clamp(max=cap).sum())
-        byts = (2 * nb(q) + 2 * tokens * KH * D * k.element_size()
-                + nb(lens) + B * H * 4 + (nb(args[3]) if paged else 0))
-        ops_ = 4 * tokens * H * D
-    elif name == "lse_merge":
-        outs, lses = args
-        byts = nb(outs) + nb(lses) + nb(outs[0]) + nb(lses[0])
-        ops_ = 2 * outs.numel()
-    else:
-        q, emb = args
-        G, H, D = q.shape
-        E = emb.shape[0]
-        byts = nb(q) + nb(emb) + G * E * 4
-        ops_ = 2 * G * E * H * D
+        counts = dict(tokens=int(lens.clamp(max=cap).sum()))
+    ops_, byts = work.WORK[name](*args, **counts)
     t_bytes = byts / HBM_BYTES_PER_S * 1e3
     t_ops = ops_ / BF16_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -2254,6 +2257,10 @@ def phase_profile(cfg, dev):
         check(launches == STEP_LAUNCHES[label], (label, "launches", launches))
 
 
+#: each profiled step's (unprofiled wall, device busy) in seconds, by label
+PROFILED = {}
+
+
 def _profile_step(label, step, wall, what="64 slots"):
     """One profiled run of ``step`` (its unprofiled median ``wall`` given,
     ``what`` it runs named in the report):
@@ -2286,6 +2293,7 @@ def _profile_step(label, step, wall, what="64 slots"):
                if e.device_type.name == "CUDA" and e.self_device_time_total > 0
                and e.key != MOE_RANGE]
     busy_us = sum(e.self_device_time_total for e in kernels)
+    PROFILED[label] = (wall, busy_us / 1e6)
     say(f"[profile] {label}, {what}, unprofiled wall (8 runs in turns) "
         f"median={wall * 1e3:.2f} ms; profiled wall="
         f"{prof_wall * 1e3:.2f} ms, device busy={busy_us / 1e3:.2f} ms, "
@@ -2753,6 +2761,174 @@ def phase_disagg(dev, errs):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the launch tools
+# ---------------------------------------------------------------------------
+
+def _launch_cfg():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(ARCH).reduced(), dtype="float32")
+
+
+def _ckpt_rank(rank, world, tmp):
+    """9(a): one rank of a gloo world on the one card, deterministic
+    algorithms on: ``train`` under the host mesh (FSDP over ``data``),
+    saving at LAUNCH_SAVE; rank 0 copies that save alone into a second
+    directory, from which a fresh ``train`` resumes to LAUNCH_STEPS. Each
+    rank writes both runs' losses and whether its parameter and moment
+    shards are equal bit for bit."""
+    import datetime
+    import os
+    import shutil
+    import torch.distributed as dist
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    from repro_torch.data.pipeline import make_train_batches
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import TRAIN_RULES, use_rules
+    from repro_torch.training.train_loop import TrainLoopConfig, train
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rdzv",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        cfg = _launch_cfg()
+        mesh = make_host_mesh(device="cuda")
+
+        def run(ckpt, every, skip):
+            batches = make_train_batches(cfg, LAUNCH_BATCH, LAUNCH_SEQ)
+            for _ in range(skip):           # read from their start
+                next(batches)
+            loop = TrainLoopConfig(num_steps=LAUNCH_STEPS,
+                                   batch_size=LAUNCH_BATCH,
+                                   seq_len=LAUNCH_SEQ, log_every=1,
+                                   ckpt_dir=f"{tmp}/{ckpt}",
+                                   ckpt_every=every)
+            with use_rules(TRAIN_RULES):
+                return train(cfg, loop, batches, device="cuda", mesh=mesh)
+        full = run("full", LAUNCH_SAVE, 0)
+        if rank == 0:
+            name = f"step_{LAUNCH_SAVE:08d}"
+            shutil.copytree(f"{tmp}/full/{name}", f"{tmp}/part/{name}")
+            with open(f"{tmp}/part/LATEST", "w") as f:
+                f.write(name)
+        dist.barrier()
+        resumed = run("part", 0, LAUNCH_SAVE)
+
+        def shards(out):
+            st = out["opt_state"]
+            return [t.to_local() if hasattr(t, "to_local") else t
+                    for t in [p for p in out["params"].parameters()]
+                    + list(st.mu.values()) + list(st.nu.values())]
+        same = all(torch.equal(a, b) for a, b in zip(shards(full),
+                                                     shards(resumed)))
+        torch.save({"full": [h["loss"] for h in full["history"]],
+                    "resumed": [(h["step"], h["loss"])
+                                for h in resumed["history"]],
+                    "same": same}, f"{tmp}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def launch_checkpoint():
+    """9(a): the repaired meshed checkpoint on the card. Both ranks' runs:
+    the resumed steps' losses and every shard of the parameters and the
+    moments bit for bit those of the uninterrupted run."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = torch.multiprocessing.start_processes(
+            _ckpt_rank, args=(2, tmp), nprocs=2, join=False,
+            start_method="spawn")
+        deadline = time.monotonic() + LAUNCH_DEADLINE
+        while not ctx.join(timeout=1):        # raises if a rank failed
+            if time.monotonic() > deadline:
+                for proc in ctx.processes:
+                    proc.kill()
+                check(False, ("checkpoint ranks outlasted", LAUNCH_DEADLINE))
+        ranks = [torch.load(f"{tmp}/rank{r}.pt") for r in range(2)]
+    for r, res in enumerate(ranks):
+        tail = [loss for _, loss in res["resumed"]]
+        steps = [s for s, _ in res["resumed"]]
+        equal = tail == res["full"][LAUNCH_SAVE:]
+        say(f"[launch] (a) rank {r} of a gloo world of 2 on the card: "
+            f"{LAUNCH_STEPS} steps saved at {LAUNCH_SAVE}, resumed steps "
+            f"{steps}: losses bit for bit {equal}, parameter and moment "
+            f"shards bit for bit {res['same']}")
+        check(equal and res["same"] and steps == list(
+            range(LAUNCH_SAVE, LAUNCH_STEPS)), ("meshed resume", r, res))
+
+
+def launch_dryrun():
+    """9(b): the dry run's record of DRY_ARCH x DRY_SHAPE on the 16x16
+    mesh, traced on fake CUDA tensors and on fake CPU tensors in this one
+    process: flops, traffic, collective bytes and peak must be equal."""
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun
+    out = str(ROOT / "build" / "dryrun_torch")
+    try:
+        recs = {d: dryrun.run_one(DRY_ARCH, DRY_SHAPE, False, out,
+                                  verbose=False, device=d)
+                for d in ("cuda", "cpu")}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    for d, rec in recs.items():
+        check(rec["status"] == "ok", ("dry run", d, rec))
+        r = rec["roofline"]
+        say(f"[launch] (b) dry run {DRY_ARCH} x {DRY_SHAPE} x 16x16 on "
+            f"fake {d} tensors: flops/chip={r['flops_per_chip']:.6e} "
+            f"bytes/chip={r['bytes_per_chip']:.6e} collective/chip="
+            f"{r['collective_bytes_per_chip']:.6e} peak/chip="
+            f"{r['peak_mem_per_chip'] / 2**30:.3f} GiB, terms (a model of "
+            f"the card): compute {r['compute_s']:.3e} s memory "
+            f"{r['memory_s']:.3e} s collective {r['collective_s']:.3e} s, "
+            f"trace {rec['trace_s']:.1f} s")
+    same = all(recs["cuda"]["roofline"][k] == recs["cpu"]["roofline"][k]
+               for k in DRY_KEYS)
+    say(f"[launch] (b) the card's record equals the CPU-traced one: {same}")
+    check(same, ("dry run cuda vs cpu", recs))
+
+
+def launch_step_roofline(cfg, dev):
+    """9(c): phase 6's slotted decode step (SLOTS slots of a 512-token
+    slab, a CORPUS-token store, bf16, a world of one) traced by the dry
+    run's counter on fake tensors, against phase 6's measured step."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.core.shared_kv import abstract_store
+    from repro_torch.launch.op_cost import analyze_ops
+    from repro_torch.models import dense
+    from repro_torch.models.model import build_model, empty_params
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        params = empty_params(cfg, dev)
+        store = abstract_store(cfg, CORPUS, device=dev)
+        cache = build_model(cfg).init_cache(SLOTS, 512, device=dev,
+                                            abstract=True)
+        tokens = torch.empty((SLOTS,), dtype=torch.int64, device=dev)
+        cost, peak = analyze_ops(lambda: dense.decode_step(
+            cfg, params, tokens, cache, store=store))
+    bound = max(cost.flops / BF16_FLOP_PER_S, cost.traffic / HBM_BYTES_PER_S)
+    wall, busy = PROFILED["decode step"]
+    say(f"[launch] (c) the served decode step ({SLOTS} slots, slab 512, "
+        f"{CORPUS // cfg.moska.chunk_size} chunks, bf16, a world of one), "
+        f"traced: flops={cost.flops:.6e} traffic={cost.traffic:.6e} B "
+        f"(kernels at capacity: every slot's 512 positions, every "
+        f"dispatch slot), bound max(flops / {BF16_FLOP_PER_S:.3g}, "
+        f"traffic / {HBM_BYTES_PER_S:.3g}) = {bound * 1e3:.4f} ms; phase 6 "
+        f"measured device busy {busy * 1e3:.4f} ms, unprofiled wall "
+        f"{wall * 1e3:.4f} ms: the bound's share {bound / busy:.3f} of "
+        f"busy, {bound / wall:.3f} of the wall; on {card_name_and_limit()}")
+    check(cost.flops > 0 and cost.traffic > 0, ("step roofline", cost))
+
+
+def phase_launch(cfg, dev):
+    """Phase 9: (a) the meshed checkpoint, (b) the dry-run record, (c)
+    the decode step's traced work against its measured time."""
+    launch_checkpoint()
+    launch_dryrun()
+    launch_step_roofline(cfg, dev)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is present", file=sys.stderr)
@@ -2795,6 +2971,7 @@ def main() -> int:
     launches.update(run("3f families", phase_families, dev, errs))
     run("7 train", phase_train, dev)
     launches.update(run("8 disagg", phase_disagg, dev, errs))
+    run("9 launch", phase_launch, cfg, dev)
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["max_abs_err"] = errs[row["name"]]

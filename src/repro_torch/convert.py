@@ -26,6 +26,7 @@ from repro_torch.configs.base import DENSE, MOE, VLM, ModelConfig
 from repro_torch.models.dense import DenseLM
 from repro_torch.models.model import empty_params
 from repro_torch.models.params import ParamTree
+from repro_torch.sharding.tensor_parallel import full_tensor
 
 
 def to_tensor(a) -> torch.Tensor:
@@ -85,10 +86,11 @@ def from_reference_params(cfg: ModelConfig, tree: dict, device=None):
 
 def _to_numpy(t: torch.Tensor, bf16_as_float32: bool) -> np.ndarray:
     """The whole value of ``t``: a ``DTensor`` is gathered from its
-    shards, a collective that every rank of its mesh must join."""
+    shards by hand (``sharding.tensor_parallel.full_tensor``), a
+    collective that every rank of its mesh must join."""
     t = t.detach()
     if isinstance(t, DTensor):
-        t = t.full_tensor()
+        t = full_tensor(t)
     t = t.cpu()
     if t.dtype != torch.bfloat16:
         return t.numpy().copy()

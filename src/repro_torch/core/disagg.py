@@ -27,6 +27,8 @@ import torch.distributed as dist
 from repro_torch.configs.base import MoSKAConfig
 from repro_torch.core import router as router_lib
 from repro_torch.core import shared_attention as sa
+from repro_torch.kernels import ops
+from repro_torch.sharding import tensor_parallel as tp
 
 NEG_INF = -1e30
 Axes = Union[str, Sequence[str]]
@@ -89,9 +91,18 @@ def disaggregated_shared_attention(
     part = sa.shared_attention_batched(
         q[:, None], store_k, store_v, routing,
         capacity_factor=cfg.query_capacity_factor)
-    o_l = part.out[:, 0].float()                 # (B, H, D)
-    lse_l = part.lse[:, 0]                       # (B, H)
-    # --- the disaggregated combine: exact LSE merge across owners ---
+    out, lse = lse_combine(part.out[:, 0].float(), part.lse[:, 0], mesh,
+                           axes)
+    return out.to(q.dtype), lse
+
+
+def lse_combine(o_l: torch.Tensor, lse_l: torch.Tensor, mesh,
+                axes: Sequence[str]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The disaggregated combine: the exact LSE merge of every rank's
+    partial (o_l (N, H, D) fp32, lse_l (N, H); -1e30 where it attended
+    nothing) over the mesh axes ``axes``: all-reduce MAX of the LSE, then
+    one all-reduce SUM of o * w and w, w = exp(lse - max). Returns the
+    merged (out fp32, lse), the same on every rank of those axes."""
     groups = [mesh.get_group(ax) for ax in axes]
     m = lse_l.clone()
     for g in groups:
@@ -108,4 +119,128 @@ def disaggregated_shared_attention(
     out = num / den_c[..., None]
     lse = torch.where(den > 0, m + torch.log(den_c),
                       torch.full_like(m, NEG_INF))
-    return out.to(q.dtype), lse
+    return out, lse
+
+
+# ---------------------------------------------------------------------------
+# the tensor-parallel decode step: the unique cache split by position over
+# ``model``, the store split by chunk and by chunk position
+# ---------------------------------------------------------------------------
+
+def _gather_cat(t: torch.Tensor, mesh, axes: Sequence[str], dim: int
+                ) -> torch.Tensor:
+    """Every rank's ``t`` of the mesh axes ``axes`` (major first), laid
+    end to end along ``dim`` in the order that a split over those axes
+    has."""
+    for ax in reversed(axes):
+        g = mesh.get_group(ax)
+        parts = [torch.empty_like(t) for _ in range(dist.get_world_size(g))]
+        dist.all_gather(parts, t.contiguous(), group=g)
+        t = torch.cat(parts, dim=dim)
+    return t
+
+
+def _first_on(mesh, axes: Sequence[str]) -> bool:
+    """Whether this rank is at coordinate 0 of every mesh axis in
+    ``axes``: the one rank of each such line that contributes a partial
+    which its peers there compute alike."""
+    names = mesh.mesh_dim_names
+    coord = mesh.get_coordinate()
+    return all(coord[names.index(ax)] == 0 for ax in axes)
+
+
+@torch.no_grad()
+def meshed_decode_attention(q, k_new, v_new, kc, vc, lengths, shared,
+                            cfg: MoSKAConfig, *, window: int = 0):
+    """``moska_decode_attention`` (with the new token's K/V appended to the
+    cache first) on ``DTensor`` values: q (B, H, D), k_new/v_new (B, KH,
+    D), caches kc/vc (B, S, KH, D) split by row and by position, lengths
+    (B,), and ``shared`` (a layer's store: k/v (E, C, KH, D) split by chunk
+    and by chunk position, emb (E, KH, D) by chunk) or None.
+
+    Each rank appends the token where its positions hold it and takes the
+    unique partial of its rows over its positions (the ``decode_attention``
+    kernel). With a store it gathers every row's query, scores its own
+    chunks (a ``model`` share of them where they divide), gathers the
+    scores and routes every query over the whole store (each rank the
+    same top-k, as one device routes), and attends the routes into its
+    slice (the ``shared_chunk_attention`` kernel, its merge over a query's
+    chunks the ``lse_merge`` kernel). Its unique partial joins its rows of
+    the shared one (the ``lse_merge`` pair entry), and ``lse_combine``
+    over every mesh axis makes the partials one: each rank contributes
+    once what its peers compute alike. Returns o (B, H, D) at q's row
+    placement, whole over the heads."""
+    from repro_torch.core.router import Routing, top_k
+    mesh = q.device_mesh
+    names = mesh.mesh_dim_names
+    row_axes = tp.split_axes(q, 0)
+    pos_axes = tp.split_axes(kc, 1)
+    q, k_new, v_new = (tp.keep_shards(t, row_axes)
+                       for t in (q, k_new, v_new))
+    row0, nrows = tp.local_range(q, 0)
+    pos0, npos = tp.local_range(kc, 1)
+    S = kc.shape[1]
+    args = [q, k_new, v_new, kc, vc, lengths]
+    if shared is not None:
+        chunk_axes = tp.split_axes(shared.k, 0)
+        cpos_axes = tp.split_axes(shared.k, 1)
+        c0, _ = tp.local_range(shared.k, 0)
+        E = shared.k.shape[0]
+        # every kv head on every rank (the embeddings' heads may be split)
+        keep = chunk_axes + cpos_axes
+        args += [None if t is None else tp.keep_shards(t, keep)
+                 for t in (shared.k, shared.v)]
+        args.append(tp.keep_shards(shared.emb, chunk_axes))
+        args += [None if t is None else tp.keep_shards(t, keep)
+                 for t in (shared.k_scale, shared.v_scale)]
+    if tp.split_axes(kc, 2):
+        raise NotImplementedError("a unique cache split by kv head")
+    if window and pos_axes:
+        raise NotImplementedError("a sliding window over a cache split by "
+                                  "position")
+
+    def body(ql, kn, vn, kcl, vcl, lens, sk=None, sv=None, emb=None,
+             ks=None, vs=None):
+        B = ql.shape[0]
+        rows = torch.arange(B, device=ql.device)
+        at = lens.long().clamp(0, S - 1) - pos0     # the reference's clamp
+        mine = ((at >= 0) & (at < npos))[:, None, None]
+        at = at.clamp(0, npos - 1)
+        for cl, new in ((kcl, kn), (vcl, vn)):
+            cl[rows, at] = torch.where(mine, new.to(cl.dtype), cl[rows, at])
+        n_local = (lens + 1 - pos0).clamp(0, npos).to(torch.int32)
+        o_u, lse_u = ops.decode_attention(ql, kcl, vcl, n_local,
+                                          window=window)
+        if sk is None:
+            out, _ = lse_combine(o_u.float(), lse_u, mesh, pos_axes)
+            return out.to(ql.dtype)
+        q_all = _gather_cat(ql, mesh, row_axes, 0)
+        # score this rank's chunks (its model share of them), gather
+        mshare = ("model",) if "model" in names and "model" not in \
+            chunk_axes and emb.shape[0] % mesh["model"].size() == 0 else ()
+        emb_m = emb
+        for ax in mshare:
+            emb_m = local_shard(emb, mesh, ax)
+        s = ops.router_scores(q_all.contiguous(), emb_m.contiguous())
+        s = _gather_cat(_gather_cat(s, mesh, mshare, 1), mesh, chunk_axes, 1)
+        scores, ids = top_k(s, min(cfg.top_k_chunks, E))
+        part = sa.shared_attention_batched(
+            q_all[:, None], sk, sv, Routing(ids, scores, s),
+            capacity_factor=cfg.query_capacity_factor, k_scale=ks,
+            v_scale=vs, chunk_offset=c0, num_chunks=E)
+        o_c, lse_c = part.out[:, 0], part.lse[:, 0]
+        if not _first_on(mesh, set(names) - set(chunk_axes)
+                         - set(cpos_axes)):
+            o_c = torch.zeros_like(o_c)
+            lse_c = torch.full_like(lse_c, NEG_INF)
+        if _first_on(mesh, set(names) - set(row_axes) - set(pos_axes)):
+            sl = slice(row0, row0 + nrows)
+            o_r, lse_r = ops.lse_merge_pair(
+                o_u.contiguous(), lse_u.float().contiguous(),
+                o_c[sl].contiguous(), lse_c[sl].float().contiguous())
+            o_c = torch.cat([o_c[:row0], o_r, o_c[row0 + nrows:]])
+            lse_c = torch.cat([lse_c[:row0], lse_r, lse_c[row0 + nrows:]])
+        out, _ = lse_combine(o_c.float(), lse_c, mesh, names)
+        return out[row0:row0 + nrows].to(ql.dtype)
+
+    return tp.local_call(body, args, q.placements, mesh)

@@ -31,6 +31,7 @@ import torch
 from repro_torch import obs
 from repro_torch.core import router as router_lib
 from repro_torch.kernels import ops
+from repro_torch.sharding.specs import lsc
 
 
 class SharedPartial(NamedTuple):
@@ -69,18 +70,30 @@ def shared_attention_batched(
     k_scale: Optional[torch.Tensor] = None,   # (E, C, KH) f32: int8 store
     v_scale: Optional[torch.Tensor] = None,
     rec: Optional[obs.DeviceRecorder] = None,
+    chunk_offset: int = 0,
+    num_chunks: Optional[int] = None,
 ) -> SharedPartial:
     """Batched Shared KV Attention over routed chunks. With ``k_scale``
-    and ``v_scale`` the store is int8 and the output is in q's dtype."""
+    and ``v_scale`` the store is int8 and the output is in q's dtype.
+
+    ``num_chunks``: the store is one owner's slice of a store of that
+    many chunks, whose first is chunk ``chunk_offset``; the routing names
+    global chunks. The dispatch (capacity and slot positions) is the whole
+    store's, and only the routes into this slice are attended: the others
+    are empty partials, which the owners' combine fills in."""
     G, Q, H, D = q.shape
     E = layer_store_k.shape[0]
     K = routing.chunk_ids.shape[1]
+    E_all = E if num_chunks is None else num_chunks
     if capacity is None:
-        capacity = router_lib.required_capacity(G, K, E, capacity_factor)
+        capacity = router_lib.required_capacity(G, K, E_all, capacity_factor)
     capacity = min(capacity, G * K)
 
-    flat, pos, keep = router_lib.dispatch_plan(routing.chunk_ids, E,
+    flat, pos, keep = router_lib.dispatch_plan(routing.chunk_ids, E_all,
                                                capacity)
+    if num_chunks is not None:
+        keep = keep & (flat >= chunk_offset) & (flat < chunk_offset + E)
+        flat = (flat - chunk_offset).clamp(0, E - 1)
     # slot (chunk, pos) -> row chunk * capacity + pos of a flat buffer with
     # one extra trash row: dropped routes land there, which realises the
     # reference's scatter mode="drop" without a host sync
@@ -96,7 +109,8 @@ def shared_attention_batched(
     _record_dispatch(rec, qmask, keep, layer_idx)
 
     # the kernel takes (E, cap, H, D): fold the per-group query dim into cap
-    qd = qd[:trash].view(E, capacity * Q, H, D)
+    qd = lsc(qd[:trash].view(E, capacity * Q, H, D), "chunks", None,
+             "heads", None)
     kv = (layer_store_k.contiguous(), layer_store_v.contiguous())
     qmask_d = qmask.repeat_interleave(Q, dim=1).contiguous()
     if k_scale is None:
@@ -104,6 +118,8 @@ def shared_attention_batched(
     else:
         od, lsed = ops.shared_chunk_attention_q8(
             qd, *kv, k_scale.contiguous(), v_scale.contiguous(), qmask_d)
+    od = lsc(od, "chunks", None, "heads", None)
+    lsed = lsc(lsed, "chunks", None, "heads")
 
     # LSE-merge over the K selected chunks, reading partial k of group g
     # from row lin[g * K + k] of the kernel's output where it lies; the

@@ -61,6 +61,28 @@ class SharedKVStore(NamedTuple):
                              self.chunk_positions)
 
 
+def abstract_store(cfg, shared_tokens: int, dtype=torch.bfloat16,
+                   device=None) -> SharedKVStore:
+    """The store of ``shared_tokens`` corpus tokens of ``cfg``'s attention
+    layers as fake tensors (no allocation; the dry run's stand-in): int8
+    K/V with fp32 scales under ``kv_quant="int8"``."""
+    from repro_torch.sharding.tensor_parallel import fake_tensors
+    C = cfg.moska.chunk_size
+    E = shared_tokens // C
+    L = cfg.num_attention_layers
+    KH, D = cfg.num_kv_heads, cfg.head_dim
+    quant = cfg.moska.kv_quant == "int8"
+    kv = torch.int8 if quant else dtype
+    with fake_tensors():
+        def t(shape, dt):
+            return torch.empty(shape, dtype=dt, device=device)
+        return SharedKVStore(
+            t((L, E, C, KH, D), kv), t((L, E, C, KH, D), kv),
+            t((L, E, KH, D), dtype), t((E,), torch.int32),
+            t((L, E, C, KH), torch.float32) if quant else None,
+            t((L, E, C, KH), torch.float32) if quant else None)
+
+
 def chunk_embeddings(k_chunks: torch.Tensor) -> torch.Tensor:
     """Training-free router embeddings: mean key per chunk.
 

@@ -2,7 +2,10 @@
 
 A tensor on the CPU takes the plain version from ``kernels/ref.py``. A CUDA
 tensor launches the kernel from ``csrc/`` or raises: there is no fallback
-and no switch. Each wrapper checks device, dtype, shape and contiguity,
+and no switch. A fake tensor (``FakeTensorMode``: a dry run traces shapes,
+on either device) computes nothing: the wrapper returns outputs of the
+kernel's shapes and dtypes and reports the call's work
+(``kernels/work.py``) to the counters that listen. Each wrapper checks device, dtype, shape and contiguity,
 allocates the outputs, launches on PyTorch's current stream without
 synchronising, raises if the launch reported an error, and then adds one
 to its ``launches`` count (a plain integer on the wrapper; CPU calls do not
@@ -14,13 +17,20 @@ import ctypes
 from typing import Dict, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, work
 from repro_torch.kernels.build import library
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}   # csrc/common.cuh DType
 _HEAD_DIMS = (16, 32, 64, 128)
 _MAX_GROUP = 64        # query heads per kv head the decode kernel takes
+
+
+def _traced(name: str, args, *outs):
+    """A fake call: report its work, return the outputs' stand-ins."""
+    work.report(name, *args)
+    return outs if len(outs) > 1 else outs[0]
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -84,6 +94,10 @@ def shared_chunk_attention(qd: torch.Tensor, k: torch.Tensor,
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """qd: (E, cap, H, D); k/v: (E, C, KH, D); qmask: (E, cap) bool.
     Returns (out (E, cap, H, D) in qd.dtype, lse (E, cap, H) fp32)."""
+    if isinstance(qd, FakeTensor):
+        return _traced("shared_chunk_attention", (qd, k, v, qmask),
+                       torch.empty_like(qd), qd.new_empty(
+                           qd.shape[:3], dtype=torch.float32))
     if _on_cpu(qd):
         return ref.shared_chunk_attention_ref(qd, k, v, qmask)
     name = "shared_chunk_attention"
@@ -117,6 +131,11 @@ def shared_chunk_attention_q8(qd: torch.Tensor, k: torch.Tensor,
     kernel. qd: (E, cap, H, D) fp32 or bf16; k/v: (E, C, KH, D) int8;
     k_scale/v_scale: (E, C, KH) fp32; qmask: (E, cap) bool. Returns (out
     (E, cap, H, D) in qd.dtype, lse (E, cap, H) fp32)."""
+    if isinstance(qd, FakeTensor):
+        return _traced("shared_chunk_attention_q8",
+                       (qd, k, v, k_scale, v_scale, qmask),
+                       torch.empty_like(qd), qd.new_empty(
+                           qd.shape[:3], dtype=torch.float32))
     if _on_cpu(qd):
         return ref.shared_chunk_attention_q8_ref(qd, k, v, k_scale, v_scale,
                                                  qmask)
@@ -155,6 +174,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, H, D); k/v: (B, S, KH, D); kv_len: (B,) int32; ``window > 0``
     attends only the last ``window`` of each request's ``kv_len`` positions.
     Returns (out (B, H, D) in q.dtype, lse (B, H) fp32)."""
+    if isinstance(q, FakeTensor):
+        return _traced("decode_attention", (q, k, v, kv_len, window),
+                       torch.empty_like(q),
+                       q.new_empty(q.shape[:2], dtype=torch.float32))
     if _on_cpu(q):
         return ref.decode_attention_ref(q, k, v, kv_len, window=window)
     name = "decode_attention"
@@ -194,6 +217,11 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     [0, N); kv_len: (B,) int32; ``window > 0`` attends only the last
     ``window`` positions. Returns (out (B, H, D) in q.dtype, lse (B, H)
     fp32)."""
+    if isinstance(q, FakeTensor):
+        return _traced("paged_decode_attention",
+                       (q, k_pool, v_pool, table, kv_len, window),
+                       torch.empty_like(q),
+                       q.new_empty(q.shape[:2], dtype=torch.float32))
     if _on_cpu(q):
         return ref.paged_decode_attention_ref(q, k_pool, v_pool, table,
                                               kv_len, window=window)
@@ -235,6 +263,9 @@ def lse_merge(outs: torch.Tensor, lses: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """outs: (P, N, H, D); lses: (P, N, H) fp32 -> (out (N, H, D) in
     outs.dtype, lse (N, H) fp32)."""
+    if isinstance(outs, FakeTensor):
+        return _traced("lse_merge", (outs, lses), torch.empty_like(outs[0]),
+                       torch.empty_like(lses[0]))
     if _on_cpu(outs):
         return ref.lse_merge_ref(outs, lses)
     name = "lse_merge"
@@ -261,6 +292,9 @@ def lse_merge_pair(o0: torch.Tensor, l0: torch.Tensor, o1: torch.Tensor,
     same kernel body, with no stacked copy. o0/o1: (N, H, D); l0/l1: (N, H)
     fp32 -> (out (N, H, D) in o0.dtype, lse (N, H) fp32). Counts as an
     ``lse_merge`` launch."""
+    if isinstance(o0, FakeTensor):
+        return _traced("lse_merge_pair", (o0, l0, o1, l1),
+                       torch.empty_like(o0), torch.empty_like(l0))
     if _on_cpu(o0):
         return ref.lse_merge_pair_ref(o0, l0, o1, l1)
     name = "lse_merge_pair"
@@ -291,6 +325,11 @@ def lse_merge_routed(od: torch.Tensor, lsed: torch.Tensor, lin: torch.Tensor
     outside [0, R) (the dispatch's trash row) is an empty partial (out 0,
     lse -1e30). Returns (out (G * Q, H, D) in od.dtype, lse (G * Q, H)
     fp32). Counts as an ``lse_merge`` launch."""
+    if isinstance(od, FakeTensor):
+        G, Q = lin.shape[0], od.shape[1]
+        return _traced("lse_merge_routed", (od, lsed, lin),
+                       od.new_empty((G * Q, *od.shape[2:])),
+                       lsed.new_empty((G * Q, od.shape[2])))
     if _on_cpu(od):
         return ref.lse_merge_routed_ref(od, lsed, lin)
     name = "lse_merge_routed"
@@ -316,6 +355,9 @@ def lse_merge_routed(od: torch.Tensor, lsed: torch.Tensor, lin: torch.Tensor
 
 def router_scores(q: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
     """q: (G, H, D); emb: (E, KH, D) -> scores (G, E) fp32."""
+    if isinstance(q, FakeTensor):
+        return _traced("router_scores", (q, emb), q.new_empty(
+            (q.shape[0], emb.shape[0]), dtype=torch.float32))
     if _on_cpu(q):
         return ref.router_scores_ref(q, emb)
     name = "router_scores"

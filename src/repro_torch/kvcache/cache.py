@@ -11,6 +11,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.sharding.tensor_parallel import fake_tensors
+
 
 class KVCache(NamedTuple):
     k: torch.Tensor          # (L, B, S, KH, D)
@@ -41,6 +43,16 @@ def init_kv_cache(num_layers: int, batch: int, max_seq: int, kv_heads: int,
                    torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros((batch,), dtype=torch.int32, device=device),
                    torch.zeros((batch,), dtype=torch.int32, device=device))
+
+
+def abstract_kv_cache(num_layers: int, batch: int, max_seq: int,
+                      kv_heads: int, head_dim: int, dtype=torch.bfloat16,
+                      device=None) -> KVCache:
+    """``init_kv_cache``'s shapes as fake tensors (no allocation; the dry
+    run's stand-in)."""
+    with fake_tensors():
+        return init_kv_cache(num_layers, batch, max_seq, kv_heads, head_dim,
+                             dtype, device)
 
 
 def write_slot_prefix(cache: KVCache, slot_cache: KVCache, slot: int,

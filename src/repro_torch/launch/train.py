@@ -10,13 +10,17 @@ Port of the reference ``launch/train.py``: the card by default, or the CPU
 with ``--device cpu``. ``--host-mesh`` trains under the training rules
 over a ("data", "model") mesh of every rank of the process group (nccl on
 the card, gloo on the CPU; a world of one without ``torchrun``): FSDP over
-``data``. ``--multi-pod`` (the reference's production mesh) is refused:
-it waits for the production mesh of ROADMAP Queue 1 item 7. ``main``
-returns the last logged record; ``run`` returns every one.
+``data``. ``--multi-pod`` trains on the reference's production mesh,
+``(2, 16, 16)`` over ("pod", "data", "model"): FSDP over the pods and
+``data``, tensor parallelism over ``model`` (the dense and VLM members);
+it needs a world of 512 ranks (64 nodes of 8 cards under ``torchrun``)
+and refuses any other. ``main`` returns the last logged record; ``run``
+returns every one.
 """
 from __future__ import annotations
 
 import argparse
+import os
 from typing import Dict, List
 
 import torch
@@ -24,7 +28,8 @@ import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import make_train_batches
-from repro_torch.launch.mesh import init_distributed, make_host_mesh
+from repro_torch.launch.mesh import (init_distributed, make_host_mesh,
+                                     make_production_mesh)
 from repro_torch.sharding import TRAIN_RULES, use_rules
 from repro_torch.training.train_loop import TrainLoopConfig, train
 
@@ -44,14 +49,15 @@ def run(argv=None, log_every: int = 10) -> List[Dict[str, float]]:
     ap.add_argument("--host-mesh", action="store_true",
                     help="FSDP over a mesh of every rank (torchrun)")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="refused: needs the production mesh")
+                    help="the 2x16x16 production mesh (512 ranks)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
-    if args.multi_pod:
-        ap.error("--multi-pod: the production mesh is not ported yet "
-                 "(ROADMAP Queue 1 item 7)")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if args.multi_pod and world != 512:
+        ap.error(f"--multi-pod: the 2x16x16 production mesh needs a world "
+                 f"of 512 ranks, not {world}")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is present")
 
@@ -65,13 +71,14 @@ def run(argv=None, log_every: int = 10) -> List[Dict[str, float]]:
         log_every=log_every)
     batches = make_train_batches(cfg, args.batch, args.seq)
     rank = 0
-    if not args.host_mesh:
+    if not (args.host_mesh or args.multi_pod):
         out = train(cfg, loop_cfg, batches, device=args.device)
     else:
         created = init_distributed(args.device)
         try:
             rank = dist.get_rank()
-            mesh = make_host_mesh(device=args.device)
+            mesh = (make_production_mesh(multi_pod=True, device=args.device)
+                    if args.multi_pod else make_host_mesh(device=args.device))
             with use_rules(TRAIN_RULES):
                 out = train(cfg, loop_cfg, batches, device=args.device,
                             mesh=mesh)

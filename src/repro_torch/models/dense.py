@@ -20,6 +20,15 @@ and the paged pool (``decode_step_paged``, whose unique partial is the
 ``prefill_chunk`` prefills prompts past ``max_seq`` in pieces against a
 growing scratch context). Caches and pools are written in place: every
 entry point returns the cache it was given, updated.
+
+Under a mesh (``sharding/tensor_parallel.py``) the parameters, the tokens,
+the cache and the store are ``DTensor`` values placed by the rules, and
+the same entry points run tensor parallel over ``model``: ``train_loss``,
+``prefill`` without a store, and ``decode_step`` with or without one (the
+store chunk-sharded, the unique cache split by position,
+``core/disagg.meshed_decode_attention``). ``lsc`` pins the activations at
+the reference's points; it is the identity on plain tensors, so the
+unmeshed path is what it was.
 """
 from __future__ import annotations
 
@@ -28,12 +37,15 @@ import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import Partial, Shard
 
 from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import moska_attention as MA
 from repro_torch.core import router as router_lib
+from repro_torch.core import disagg
 from repro_torch.core import shared_attention as sa
 from repro_torch.core.shared_kv import SharedKVStore
 from repro_torch.kernels import ops
@@ -43,6 +55,8 @@ from repro_torch.kvcache.paged import (PagedKVCache, append_index,
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.sharding import data_parallel as dp
+from repro_torch.sharding import tensor_parallel as tp
+from repro_torch.sharding.specs import lsc
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -144,15 +158,55 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 # layer bodies
 # ---------------------------------------------------------------------------
 
+def _rope(cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
+          ) -> torch.Tensor:
+    """RoPE of x (..., S, heads, D); a ``DTensor`` on its local heads and
+    rows (positions: plain, or a ``DTensor`` split as x's rows)."""
+    if not tp.is_meshed(x):
+        return L.apply_rope(x, positions, cfg.rope_theta)
+    return tp.local_call(lambda t, pos: L.apply_rope(t, pos, cfg.rope_theta),
+                         (x, positions), x.placements, x.device_mesh)
+
+
 def _qkv_rope(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
               positions: torch.Tensor):
     """Pre-norm QKV projection with RoPE on q and k. x: (B, S, d);
     positions: (S,) or (B, S). Returns q (B, S, H, D), k, v (B, S, KH, D)."""
-    h = L.rms_norm(x, lp.ln1["scale"], cfg.rms_eps)
-    q, k, v = L.qkv_project(h, lp.attn, cfg.num_heads, cfg.num_kv_heads,
-                            cfg.head_dim)
-    return (L.apply_rope(q, positions, cfg.rope_theta),
-            L.apply_rope(k, positions, cfg.rope_theta), v)
+    # a sequence-parallel residual (the seqpar variant) is gathered
+    h = _act(L.rms_norm(x, lp.ln1["scale"], cfg.rms_eps))
+    q, k, v = L.qkv_project(h, tp.gather_weights(lp.attn), cfg.num_heads,
+                            cfg.num_kv_heads, cfg.head_dim)
+    return _rope(cfg, q, positions), _rope(cfg, k, positions), v
+
+
+def _act(x: torch.Tensor, seq: str = "seq") -> torch.Tensor:
+    """The residual stream (B, S, d) or (B, d) pinned: rows over the batch
+    axes, d_model whole (a row-parallel product's partial sums reduced)."""
+    return lsc(x, *("batch", seq)[:x.ndim - 1], None)
+
+
+def _causal_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor, **kw) -> torch.Tensor:
+    """``flash_attention``; on a mesh, each rank's query heads against the
+    kv heads they read (the whole of k and v when the kv heads do not
+    split over the model axis: their gradient is then a partial sum of
+    the ranks')."""
+    if not tp.is_meshed(q):
+        return L.flash_attention(q, k, v, **kw)
+    q_first, q_count = tp.local_range(q, 2)
+    k_first, _ = tp.local_range(k, 2)
+    G = cfg.num_heads // cfg.num_kv_heads
+
+    def body(ql, kl, vl):
+        return L.flash_attention(
+            ql, tp.kv_for_heads(kl, k_first, q_first, q_count, G),
+            tp.kv_for_heads(vl, k_first, q_first, q_count, G), **kw)
+
+    grad = tuple(Partial() if isinstance(pq, Shard) and pq.dim == 2
+                 and not isinstance(pk, Shard) else pk
+                 for pq, pk in zip(q.placements, k.placements))
+    return tp.local_call(body, (q, k, v), q.placements, q.device_mesh,
+                         grad_placements=(None, grad, grad))
 
 
 #: the profiler range around each MoE FFN call, opened only while a
@@ -167,7 +221,7 @@ def _ffn(cfg: ModelConfig, lp: DenseLayer, x: torch.Tensor,
     plus Arctic's dense residual. Serving drops the MoE aux loss, so it is
     not computed."""
     if not cfg.moe.enabled:
-        return L.swiglu_mlp(x, lp.mlp)
+        return L.swiglu_mlp(x, tp.gather_weights(lp.mlp))
     with (torch.profiler.record_function(MOE_RANGE)
           if torch.autograd._profiler_enabled() else contextlib.nullcontext()):
         y, _ = moe_lib.moe_ffn(x.reshape(-1, x.shape[-1]), lp.moe, cfg.moe,
@@ -183,9 +237,10 @@ def _attn_out_mlp(cfg: ModelConfig, x: torch.Tensor, o: torch.Tensor,
                   rec: Optional[obs.DeviceRecorder] = None) -> torch.Tensor:
     """Residual output projection of the attention o ((B, S, H, D) or
     (B, H, D)), then the residual FFN block."""
-    x = x + o.reshape(*o.shape[:-2], -1) @ lp.attn["wo"]
+    wo = tp.gather_weight(lp.attn["wo"])
+    x = x + _act(o.reshape(*o.shape[:-2], -1) @ wo)
     h2 = L.rms_norm(x, lp.ln2["scale"], cfg.rms_eps)
-    return x + _ffn(cfg, lp, h2, rec)
+    return x + _act(_ffn(cfg, lp, h2, rec))
 
 
 class SharedLayer(NamedTuple):
@@ -247,6 +302,15 @@ def _layer_prefill(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
     prefill; pad rows compute values the caller discards.
     """
     q, k, v = _qkv_rope(cfg, x, lp, positions)
+    q = lsc(q, "batch", "seq", "heads", None)
+    if tp.is_meshed(q):
+        if shared is not None:
+            raise NotImplementedError("a routed prefill (with a store) "
+                                      "under a mesh")
+        tp.write_prefix_meshed(kc, vc, k, v)
+        o = _causal_attention(cfg, q, k, v, causal=True, q_offset=q_offset,
+                              kv_offset=q_offset, window=cfg.attn_window)
+        return _attn_out_mlp(cfg, x, o, lp, rec)
     write_prefix(kc, vc, k, v)
 
     if shared is not None:
@@ -274,6 +338,12 @@ def _layer_decode(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
     layer's cache slices in place."""
     q, k, v = (t[:, 0] for t in _qkv_rope(cfg, x[:, None], lp,
                                           positions[:, None]))
+    q = lsc(q, "batch", "heads", None)
+    if tp.is_meshed(q):
+        o = disagg.meshed_decode_attention(
+            q, k, v, kc, vc, lengths, shared, cfg.moska,
+            window=cfg.attn_window)
+        return _attn_out_mlp(cfg, x, o, lp, rec)
     append_token(kc, vc, k, v, lengths)
     o = MA.moska_decode_attention(q, kc, vc, lengths + 1,
                                   _decode_context(cfg, q, shared), cfg.moska,
@@ -300,6 +370,7 @@ def _layer_decode_paged(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
     partial."""
     q, k, v = (t[:, 0] for t in _qkv_rope(cfg, x[:, None], lp,
                                           positions[:, None]))
+    q = lsc(q, "batch", "heads", None)
     append_layer(kp, k, index)
     append_layer(vp, v, index)
     o_u, lse_u = ops.paged_decode_attention(q, kp, vp, table, lengths + 1,
@@ -324,6 +395,7 @@ def _layer_prefill_chunk(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
     attention runs over the whole view with ``kv_len = base + chunk_len``.
     """
     q, k, v = _qkv_rope(cfg, x, lp, positions)
+    q = lsc(q, "batch", "seq", "heads", None)
     B, C, H, D = q.shape
     # the reference's dynamic_update_slice clamps the start into the view
     b0 = max(0, min(base, kc.shape[1] - C))
@@ -356,13 +428,19 @@ def _layer_train(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
     Switch aux loss (fp32), 0 for a dense FFN.
     """
     q, k, v = _qkv_rope(cfg, x, lp, positions)
-    o = L.flash_attention(q, k, v, causal=True, window=cfg.attn_window,
+    q = lsc(q, "batch", "seq", "heads", None)
+    k = lsc(k, "batch", "seq", "kv_heads", None)
+    v = lsc(v, "batch", "seq", "kv_heads", None)
+    o = _causal_attention(cfg, q, k, v, causal=True, window=cfg.attn_window,
                           block_k=cfg.attn_block_k)
-    x = x + o.reshape(*o.shape[:-2], -1) @ lp.attn["wo"]
-    h2 = L.rms_norm(x, lp.ln2["scale"], cfg.rms_eps)
+    wo = tp.gather_weight(lp.attn["wo"])
+    x = _act(x + _act(o.reshape(*o.shape[:-2], -1) @ wo, "seq_res"),
+             "seq_res")
+    h2 = _act(L.rms_norm(x, lp.ln2["scale"], cfg.rms_eps))
     if not cfg.moe.enabled:
-        zero = x.new_zeros((), dtype=torch.float32)
-        return x + L.swiglu_mlp(h2, lp.mlp), zero
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        y = _act(L.swiglu_mlp(h2, tp.gather_weights(lp.mlp)), "seq_res")
+        return _act(x + y, "seq_res"), zero
     B, S, d = h2.shape
     y, aux = moe_lib.moe_ffn(h2.reshape(B * S, d), lp.moe, cfg.moe)
     y = y.view(B, S, d)
@@ -380,7 +458,16 @@ def _logits(cfg: ModelConfig, params: DenseLM, x: torch.Tensor
     """fp32 logits of the final-normed hidden state (the reference's
     preferred_element_type=float32 unembedding)."""
     x = L.rms_norm(x, params.final_norm["scale"], cfg.rms_eps)
-    return L.unembed(x, params.unembed_matrix())
+    return L.unembed(x, tp.gather_weight(params.unembed_matrix()))
+
+
+def _embed(params: DenseLM, tokens: torch.Tensor) -> torch.Tensor:
+    """The tokens' rows of the embedding table; on a mesh a lookup in the
+    vocab-sharded table (each rank's rows, summed over the model axis)."""
+    table = params.embed["embed"]
+    if not tp.is_meshed(table):
+        return table[tokens]
+    return _act(F.embedding(tokens, tp.gather_weight(table)))
 
 
 def embed_inputs(cfg: ModelConfig, params: DenseLM, tokens: torch.Tensor,
@@ -388,10 +475,10 @@ def embed_inputs(cfg: ModelConfig, params: DenseLM, tokens: torch.Tensor,
                  ) -> torch.Tensor:
     """Token embeddings (B, S, d), with the frontend's (B, P, d) patch
     embeddings in front when given: (B, P + S, d)."""
-    x = params.embed["embed"][tokens]
+    x = _embed(params, tokens)
     if frontend_embeds is not None:
         x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
-    return x
+    return _act(x)
 
 
 @torch.no_grad()
@@ -435,7 +522,7 @@ def decode_step(cfg: ModelConfig, params: DenseLM, tokens: torch.Tensor,
                 ) -> Tuple[torch.Tensor, KVCache]:
     """One decode step. tokens: (B,). Returns (logits (B, V) fp32, cache)
     with the new token's K/V appended and the lengths advanced, in place."""
-    x = params.embed["embed"][tokens]                      # (B, d)
+    x = _embed(params, tokens)                             # (B, d)
     if positions is None:
         positions = cache.positions                        # absolute (RoPE)
     use_store = store is not None and cfg.moska.enabled
@@ -463,7 +550,7 @@ def decode_step_paged(cfg: ModelConfig, params: DenseLM,
     copy of the host-side ``SlotTables`` length/offset vectors. Returns
     (logits (B, V) fp32, pool). The caller advances lengths (``tick``).
     """
-    x = params.embed["embed"][tokens]                      # (B, d)
+    x = _embed(params, tokens)                             # (B, d)
     positions = offsets + lengths                          # absolute (RoPE)
     index = append_index(table, lengths, pool.block_size)
     use_store = store is not None and cfg.moska.enabled
@@ -491,7 +578,7 @@ def prefill_chunk(cfg: ModelConfig, params: DenseLM, tokens: torch.Tensor,
     token, cache). Numerically equivalent to the single-shot prefill
     (allclose), not bitwise (other contraction shapes).
     """
-    x = params.embed["embed"][tokens]
+    x = _embed(params, tokens)
     B, C, _ = x.shape
     base = int(cache.length[0])
     chunk_len = C if chunk_len is None else int(chunk_len)
@@ -530,10 +617,24 @@ def forward_hidden(cfg: ModelConfig, params: DenseLM, x: torch.Tensor,
 def _chunk_ce(h: torch.Tensor, t: torch.Tensor, m: torch.Tensor,
               W: torch.Tensor) -> torch.Tensor:
     """Summed masked cross-entropy of one sequence chunk; the logits are
-    fp32 products of the operands (bf16 ones are exact in fp32)."""
-    logits = L.unembed(h, W)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, t[..., None])[..., 0]
+    fp32 products of the operands (bf16 ones are exact in fp32). On a mesh
+    the vocab stays sharded: the log-sum-exp reduces each rank's max and
+    sum of exponentials over the model axis."""
+    logits = lsc(L.unembed(h, W), "batch", "seq", "vocab")
+    if not tp.is_meshed(logits):
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, t[..., None])[..., 0]
+        return torch.sum((lse - ll) * m)
+    # each token's terms whole on every rank of the model axis: a row
+    # split there would send the logits' gradient through an all-to-all
+    mx = lsc(logits.detach().amax(dim=-1, keepdim=True), "batch", "seq",
+             None)
+    lse = torch.log(lsc(torch.exp(logits - mx).sum(dim=-1), "batch",
+                        "seq")) + mx[..., 0]
+    # the target's logit from its row of the table (a gather of the
+    # sharded logits would gather them whole over the model axis)
+    wt = lsc(F.embedding(t, W), "batch", "seq", None)
+    ll = (h.float() * wt.float()).sum(dim=-1)
     return torch.sum((lse - ll) * m)
 
 
@@ -549,8 +650,9 @@ def lm_loss(cfg: ModelConfig, params, hidden: torch.Tensor,
     mask count of the global batch: the ranks' losses add up to the
     global mean."""
     S = hidden.shape[1]
-    W = (params.unembed_matrix() if isinstance(params, DenseLM)
-         else params["embed"]["embed"])
+    W = tp.gather_weight(params.unembed_matrix()
+                         if isinstance(params, DenseLM)
+                         else params["embed"]["embed"])
     pieces = [(a, min(a + seq_chunk, S)) for a in range(0, S, seq_chunk)]
     ce = L.remat(_chunk_ce, "nothing" if len(pieces) > 1
                  and torch.is_grad_enabled() else "none")

@@ -18,6 +18,8 @@ import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.kernels import ops
+from repro_torch.sharding.specs import lsc
+from repro_torch.sharding.tensor_parallel import split_heads
 
 DEFAULT_BLOCK_K = 1024
 DEFAULT_BLOCK_Q = 1024
@@ -46,8 +48,17 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+def _ff_names(h: torch.Tensor):
+    """The logical names of an FFN hidden (..., d_ff): its leading dims are
+    the batch's rows (and their sequence). The reference names them None,
+    which pins them replicated; on a mesh that would gather every rank's
+    rows of the hidden over the data axis."""
+    return ("batch", "seq")[:h.ndim - 1] + ("d_ff",)
+
+
 def swiglu_mlp(x: torch.Tensor, p) -> torch.Tensor:
     h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    h = lsc(h, *_ff_names(h))
     return h @ p["w_down"]
 
 
@@ -105,10 +116,9 @@ def qkv_project(x: torch.Tensor, p, num_heads: int, num_kv_heads: int,
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
-    lead = x.shape[:-1]
-    return (q.reshape(*lead, num_heads, head_dim),
-            k.reshape(*lead, num_kv_heads, head_dim),
-            v.reshape(*lead, num_kv_heads, head_dim))
+    return (split_heads(q, num_heads, head_dim),
+            split_heads(k, num_kv_heads, head_dim),
+            split_heads(v, num_kv_heads, head_dim))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -32,10 +32,11 @@ import torch
 
 from repro_torch.configs.base import (AUDIO, DENSE, HYBRID, MOE, SSM, VLM,
                                       ModelConfig)
-from repro_torch.kvcache.cache import init_kv_cache
+from repro_torch.kvcache.cache import abstract_kv_cache, init_kv_cache
 from repro_torch.kvcache.paged import init_paged_kv_cache
 from repro_torch.models import dense, encdec, hybrid, ssm
 from repro_torch.models.params import ParamTree
+from repro_torch.sharding.tensor_parallel import fake_tensors
 
 _DENSE_FAMILY = (DENSE, VLM, MOE)
 _IMPL = {DENSE: dense, VLM: dense, MOE: dense, SSM: ssm, HYBRID: hybrid,
@@ -67,12 +68,18 @@ class Model:
         return self._impl.train_loss(self.cfg, params, batch, remat=remat)
 
     def init_cache(self, batch: int, max_seq: int, dtype=torch.bfloat16,
-                   device=None):
+                   device=None, abstract: bool = False):
+        """The family's empty cache; ``abstract``: its shapes as fake
+        tensors, allocating nothing (the dry run's)."""
         cfg = self.cfg
         if cfg.family in _DENSE_FAMILY:
-            return init_kv_cache(cfg.num_layers, batch, max_seq,
-                                 cfg.num_kv_heads, cfg.head_dim, dtype,
-                                 device)
+            fn = abstract_kv_cache if abstract else init_kv_cache
+            return fn(cfg.num_layers, batch, max_seq, cfg.num_kv_heads,
+                      cfg.head_dim, dtype, device)
+        if abstract:
+            with fake_tensors():
+                return self._impl.init_cache(cfg, batch, max_seq, dtype,
+                                             device)
         return self._impl.init_cache(cfg, batch, max_seq, dtype, device)
 
     def prefill(self, params, tokens, cache, store=None,

@@ -1,0 +1,259 @@
+"""Tensor parallelism over a mesh's ``model`` axis, and whole tensors from
+their shards by hand.
+
+The reference gets tensor parallelism from pjit: it places the weights by
+the rules and lets ``lsc`` pin the activations. The port runs eagerly, so
+its meshed path is explicit. The weights are ``DTensor`` leaves placed by
+the rules (``sharding.specs.named_sharding_tree``) and the activations are
+``DTensor`` values on the weights' mesh: a product of a replicated
+activation with a column-sharded weight is column-sharded, a product with
+a row-sharded weight is a partial sum, and ``lsc`` redistributes (the
+all-reduce of the row-parallel product). Each weight is read through
+``gather_weight``: its data and pod shards (the FSDP dims of the rules)
+are gathered, its ``model`` shard stays, as pjit gathers a weight that the
+rules put on ``data`` before its product. Code that mixes the activations
+with plain tensors (RoPE, the attention, the kernels) runs on this rank's
+local tensors (``local_call``); where such code splits a dim across ranks
+(the unique cache's ``kv_seq`` and the store's ``chunk_seq`` over
+``model``) the partials are combined by the exact LSE all-reduce of
+``core/disagg.py``.
+
+``full_tensor`` and ``local_part`` move between a ``DTensor`` and the
+whole tensor without DTensor's own collectives: a checkpoint gathers its
+leaves by hand with ``all_gather`` (``DTensor.full_tensor`` kills the
+rank over gloo on CUDA tensors, torch 2.11) and restores each rank's
+shard by cutting it out of the whole leaf, with no collective at all.
+
+``place`` and ``place_fields`` put a tensor, a cache or a store at the
+placements that its logical names resolve to (the serving inputs of a
+meshed step and the dry run's arguments); ``fake_tensors`` makes new
+tensors fake for the dry run's abstract state.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from repro_torch.sharding import specs as sp
+
+
+def is_meshed(t) -> bool:
+    return isinstance(t, DTensor)
+
+
+def _chunks(total: int, n: int) -> List[int]:
+    """The sizes of ``torch.chunk``'s n pieces of a dim of ``total``
+    (DTensor's split: ceil-sized pieces, the last ones short or empty)."""
+    step = math.ceil(total / n) if total else 0
+    return [max(0, min(step, total - i * step)) for i in range(n)]
+
+
+def _levels(shape: Sequence[int], mesh, placements
+            ) -> List[Tuple[int, int, int, int]]:
+    """(mesh dim, tensor dim, size of that tensor dim before this mesh dim
+    splits it, this rank's coordinate) for each ``Shard`` placement, in
+    mesh-dim order: DTensor splits a dim over its mesh dims in that
+    order."""
+    cur = list(shape)
+    coord = mesh.get_coordinate()
+    out = []
+    for md, p in enumerate(placements):
+        if isinstance(p, Shard):
+            n, c = mesh.size(md), coord[md]
+            out.append((md, p.dim, cur[p.dim], c))
+            cur[p.dim] = _chunks(cur[p.dim], n)[c]
+    return out
+
+
+def local_part(full: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """This rank's shard of the whole tensor ``full`` at ``placements``
+    over ``mesh``, cut out locally (a view): what ``distribute_tensor``
+    would keep, with no collective."""
+    out = full
+    for md, dim, size, c in _levels(full.shape, mesh, placements):
+        sizes = _chunks(size, mesh.size(md))
+        out = out.narrow(dim, sum(sizes[:c]), sizes[c])
+    return out
+
+
+def full_tensor(t: DTensor) -> torch.Tensor:
+    """The whole value of ``t``, built from every rank's ``to_local()``
+    shard with ``all_gather`` over each sharded mesh dim (the last first),
+    each rank's shard padded to the largest one and trimmed after. A
+    collective that every rank of ``t``'s mesh joins; ``Partial``
+    placements are refused."""
+    mesh = t.device_mesh
+    if any(isinstance(p, Partial) for p in t.placements):
+        raise ValueError(f"full_tensor: partial placements {t.placements}")
+    out = t.to_local().detach()
+    for md, dim, size, _ in reversed(_levels(t.shape, mesh, t.placements)):
+        n = mesh.size(md)
+        sizes = _chunks(size, n)
+        pad = list(out.shape)
+        pad[dim] = sizes[0]
+        buf = out.new_zeros(pad)
+        buf.narrow(dim, 0, out.shape[dim]).copy_(out)
+        parts = [torch.empty_like(buf) for _ in range(n)]
+        dist.all_gather(parts, buf.contiguous(), group=mesh.get_group(md))
+        out = torch.cat([p.narrow(dim, 0, s) for p, s in zip(parts, sizes)],
+                        dim=dim)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism
+# ---------------------------------------------------------------------------
+
+def keep_shards(t: DTensor, axes: Sequence[str]) -> DTensor:
+    """``t`` with its shards on every mesh axis outside ``axes`` gathered
+    (an all-gather whose backward is a reduce-scatter)."""
+    names = t.device_mesh.mesh_dim_names
+    want = tuple(p if names[md] in axes else Replicate()
+                 for md, p in enumerate(t.placements))
+    return t if want == tuple(t.placements) else \
+        t.redistribute(t.device_mesh, want)
+
+
+def gather_weight(w: torch.Tensor) -> torch.Tensor:
+    """A weight as its product reads it: a ``DTensor``'s shards on every
+    mesh axis but ``model`` gathered (the FSDP dims of the rules), its
+    ``model`` shard kept. A plain tensor as it is."""
+    return keep_shards(w, ("model",)) if isinstance(w, DTensor) else w
+
+
+def gather_weights(group) -> dict:
+    """{name: ``gather_weight``} of a parameter group (a
+    ``ParameterDict``), or the group itself when it is not meshed."""
+    if not any(isinstance(v, DTensor) for v in group.values()):
+        return group
+    return {k: gather_weight(v) for k, v in group.items()}
+
+
+def split_heads(t: torch.Tensor, n: int, d: int) -> torch.Tensor:
+    """(..., n * d) -> (..., n, d). A ``DTensor`` sharded on its last dim
+    keeps the shard on the heads where every mesh dim that splits it
+    divides ``n``; elsewhere that mesh dim is gathered first (8 kv heads
+    do not split over a model axis of 16: the reference's guard
+    replicates them)."""
+    lead = t.shape[:-1]
+    if isinstance(t, DTensor):
+        last = t.ndim - 1
+        want = tuple(Replicate() if isinstance(p, Shard) and p.dim == last
+                     and n % t.device_mesh.size(md) else p
+                     for md, p in enumerate(t.placements))
+        if want != tuple(t.placements):
+            t = t.redistribute(t.device_mesh, want)
+    return t.reshape(*lead, n, d)
+
+
+def local_range(t: DTensor, dim: int) -> Tuple[int, int]:
+    """(first, count) of the global indices of dim ``dim`` of a
+    ``DTensor`` that this rank holds: the range that ``local_part`` cuts,
+    uneven splits included."""
+    start, size = 0, t.shape[dim]
+    mesh = t.device_mesh
+    for md, d, whole, c in _levels(t.shape, mesh, t.placements):
+        if d == dim:
+            sizes = _chunks(whole, mesh.size(md))
+            start, size = start + sum(sizes[:c]), sizes[c]
+    return start, size
+
+
+def split_axes(t: DTensor, dim: int) -> Tuple[str, ...]:
+    """The mesh axes (in mesh order) that split dim ``dim`` of a
+    ``DTensor``."""
+    names = t.device_mesh.mesh_dim_names
+    return tuple(names[md] for md, p in enumerate(t.placements)
+                 if isinstance(p, Shard) and p.dim == dim)
+
+
+def kv_for_heads(k: torch.Tensor, k_first: int, q_first: int, q_count: int,
+                 group: int, dim: int = -2) -> torch.Tensor:
+    """The kv heads of the local tensor ``k`` (whose first head is global
+    head ``k_first``) that the query heads [q_first, q_first + q_count)
+    read, GQA group size ``group``; a rank's query heads must cover whole
+    groups or lie within one."""
+    lo, hi = q_first // group, (q_first + q_count - 1) // group + 1
+    if q_count % group and (hi - lo) != 1:
+        raise ValueError(f"{q_count} query heads from {q_first} straddle "
+                         f"groups of {group}")
+    return k.narrow(dim, lo - k_first, hi - lo)
+
+
+def local_call(fn: Callable, args: Sequence, out_placements, mesh,
+               grad_placements: Optional[Sequence] = None):
+    """``fn`` on this rank's local tensors of ``args`` (``DTensor`` args
+    give their ``to_local()``, whose gradient is taken at the
+    corresponding ``grad_placements`` entry where one is given: a
+    ``Partial`` where each rank reads a different part of a replicated
+    tensor), its tensor outputs wrapped as ``DTensor`` values at
+    ``out_placements`` (one placement tuple, or a sequence of them, one
+    per output) on ``mesh``."""
+    grad_placements = grad_placements or [None] * len(args)
+    local = [a.to_local(grad_placements=g) if isinstance(a, DTensor) else a
+             for a, g in zip(args, grad_placements)]
+    out = fn(*local)
+    if isinstance(out, torch.Tensor):
+        return DTensor.from_local(out, mesh, out_placements,
+                                  run_check=False)
+    return type(out)(DTensor.from_local(o, mesh, pl, run_check=False)
+                     for o, pl in zip(out, out_placements))
+
+
+def write_prefix_meshed(kc: DTensor, vc: DTensor, k: DTensor, v: DTensor
+                        ) -> None:
+    """``kvcache.cache.write_prefix`` on a mesh: the fresh keys and values
+    (B, S_new, KH, D) written at positions [0, S_new) of caches (B, S, KH,
+    D) split by row and by position; each rank writes the positions it
+    holds, in place."""
+    rows = split_axes(kc, 0)
+    k, v = (keep_shards(t, rows) for t in (k, v))
+    first, n = local_range(kc, 1)
+    S_new = k.shape[1]
+    take = max(0, min(n, S_new - first))
+    if take:
+        kc.to_local()[:, :take] = k.to_local()[:, first:first + take]
+        vc.to_local()[:, :take] = v.to_local()[:, first:first + take]
+
+
+# ---------------------------------------------------------------------------
+# placing inputs by their logical names, and fake tensors
+# ---------------------------------------------------------------------------
+
+def place(t: torch.Tensor, names: Sequence[Optional[str]], rules, mesh
+          ) -> DTensor:
+    """``t`` as a ``DTensor`` at the placements its logical names resolve
+    to on ``mesh`` under ``rules`` (the guarded resolution: an axis that
+    does not divide its dim is dropped). A fake ``t`` gives a fake
+    ``DTensor``."""
+    from torch.distributed.tensor import distribute_tensor
+    names = tuple(names[:t.ndim]) + (None,) * (t.ndim - len(names))
+    axes, sizes = sp._mesh_axes(mesh)
+    spec = sp._resolve(rules, names, axes, tuple(t.shape), sizes)
+    return distribute_tensor(t, mesh, sp.placements(spec, mesh))
+
+
+def place_fields(tup, table, rules, mesh):
+    """A NamedTuple of tensors (a cache, a store) placed field by field by
+    ``table`` ({field: logical names}; a field it does not name is
+    replicated, a None field stays None)."""
+    return type(tup)(*(None if t is None else
+                       place(t, table.get(name, ()), rules, mesh)
+                       for name, t in zip(tup._fields, tup)))
+
+
+def fake_tensors():
+    """A context in which new tensors are fake (shapes and dtypes, no
+    memory): the active ``FakeTensorMode`` when there is one (a dry run's:
+    fake tensors of two modes do not mix), else a new one."""
+    import contextlib
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    if any(isinstance(m, FakeTensorMode)
+           for m in _get_current_dispatch_mode_stack()):
+        return contextlib.nullcontext()
+    return FakeTensorMode(allow_non_fake_inputs=True)

@@ -10,9 +10,11 @@ leaves; the optimizer's ``.step``, ``.mu/<path>`` and ``.nu/<path>``), so
 a reference checkpoint restores into the port and a port checkpoint
 restores in the reference.
 
-Under FSDP the parameters and moments are ``DTensor`` shards: every rank
-joins the gathers of a save and rank 0 writes the whole tensors; a restore
-reads the whole leaves on every rank and keeps each rank's shard.
+Under a mesh the parameters and moments are ``DTensor`` shards: every
+rank joins the gathers of a save (``all_gather`` of the local shards, by
+hand) and rank 0 writes the whole tensors; a restore reads the whole
+leaves on every rank and cuts each rank's shard out of them by its
+placements, with no collective.
 """
 from __future__ import annotations
 
@@ -25,9 +27,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
-from torch.distributed.tensor import DTensor, distribute_tensor
+from torch.distributed.tensor import DTensor
 
 from repro_torch.convert import reference_paths, to_reference_params
+from repro_torch.sharding.tensor_parallel import local_part
 from repro_torch.training.optimizer import AdamWState
 
 
@@ -116,8 +119,7 @@ def _load(params: nn.Module, flat, prefix: str,
                              f"{tuple(t.shape)}")
         src = src.to(t.device, t.dtype)
         if isinstance(t, DTensor):                # keep this rank's shard
-            src = distribute_tensor(src, t.device_mesh,
-                                    t.placements).to_local()
+            src = local_part(src, t.device_mesh, t.placements)
             t = t.to_local()
         t.copy_(src)
 

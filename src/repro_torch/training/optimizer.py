@@ -73,16 +73,22 @@ def global_norm(grads: Moments) -> torch.Tensor:
     """sqrt of the sum of every gradient's fp32 squares: a 0-dim fp32
     tensor on the gradients' device (no host sync). Sharded gradients
     (``DTensor``) add their local squares, summed over the ranks of their
-    mesh once; the others are whole on every rank and count once."""
-    sharded, whole, group = 0, 0, None
+    mesh once (a shard that a mesh dim replicates counts once per its
+    size there, so its share is divided by that size); the others are
+    whole on every rank and count once."""
+    sharded, whole, mesh = 0, 0, None
     for g in grads.values():
         sq = torch.sum(torch.square(_local(g).float()))
         if isinstance(g, DTensor):
-            sharded, group = sharded + sq, g.device_mesh.get_group()
+            mesh = g.device_mesh
+            copies = math.prod(mesh.size(md) for md, p in
+                               enumerate(g.placements) if p.is_replicate())
+            sharded = sharded + (sq / copies if copies > 1 else sq)
         else:
             whole = whole + sq
-    if group is not None:
-        dist.all_reduce(sharded, group=group)
+    if mesh is not None:
+        for md in range(mesh.ndim):
+            dist.all_reduce(sharded, group=mesh.get_group(md))
     return torch.sqrt(sharded + whole)
 
 

@@ -20,6 +20,16 @@ layers take the global capacity, positions and aux means
 (``sharding.data_parallel``), the gradients are summed over the ranks, the
 clip's norm spans every shard, and AdamW updates each shard where it lies.
 Every rank logs the same history.
+
+A mesh whose ``model`` axis is larger than 1 adds tensor parallelism (the
+dense and VLM members): every parameter becomes a ``DTensor`` at the
+placements the rules give it over the whole 2-D mesh, ``data`` on its
+FSDP dim and ``model`` on its heads, FFN or vocab dim, and each rank's
+rows of the batch a ``DTensor`` split over ``data``. The step is the
+unmeshed one on these values (``sharding/tensor_parallel.py``): each
+weight is gathered over ``data`` where its product reads it and its
+gradient reduce-scattered back, as FSDP does, and the partial sums of the
+``model`` axis are reduced where the rules pin the activations.
 """
 from __future__ import annotations
 
@@ -33,12 +43,14 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import DENSE, VLM, ModelConfig
 from repro_torch.data.pipeline import make_train_batches
 from repro_torch.models.model import Model, build_model
 from repro_torch.sharding import data_parallel as dp
-from repro_torch.sharding.specs import TRAIN_RULES, current_rules, param_specs
+from repro_torch.sharding.specs import (TRAIN_RULES, current_rules,
+                                        named_sharding_tree, param_specs)
 from repro_torch.training import checkpoint as ckpt_lib
 from repro_torch.training.optimizer import (adamw_init, adamw_update,
                                             cosine_schedule)
@@ -143,8 +155,7 @@ def shard_params(model: Model, params: nn.Module, mesh, *,
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
     if mesh["model"].size() > 1:
-        raise NotImplementedError("tensor parallelism over a model axis "
-                                  "of more than 1 (ROADMAP Queue 1 item 7)")
+        raise ValueError("a model axis of more than 1: tensor_parallel")
     specs = param_specs(params, current_rules() or TRAIN_RULES, mesh)
     dims = {id(p): _data_dim(specs[n]) for n, p in params.named_parameters()}
     sizes = Counter()
@@ -159,6 +170,43 @@ def shard_params(model: Model, params: nn.Module, mesh, *,
     root.set_gradient_divide_factor(1.0)
     root.set_force_sum_reduction_for_comms(True)     # gloo has no PREMUL_SUM
     return Sharded(root, mesh.get_group("data"), whole)
+
+
+def tensor_parallel(model: Model, params: nn.Module, mesh) -> None:
+    """Place every parameter of ``params`` (gradients on) as a ``DTensor``
+    at its rules' placements over the 2-D ``mesh`` (the installed rules,
+    else ``TRAIN_RULES``), in place. The dense and VLM members only: the
+    others' tensor parallelism is not ported yet."""
+    family = model.cfg.family
+    if family not in (DENSE, VLM):
+        item = "9: expert parallelism" if model.cfg.moe.enabled else \
+            "10: the SSM, hybrid and enc-dec families"
+        raise NotImplementedError(f"tensor parallelism of the {family} "
+                                  f"family (ROADMAP Queue 1 item {item})")
+    placed = named_sharding_tree(params, current_rules() or TRAIN_RULES,
+                                 mesh)
+    for name, t in placed.items():
+        *path, leaf = name.split(".")
+        params.get_submodule(".".join(path)).register_parameter(
+            leaf, nn.Parameter(t, requires_grad=True))
+
+
+def _replicated(v: torch.Tensor) -> torch.Tensor:
+    """A metric's value on this rank: a ``DTensor``'s whole value."""
+    if not isinstance(v, DTensor):
+        return v
+    return v.redistribute(v.device_mesh,
+                          [Replicate()] * v.device_mesh.ndim).to_local()
+
+
+def _grad(p: nn.Parameter) -> torch.Tensor:
+    """``p``'s gradient (zeros where it has none) at ``p``'s placements:
+    a meshed product leaves the gradient of a replicated weight a partial
+    sum of the ranks'."""
+    g = p.grad if p.grad is not None else torch.zeros_like(p)
+    if isinstance(g, DTensor) and g.placements != p.placements:
+        g = g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def batch_rows(batch: Dict[str, np.ndarray], rank: int, world: int
@@ -199,15 +247,15 @@ def make_train_step(model: Model, loop_cfg: TrainLoopConfig,
                 ce = dp.global_sum(ce)
             sharded.reduce_whole()
             loss, metrics = ce + aux, {"ce_loss": ce, "moe_aux": aux}
-        grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
-                 for n, p in params.named_parameters()}
+        grads = {n: _grad(p) for n, p in params.named_parameters()}
         params, opt_state = adamw_update(
             grads, opt_state, params, lr=lr,
             weight_decay=loop_cfg.weight_decay,
             grad_clip=loop_cfg.grad_clip)
         for p in params.parameters():
             p.grad = None
-        metrics = {k: v.detach() for k, v in dict(metrics, loss=loss).items()}
+        metrics = {k: _replicated(v.detach())
+                   for k, v in dict(metrics, loss=loss).items()}
         return params, opt_state, metrics
 
     return step
@@ -238,8 +286,18 @@ def train(cfg: ModelConfig, loop_cfg: TrainLoopConfig,
                                      loop_cfg.seq_len, seed=loop_cfg.seed)
     history: List[Dict[str, float]] = []
     with trainable(params):
-        sharded, rank, world = None, 0, 1
-        if mesh is not None:
+        sharded, rank, world, tp_mesh = None, 0, 1, None
+        if mesh is not None and mesh["model"].size() > 1:
+            tensor_parallel(model, params, mesh)
+            tp_mesh = mesh
+            names = mesh.mesh_dim_names
+            rows = [Shard(0) if n in ("pod", "data") else Replicate()
+                    for n in names]
+            for n in ("pod", "data"):     # the batch splits over both
+                if n in names:
+                    rank = rank * mesh[n].size() + mesh.get_local_rank(n)
+                    world *= mesh[n].size()
+        elif mesh is not None:
             sharded = shard_params(model, params, mesh,
                                    remat=loop_cfg.remat)
             rank, world = dist.get_rank(sharded.group), \
@@ -256,9 +314,13 @@ def train(cfg: ModelConfig, loop_cfg: TrainLoopConfig,
         t0 = time.perf_counter()
         for step_idx in range(start_step, loop_cfg.num_steps):
             batch = next(batches)
-            if sharded is not None:
+            if world > 1:
                 batch = batch_rows(batch, rank, world)
             batch = to_device(batch, device)
+            if tp_mesh is not None:
+                batch = {k: DTensor.from_local(v, tp_mesh, rows,
+                                               run_check=False)
+                         for k, v in batch.items()}
             params, opt_state, metrics = step_fn(params, opt_state, batch)
             if (loop_cfg.log_every and step_idx % loop_cfg.log_every == 0) \
                     or step_idx == loop_cfg.num_steps - 1:

@@ -1,0 +1,142 @@
+"""The port's dry run (``repro_torch.launch.dryrun``): one full-size record
+from the command line in a subprocess, the depth extrapolation against a
+trace of every layer, the per-rank counts of the 16x16 mesh summed over
+its 256 ranks against the same step at a world of one, and the records of
+skipped and failing combinations."""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch.distributed as dist
+
+ROOT = Path(__file__).resolve().parents[1]
+KEYS = ("arch", "shape", "mesh", "variant", "status", "roofline",
+        "trace_s", "wall_s")
+TERMS = ("arch", "shape", "mesh", "chips", "flops_per_chip",
+         "bytes_per_chip", "collective_bytes_per_chip", "peak_mem_per_chip",
+         "collectives", "model_flops", "note", "compute_s", "memory_s",
+         "collective_s", "dominant", "useful_flops_ratio")
+
+
+@pytest.fixture
+def no_world():
+    yield
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def test_one_full_size_record_from_the_command_line(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "tinyllama-1.1b", "--shape", "decode_32k", "--device", "cpu",
+         "--out", str(tmp_path)], env=env, timeout=300,
+        capture_output=True, text=True)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "0 failures" in res.stdout
+    with open(tmp_path / "tinyllama-1.1b__decode_32k__16x16.json") as f:
+        rec = json.load(f)
+    assert set(KEYS) <= set(rec) and rec["status"] == "ok"
+    r = rec["roofline"]
+    assert set(TERMS) <= set(r)
+    assert r["chips"] == 256 and r["flops_per_chip"] > 0
+    assert r["peak_mem_per_chip"] < 80e9
+    assert set(r["collectives"]) <= {"all-gather", "all-reduce",
+                                     "reduce-scatter", "all-to-all",
+                                     "collective-permute"}
+
+
+@pytest.mark.parametrize("arch,shape", [("tinyllama-1.1b", "decode_32k"),
+                                        ("tinyllama-1.1b", "long_500k")])
+def test_depth_extrapolation_equals_every_layer_traced(no_world, arch,
+                                                       shape):
+    from repro_torch.launch.dryrun import trace, trace_at_depth
+    a = trace_at_depth(arch, shape, False, device="cpu")
+    b = trace(arch, shape, False, device="cpu")
+    assert a[0] == b[0] and a[1] == b[1]
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k"])
+def test_depth_extrapolation_equals_a_cut_depth_traced(no_world, shape):
+    """Training (remat's saved inputs, the chunked loss, the optimizer's
+    moments) and the prefill: the 1- and 2-layer traces extrapolated to 3
+    layers equal a trace of 3 layers, every count and the peak."""
+    from repro_torch.launch.dryrun import extrapolate, trace
+    one, two, three = (trace("tinyllama-1.1b", shape, False, device="cpu",
+                             layers=n)[:2] for n in (1, 2, 3))
+    cost, peak = extrapolate(one, two, 3)
+    assert cost == three[0] and peak == three[1]
+
+
+def _world_of_one(arch, shape):
+    """The step's flops traced at a world of one: a (1, 1) mesh."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.launch import input_specs as ispecs
+    from repro_torch.launch.mesh import init_fake_world
+    from repro_torch.launch.op_cost import analyze_ops
+    from repro_torch.sharding import use_rules
+    init_fake_world(1)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        flops = []
+        for layers in (1, 2):
+            with FakeTensorMode(allow_non_fake_inputs=True):
+                spec = ispecs.build(arch, shape, mesh, layers=layers)
+                with use_rules(spec.rules):
+                    flops.append(analyze_ops(spec.fn, *spec.args)[0].flops)
+    finally:
+        dist.destroy_process_group()
+    from repro_torch.configs import get_config
+    return flops[0] + (get_config(arch).num_layers - 1) * (flops[1]
+                                                            - flops[0])
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "decode_32k"])
+def test_ranks_sum_to_the_world_of_one(no_world, shape):
+    """tinyllama-1.1b: the matmul and kernel FLOPs of one rank of the 16x16
+    mesh, times 256, within 5 % of the same step at a world of one (every
+    product split by rows over data and by heads, FFN or vocab columns
+    over model; the kernels by rows, positions and chunks); training does
+    no more than its model FLOPs' worth of products and their
+    recompute."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.dryrun import trace_at_depth
+    cost, peak, _ = trace_at_depth("tinyllama-1.1b", shape, False,
+                                   device="cpu")
+    dist.destroy_process_group()
+    one = _world_of_one("tinyllama-1.1b", shape)
+    print(f"{shape}: 256 ranks x {cost.flops:.6e} = {256 * cost.flops:.6e}"
+          f" FLOPs, a world of one {one:.6e}")
+    assert abs(256 * cost.flops - one) <= 0.05 * one, (cost.flops, one)
+    r = rl.analyze(cost, peak, arch="tinyllama-1.1b", shape=shape,
+                   mesh_name="16x16", chips=256,
+                   cfg=get_config("tinyllama-1.1b"),
+                   ishape=INPUT_SHAPES[shape])
+    if shape == "train_4k":
+        assert 0.5 < r.useful_flops_ratio <= 1.0
+
+
+def test_skipped_and_failing_records(no_world, tmp_path):
+    from repro_torch.launch import dryrun
+    rec = dryrun.run_one("granite-moe-1b-a400m", "decode_32k", False,
+                         str(tmp_path), verbose=False, device="cpu")
+    assert rec["status"] == "skipped" and "item 9" in rec["reason"]
+    rec = dryrun.run_one("whisper-tiny", "long_500k", True, str(tmp_path),
+                         verbose=False, device="cpu")
+    assert rec["status"] == "skipped" and "500K" in rec["reason"]
+    assert (tmp_path / "whisper-tiny__long_500k__2x16x16.json").exists()
+    with pytest.raises(SystemExit) as e:
+        dryrun.main(["--arch", "no-such-arch", "--shape", "decode_32k",
+                     "--device", "cpu", "--out", str(tmp_path)])
+    assert e.value.code == 1
+    with open(tmp_path / "no-such-arch__decode_32k__16x16.json") as f:
+        bad = json.load(f)
+    assert bad["status"] == "error" and "KeyError" in bad["error"]
+    assert "traceback" in bad

@@ -16,13 +16,18 @@ the disaggregated path on the card (moska-llama3.1-8b's G = 4 at D = 128
 in the three kernels it runs, ``disaggregated_shared_attention`` in a
 world of one over NCCL), two training steps under a mesh against the
 unmeshed steps, and granite-moe trained by a gloo world of 2 on the card
-(remat on) against the unmeshed run.
+(remat on) against the unmeshed run; meshed checkpoints resumed bit for
+bit in a gloo world of 2 on the card and in a world of one over NCCL,
+the kernels' fake-tensor branch left to fake tensors, and tensor
+parallelism over NCCL on 2 and 4 cards (skipped with fewer) against one
+card.
 
 These tests need an NVIDIA card with the CUDA toolkit; elsewhere they skip.
 This file imports no JAX, so it also runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 """
+import contextlib
 import copy
 import dataclasses
 
@@ -1053,3 +1058,316 @@ def test_mesh_train_world_of_two_on_the_card(cuda, tmp_path):
         next(batches)
     _assert_trained_alike(cfg, _mesh_loop(), {"params": meshed}, want,
                           next(batches), param_rel=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the launch tools' slice: meshed checkpoints on the card, the kernels'
+# fake-tensor branch, tensor parallelism over NCCL
+# ---------------------------------------------------------------------------
+
+CKPT_STEPS, CKPT_SAVE, CKPT_BATCH, CKPT_SEQ = 5, 3, 4, 64
+
+
+def _ckpt_cfg():
+    return dataclasses.replace(get_config("tinyllama-1.1b").reduced(),
+                               dtype="float32")
+
+
+def _resume_on_mesh(out_dir, mesh, rank):
+    """``train`` under ``mesh`` (FSDP over data), saving at CKPT_SAVE into
+    ``out_dir/full``; rank 0 copies that save alone into ``out_dir/part``
+    and a fresh ``train`` resumes from it. Returns (the uninterrupted
+    run's losses, the resumed run's (step, loss), whether every local
+    shard of the parameters and moments is equal bit for bit)."""
+    import shutil
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import make_train_batches
+    from repro_torch.sharding import TRAIN_RULES, use_rules
+    from repro_torch.training.train_loop import TrainLoopConfig, train
+    cfg = _ckpt_cfg()
+
+    def run(ckpt, every, skip):
+        batches = make_train_batches(cfg, CKPT_BATCH, CKPT_SEQ)
+        for _ in range(skip):                # read from their start
+            next(batches)
+        loop = TrainLoopConfig(num_steps=CKPT_STEPS, batch_size=CKPT_BATCH,
+                               seq_len=CKPT_SEQ, log_every=1,
+                               ckpt_dir=f"{out_dir}/{ckpt}", ckpt_every=every)
+        with use_rules(TRAIN_RULES):
+            return train(cfg, loop, batches, device="cuda", mesh=mesh)
+    full = run("full", CKPT_SAVE, 0)
+    if rank == 0:
+        name = f"step_{CKPT_SAVE:08d}"
+        shutil.copytree(f"{out_dir}/full/{name}", f"{out_dir}/part/{name}")
+        with open(f"{out_dir}/part/LATEST", "w") as f:
+            f.write(name)
+    dist.barrier()
+    resumed = run("part", 0, CKPT_SAVE)
+
+    def shards(out):
+        st = out["opt_state"]
+        return [t.to_local() if hasattr(t, "to_local") else t for t in
+                list(out["params"].parameters()) + list(st.mu.values())
+                + list(st.nu.values())]
+    same = all(torch.equal(a, b) for a, b in zip(shards(full),
+                                                 shards(resumed)))
+    return ([h["loss"] for h in full["history"]],
+            [(h["step"], h["loss"]) for h in resumed["history"]], same)
+
+
+def _deterministic():
+    import os
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _ckpt_gloo_rank(rank, world, out_dir):
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    _deterministic()
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/rdzv",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        res = _resume_on_mesh(out_dir, make_host_mesh(device="cuda"), rank)
+        torch.save(res, f"{out_dir}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _assert_resumed_bit_for_bit(full, resumed, same):
+    assert [s for s, _ in resumed] == list(range(CKPT_SAVE, CKPT_STEPS))
+    assert [loss for _, loss in resumed] == full[CKPT_SAVE:]
+    assert same
+
+
+def test_mesh_checkpoint_resumes_bit_for_bit_gloo_on_the_card(cuda,
+                                                             tmp_path):
+    """A gloo world of 2 on the one card (NCCL refuses two ranks on one
+    device), deterministic algorithms: the save gathers every shard by
+    hand (``DTensor.full_tensor`` killed the rank on the card, torch
+    2.11), the restore cuts each rank's shard out locally; the resumed
+    run's losses and every rank's parameter and moment shards equal the
+    uninterrupted run's bit for bit."""
+    import time
+    ctx = torch.multiprocessing.start_processes(
+        _ckpt_gloo_rank, args=(2, str(tmp_path)), nprocs=2, join=False,
+        start_method="spawn")
+    deadline = time.monotonic() + 300
+    while not ctx.join(timeout=1):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            raise TimeoutError("2 ranks outlasted 300 s")
+    for r in range(2):
+        _assert_resumed_bit_for_bit(*torch.load(tmp_path / f"rank{r}.pt"))
+
+
+def test_mesh_checkpoint_resumes_bit_for_bit_nccl_world_of_one(
+        nccl_world_of_one, tmp_path):
+    _deterministic()
+    try:
+        _assert_resumed_bit_for_bit(*_resume_on_mesh(
+            str(tmp_path), nccl_world_of_one, 0))
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def test_card_tensors_launch_and_report_no_traced_work(cuda):
+    """The kernels' fake-tensor branch is the dry run's: a real CUDA
+    tensor launches the kernel and hands no work to a listening
+    counter."""
+    from repro_torch.kernels import work
+    g = np.random.default_rng(3)
+    q = _randn(g, (4, 8, 64), torch.bfloat16, cuda)
+    k = _randn(g, (4, 64, 2, 64), torch.bfloat16, cuda)
+    lens = torch.full((4,), 64, dtype=torch.int32, device=cuda)
+    heard = []
+    work._listeners.append(lambda *a: heard.append(a))
+    try:
+        n0 = ops.decode_attention.launches
+        ops.decode_attention(q, k, k.clone(), lens)
+        torch.cuda.synchronize()
+    finally:
+        work._listeners.clear()
+    assert ops.decode_attention.launches == n0 + 1 and not heard
+
+
+TP_STEPS, TP_BATCH, TP_SEQ = 5, 4, 64
+TP_B, TP_PROMPT, TP_MAX_SEQ, TP_CHUNKS = 4, 12, 32, 8
+# fp32, TF32 off; measured on four H100s over NCCL (both meshes): losses
+# within 6e-8 relative, parameters 5.1e-5 of a leaf's scale (AdamW
+# normalizes gradients that lie at the reduction-order noise, as on the
+# CPU: tests/test_torch_tp.py), logits 5.8e-6
+TP_LOSS_REL, TP_PARAM_REL, TP_LOGIT_TOL = 1e-5, 2e-4, 2e-5
+# AdamW's step does not see a gradient's scale: the first update's
+# gradients are held leaf by leaf, and their global norm
+TP_GRAD_REL = 1e-5
+
+
+@contextlib.contextmanager
+def _first_update():
+    """Records what the run's first AdamW update reads: every gradient,
+    whole on the CPU, and their ``global_norm``."""
+    from repro_torch.sharding.tensor_parallel import full_tensor, is_meshed
+    from repro_torch.training import train_loop
+    from repro_torch.training.optimizer import global_norm
+    real, seen = train_loop.adamw_update, {}
+
+    def update(grads, state, params, **kw):
+        if not seen:
+            seen["gnorm"] = float(global_norm(grads))
+            seen["grads"] = {n: (full_tensor(g) if is_meshed(g) else g)
+                             .detach().cpu().clone()
+                             for n, g in grads.items()}
+        return real(grads, state, params, **kw)
+
+    train_loop.adamw_update = update
+    try:
+        yield seen
+    finally:
+        train_loop.adamw_update = real
+
+
+def _tp_cfg():
+    return dataclasses.replace(get_config("tinyllama-1.1b"), num_layers=2,
+                               dtype="float32")
+
+
+def _tp_decode(cfg, dev, mesh=None):
+    """Prefill (no store) and one decode step routed over a store of
+    TP_CHUNKS chunks, all inputs from seeds; with ``mesh`` both tensor
+    parallel on inputs placed by the serving rules. Returns the decode
+    step's logits whole, on the CPU."""
+    from repro_torch.core.shared_kv import build_store
+    from repro_torch.launch.input_specs import _CACHE_AXES, _STORE_AXES
+    from repro_torch.sharding import SERVE_RULES, use_rules
+    from repro_torch.sharding.tensor_parallel import (full_tensor, place,
+                                                      place_fields)
+    from repro_torch.training.train_loop import tensor_parallel
+    model = build_model(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(1), dev)
+    g = np.random.default_rng(5)
+    L, KH, D = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    S = TP_CHUNKS * cfg.moska.chunk_size
+    store = build_store(*(_randn(g, (L, S, KH, D), torch.float32, dev)
+                          for _ in range(2)), cfg.moska.chunk_size)
+    tokens = torch.from_numpy(g.integers(0, cfg.vocab_size,
+                                         (TP_B, TP_PROMPT))).to(dev)
+    nxt = torch.from_numpy(g.integers(0, cfg.vocab_size, (TP_B,))).to(dev)
+    cache = model.init_cache(TP_B, TP_MAX_SEQ, dtype=torch.float32,
+                             device=dev)
+    if mesh is None:
+        _, cache = model.prefill(params, tokens, cache)
+        return model.decode_step(params, nxt, cache, store=store)[0].cpu()
+    with use_rules(SERVE_RULES):
+        tensor_parallel(model, params, mesh)
+        cache = place_fields(cache, _CACHE_AXES, SERVE_RULES, mesh)
+        store = place_fields(store, _STORE_AXES, SERVE_RULES, mesh)
+        tokens, nxt = (place(t, ("batch",), SERVE_RULES, mesh)
+                       for t in (tokens, nxt))
+        _, cache = model.prefill(params, tokens, cache)
+        logits, _ = model.decode_step(params, nxt, cache, store=store)
+        return full_tensor(logits).cpu()
+
+
+def _tp_rank(rank, world, shape, out_dir):
+    import datetime
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.data.pipeline import make_train_batches
+    from repro_torch.sharding import TRAIN_RULES, use_rules
+    from repro_torch.sharding.tensor_parallel import full_tensor
+    from repro_torch.training.train_loop import TrainLoopConfig, train
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{out_dir}/rdzv",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = init_device_mesh("cuda", shape,
+                                mesh_dim_names=("data", "model"))
+        cfg = _tp_cfg()
+        loop = TrainLoopConfig(num_steps=TP_STEPS, batch_size=TP_BATCH,
+                               seq_len=TP_SEQ, log_every=1)
+        with use_rules(TRAIN_RULES), _first_update() as first:
+            out = train(cfg, loop, make_train_batches(cfg, TP_BATCH, TP_SEQ),
+                        device="cuda", mesh=mesh)
+        res = {"loss": [h["loss"] for h in out["history"]],
+               "params": {n: full_tensor(p).cpu()
+                          for n, p in out["params"].named_parameters()},
+               "first": first}
+        del out
+        res["logits"] = _tp_decode(cfg, dev, mesh)
+        if rank == 0:
+            torch.save(res, f"{out_dir}/tp.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2)], ids=["1x2", "2x2"])
+def test_tp_over_nccl(cuda, tmp_path, shape):
+    """tinyllama-1.1b at full width cut to 2 layers, fp32, tensor parallel
+    over NCCL with a card a rank on a (1, 2) and a (2, 2) mesh: 5 training
+    steps and one routed decode step over a store split by chunk and by
+    chunk position, each against the unmeshed run on one card: losses
+    within TP_LOSS_REL relative, the final parameters within TP_PARAM_REL
+    of each leaf's scale and their loss on the next batch within
+    TP_LOSS_REL, the first update's gradients within TP_GRAD_REL of each
+    leaf's largest and their global norm within TP_GRAD_REL relative, the
+    decode step's logits within TP_LOGIT_TOL and the same greedy
+    tokens."""
+    import time
+    from repro_torch.data.pipeline import make_train_batches
+    from repro_torch.training.train_loop import TrainLoopConfig, train
+    world = shape[0] * shape[1]
+    if torch.cuda.device_count() < world:
+        pytest.skip(f"needs {world} cards (has {torch.cuda.device_count()})")
+    ctx = torch.multiprocessing.start_processes(
+        _tp_rank, args=(world, shape, str(tmp_path)), nprocs=world,
+        join=False, start_method="spawn")
+    deadline = time.monotonic() + 600
+    while not ctx.join(timeout=1):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            raise TimeoutError(f"{world} ranks outlasted 600 s")
+    got = torch.load(tmp_path / "tp.pt")
+    cfg = _tp_cfg()
+    loop = TrainLoopConfig(num_steps=TP_STEPS, batch_size=TP_BATCH,
+                           seq_len=TP_SEQ, log_every=1)
+    with _first_update() as first:
+        want = train(cfg, loop, make_train_batches(cfg, TP_BATCH, TP_SEQ),
+                     device="cuda")
+    gaps = {n: float((got["first"]["grads"][n] - g).abs().max()
+                     / g.abs().max()) for n, g in first["grads"].items()}
+    worst = max(gaps, key=gaps.get)
+    gn, gw = got["first"]["gnorm"], first["gnorm"]
+    print(f"largest gradient gap {gaps[worst]:.3e} of its leaf's largest "
+          f"({worst}); global norm {gn:.8e} vs {gw:.8e}")
+    assert gaps[worst] <= TP_GRAD_REL, worst
+    assert abs(gn - gw) <= TP_GRAD_REL * gw
+    a, b = got["loss"], [h["loss"] for h in want["history"]]
+    print(f"losses {a} vs {b}")
+    assert len(a) == TP_STEPS and all(
+        abs(x - y) <= TP_LOSS_REL * abs(y) for x, y in zip(a, b)), (a, b)
+    meshed = copy.deepcopy(want["params"])
+    with torch.no_grad():
+        for n, p in meshed.named_parameters():
+            p.copy_(got["params"][n].to(cuda))
+    batches = make_train_batches(cfg, TP_BATCH, TP_SEQ)
+    for _ in range(TP_STEPS):
+        next(batches)
+    _assert_trained_alike(cfg, loop, {"params": meshed}, want,
+                          next(batches), param_rel=TP_PARAM_REL,
+                          loss_rel=TP_LOSS_REL)
+    del meshed, want
+    ld = _tp_decode(cfg, cuda)
+    err = float((got["logits"] - ld).abs().max())
+    print(f"decode logits max_abs_err {err:.3e}")
+    assert err <= TP_LOGIT_TOL
+    assert torch.equal(got["logits"].argmax(-1), ld.argmax(-1))

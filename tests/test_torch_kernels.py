@@ -497,7 +497,11 @@ def test_port_imports_neither_jax_nor_the_reference():
                 "examples/long_context_decode.py",
                 "configs/granite_moe_1b_a400m.py", "core/disagg.py",
                 "sharding/specs.py", "sharding/data_parallel.py",
-                "launch/mesh.py"):
+                "launch/mesh.py",
+                # the launch analysis tools and tensor parallelism
+                "launch/roofline.py", "launch/op_cost.py",
+                "launch/input_specs.py", "launch/dryrun.py",
+                "kernels/work.py", "sharding/tensor_parallel.py"):
         assert ROOT / "src/repro_torch" / rel in files, rel
     for path in files:
         for mod in _imports(path):

@@ -513,4 +513,4 @@ def test_launcher_host_mesh_runs_and_multi_pod_is_refused(capsys):
     with pytest.raises(SystemExit):
         launch.main(["--arch", "tinyllama-1.1b", "--reduced", "--device",
                      "cpu", "--multi-pod"])
-    assert "item 7" in capsys.readouterr().err
+    assert "a world of 512 ranks" in capsys.readouterr().err

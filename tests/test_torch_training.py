@@ -352,7 +352,7 @@ def test_launch_train_runs_on_the_cpu():
     assert final["step"] == 1 and np.isfinite(final["loss"])
 
 
-def test_launch_train_refuses_without_card_or_mesh(monkeypatch):
+def test_launch_train_refuses_without_card_or_mesh(monkeypatch, capsys):
     monkeypatch.setattr("torch.cuda.is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
         tlaunch.main(["--arch", "tinyllama-1.1b", "--reduced"])
@@ -362,3 +362,4 @@ def test_launch_train_refuses_without_card_or_mesh(monkeypatch):
     with pytest.raises(SystemExit):
         tlaunch.main(["--arch", "tinyllama-1.1b", "--reduced", "--device",
                       "cpu", "--multi-pod"])
+    assert "a world of 512 ranks, not 1" in capsys.readouterr().err
