@@ -185,8 +185,31 @@ Phases, each printed as it runs; any failure exits non-zero:
             collective bytes and peak equal; (c) phase 6's slotted decode
             step traced by the dry run's counter: its flops, traffic and
             bound beside phase 6's measured device busy and wall.
+  10. ep    expert parallelism: (a) granite-moe-1b-a400m at full width and
+            depth, fp32 (TF32 off), in a gloo world of 2 on the one card, a
+            (1, 2) mesh (the experts over ``model``): 3 training steps of
+            4 x 256, then a prefill of 16 prompts of 256 tokens and one
+            decode step routed over a 32,768-token store (16 chunks of
+            2,048, top-8) split by chunk position over ``model``, each
+            against rank 0's one-process run of the same before it: losses
+            within 1e-5 relative (the aux loss at the first step), the
+            first update's gradients within 1e-5 of each leaf's largest
+            and their global norm within 1e-5 relative; the prefill's
+            logits within 2e-5 and the decode step's within 1e-3 (the
+            whole-model fp32 bound: its rounding grows with depth) of the
+            one-process run given the meshed run's expert choices (fp32
+            noise flips near-ties of the top-8 among 4,096 rows x 24
+            layers; the rows apart are counted and printed), and the same
+            greedy tokens as with its own. The kernels at a rank's decode
+            shapes against their plain versions first (fp32); each rank's
+            launches count in the kernels' line, and each of the four
+            decode kernels must have launched. Printed: the MoE layers' collective bytes by
+            kind, as the dry run's counter counts them (a model of the
+            card, not a measurement). (b) the dry run's record of
+            granite-moe-1b-a400m x decode_32k on the 16x16 mesh traced on
+            fake CUDA and on fake CPU tensors: the two equal.
 
-Phases 3m, 3w, 3f, 7, 8 and 9 run last, after phase 6, so that phases 1-6
+Phases 3m, 3w, 3f, 7, 8, 9 and 10 run last, after phase 6, so that phases 1-6
 run as they ran before them (cuBLAS picks GEMM kernels by what the process
 ran earlier, and phase 6 counts kernels exactly). Each phase prints its
 seconds. It then prints the kernels' JSON line (each
@@ -197,6 +220,7 @@ result.
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -301,6 +325,27 @@ LAUNCH_DEADLINE = 240                  # seconds for the spawned ranks
 DRY_ARCH, DRY_SHAPE = "tinyllama-1.1b", "decode_32k"
 DRY_KEYS = ("flops_per_chip", "bytes_per_chip", "collective_bytes_per_chip",
             "peak_mem_per_chip", "collectives")
+
+# phase 10: expert parallelism, granite at full width and depth in fp32 on
+# a (1, 2) mesh of two ranks on the one card; rank 0 runs the one-process
+# reference first. The loss, gradient and prefill bounds are the card
+# tests' tensor-parallel ones (tests/test_torch_gpu.py: TP_LOSS_REL,
+# TP_GRAD_REL, TP_LOGIT_TOL)
+EP_ARCH, EP_SHAPE = MOE_ARCH, (1, 2)
+EP_STEPS, EP_BATCH, EP_SEQ = 3, 4, 256
+EP_PROMPTS, EP_PROMPT, EP_MAX_SEQ, EP_CORPUS = 16, 256, 512, 32768
+EP_DEADLINE = 600                      # seconds for the spawned ranks
+EP_LOSS_REL, EP_GRAD_REL, EP_LOGIT_TOL = 1e-5, 1e-5, 2e-5
+# the full-depth decode step (24 layers over the 32,768-token store) gathers
+# fp32 rounding with depth: 1.144e-05 at 4 layers (full width, the CPU) and
+# 5.999e-05 at 24 on the card, with no expert choice apart; it is held at
+# the whole-model fp32 bound of phases 3m and 4, the prefill at 2e-5
+EP_DECODE_TOL = E2E_TOL
+# the aux loss counts each token's top-1 expert: once AdamW has turned the
+# reduction-order noise into parameter gaps, one token's flip moves it by
+# ~1e-4 relative (PERF.md), so it is held at the first step only
+EP_KERNELS = ("shared_chunk_attention", "decode_attention", "lse_merge",
+              "router_scores")
 
 # phase 3h: the host tier's stream, pool and tier
 TIER_CORPUS, TIER_PROMPTS = 16384, 128
@@ -2859,16 +2904,17 @@ def launch_checkpoint():
             range(LAUNCH_SAVE, LAUNCH_STEPS)), ("meshed resume", r, res))
 
 
-def launch_dryrun():
-    """9(b): the dry run's record of DRY_ARCH x DRY_SHAPE on the 16x16
-    mesh, traced on fake CUDA tensors and on fake CPU tensors in this one
-    process: flops, traffic, collective bytes and peak must be equal."""
+def launch_dryrun(arch=DRY_ARCH, shape=DRY_SHAPE, tag="[launch] (b)"):
+    """9(b) (and 10(b)): the dry run's record of ``arch`` x ``shape`` on
+    the 16x16 mesh, traced on fake CUDA tensors and on fake CPU tensors in
+    this one process: flops, traffic, collective bytes and peak must be
+    equal."""
     import torch.distributed as dist
     from repro_torch.launch import dryrun
     out = str(ROOT / "build" / "dryrun_torch")
     try:
-        recs = {d: dryrun.run_one(DRY_ARCH, DRY_SHAPE, False, out,
-                                  verbose=False, device=d)
+        recs = {d: dryrun.run_one(arch, shape, False, out, verbose=False,
+                                  device=d)
                 for d in ("cuda", "cpu")}
     finally:
         if dist.is_initialized():
@@ -2876,7 +2922,7 @@ def launch_dryrun():
     for d, rec in recs.items():
         check(rec["status"] == "ok", ("dry run", d, rec))
         r = rec["roofline"]
-        say(f"[launch] (b) dry run {DRY_ARCH} x {DRY_SHAPE} x 16x16 on "
+        say(f"{tag} dry run {arch} x {shape} x 16x16 on "
             f"fake {d} tensors: flops/chip={r['flops_per_chip']:.6e} "
             f"bytes/chip={r['bytes_per_chip']:.6e} collective/chip="
             f"{r['collective_bytes_per_chip']:.6e} peak/chip="
@@ -2886,8 +2932,8 @@ def launch_dryrun():
             f"trace {rec['trace_s']:.1f} s")
     same = all(recs["cuda"]["roofline"][k] == recs["cpu"]["roofline"][k]
                for k in DRY_KEYS)
-    say(f"[launch] (b) the card's record equals the CPU-traced one: {same}")
-    check(same, ("dry run cuda vs cpu", recs))
+    say(f"{tag} the card's record equals the CPU-traced one: {same}")
+    check(same, ("dry run cuda vs cpu", arch, recs))
 
 
 def launch_step_roofline(cfg, dev):
@@ -2927,6 +2973,315 @@ def phase_launch(cfg, dev):
     launch_checkpoint()
     launch_dryrun()
     launch_step_roofline(cfg, dev)
+
+
+# ---------------------------------------------------------------------------
+# phase 10: expert parallelism
+# ---------------------------------------------------------------------------
+
+def _empty_cache(dev):
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _ep_cfg():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(EP_ARCH), dtype="float32")
+
+
+@contextlib.contextmanager
+def _ep_first_update(ref=None):
+    """Records the first AdamW update's gradients: with ``ref`` (the
+    one-process run's whole gradients, on the card) each leaf's largest
+    gap to it over that leaf's largest, else the gradients themselves;
+    and their ``global_norm``. A meshed gradient is gathered whole, a
+    collective that every rank joins."""
+    from repro_torch.sharding.tensor_parallel import full_tensor, is_meshed
+    from repro_torch.training import train_loop
+    from repro_torch.training.optimizer import global_norm
+    real, seen = train_loop.adamw_update, {}
+
+    def update(grads, state, params, **kw):
+        if not seen:
+            seen["gnorm"] = float(global_norm(grads))
+            seen["grads"], seen["gaps"] = {}, {}
+            for n, g in grads.items():
+                g = full_tensor(g) if is_meshed(g) else g.detach().clone()
+                if ref is None:
+                    seen["grads"][n] = g
+                elif n in ref:
+                    seen["gaps"][n] = float((g - ref[n]).abs().max()
+                                            / ref[n].abs().max())
+        return real(grads, state, params, **kw)
+
+    train_loop.adamw_update = update
+    try:
+        yield seen
+    finally:
+        train_loop.adamw_update = real
+
+
+@contextlib.contextmanager
+def _ep_routes(force=None):
+    """Records each MoE call's expert choices (the ids of ``top_k`` in
+    ``models/moe.py``, this rank's rows); with ``force`` (a run's record)
+    the calls take those choices instead, their gates read from their own
+    probabilities."""
+    from repro_torch.models import moe
+    real, seen = moe.top_k, []
+
+    def top_k(probs, k):
+        vals, ids = real(probs, k)
+        if force is not None:
+            ids = force[len(seen)].to(ids.device)
+            vals = probs.gather(-1, ids)
+        seen.append(ids.detach().clone())
+        return vals, ids
+
+    moe.top_k = top_k
+    try:
+        yield seen
+    finally:
+        moe.top_k = real
+
+
+def _ep_decode(cfg, dev, mesh=None):
+    """Prefill of EP_PROMPTS prompts (no store) and one decode step routed
+    over an EP_CORPUS-token store, inputs from seeds; with ``mesh`` both
+    on inputs placed by the serving rules (the store split by chunk
+    position over ``model``), and the MoE layer's collective bytes by kind
+    counted at the prefill's and the decode's rows. Returns ({"prefill",
+    "decode"}: logits whole on the CPU, collective bytes or None)."""
+    from repro_torch.core.shared_kv import build_store
+    from repro_torch.launch.input_specs import _CACHE_AXES, _STORE_AXES
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding import SERVE_RULES, use_rules
+    from repro_torch.sharding.tensor_parallel import (full_tensor, place,
+                                                      place_fields)
+    from repro_torch.training.train_loop import tensor_parallel
+    model = build_model(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(1), dev)
+    g = torch.Generator(dev).manual_seed(5)
+    L, KH, D = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    store = build_store(*(torch.randn((L, EP_CORPUS, KH, D), generator=g,
+                                      device=dev) for _ in range(2)),
+                        cfg.moska.chunk_size)
+    tokens = torch.randint(0, cfg.vocab_size, (EP_PROMPTS, EP_PROMPT),
+                           generator=g, device=dev)
+    nxt = torch.randint(0, cfg.vocab_size, (EP_PROMPTS,), generator=g,
+                        device=dev)
+    cache = model.init_cache(EP_PROMPTS, EP_MAX_SEQ, dtype=torch.float32,
+                             device=dev)
+    if mesh is None:
+        lp, cache = model.prefill(params, tokens, cache)
+        ld, _ = model.decode_step(params, nxt, cache, store=store)
+        return {"prefill": lp.cpu(), "decode": ld.cpu()}, None
+    with use_rules(SERVE_RULES):
+        tensor_parallel(model, params, mesh)
+        cache = place_fields(cache, _CACHE_AXES, SERVE_RULES, mesh)
+        store = place_fields(store, _STORE_AXES, SERVE_RULES, mesh)
+        tokens, nxt = (place(t, ("batch",), SERVE_RULES, mesh)
+                       for t in (tokens, nxt))
+        lp, cache = model.prefill(params, tokens, cache)
+        ld, _ = model.decode_step(params, nxt, cache, store=store)
+        out = {"prefill": full_tensor(lp).cpu(),
+               "decode": full_tensor(ld).cpu()}
+        _sync(dev)
+        coll = _ep_collectives(cfg, dev, mesh, params.layers[0].moe)
+    return out, coll
+
+
+def _ep_collectives(cfg, dev, mesh, moe_params):
+    """The collective bytes by kind of one MoE layer on this rank, its
+    output's reduction over ``model`` (the residual's pin) included, as
+    the dry run's counter (``launch/op_cost.py``) counts them: forward at
+    the prefill's rows and at the decode step's (serving rules), forward
+    and backward at a training step's (training rules)."""
+    from repro_torch.launch.op_cost import analyze_ops
+    from repro_torch.models.moe import moe_ffn
+    from repro_torch.sharding import (SERVE_RULES, TRAIN_RULES, lsc,
+                                      use_rules)
+    from repro_torch.sharding.tensor_parallel import place
+
+    def layer(x, **kw):
+        y, aux = moe_ffn(x, moe_params, cfg.moe, **kw)
+        return lsc(y, "batch", None), aux
+    out = {}
+    for label, rows, rules in (("prefill", EP_PROMPTS * EP_PROMPT,
+                                SERVE_RULES),
+                               ("decode", EP_PROMPTS, SERVE_RULES),
+                               ("train", EP_BATCH * EP_SEQ, TRAIN_RULES)):
+        x = torch.randn((rows, cfg.d_model), device=dev)
+        with use_rules(rules):
+            x = place(x, ("batch", None), rules, mesh)
+            if label == "train":
+                x.requires_grad_(True)
+
+                def step():
+                    y, aux = layer(x)
+                    (y.to_local().square().sum() + aux.to_local()).backward()
+                cost, _ = analyze_ops(step)
+            else:
+                with torch.no_grad():
+                    cost, _ = analyze_ops(layer, x, with_aux=False)
+        out[label] = dict(cost.per_collective)
+    return out
+
+
+def _ep_rank(rank, world, tmp, device="cuda"):
+    """One rank of phase 10(a) on the one card, over gloo: rank 0 first
+    runs the one-process training and decode (the reference, gradients
+    kept on the card), then both ranks run them on the (1, 2) mesh, rank
+    0 holding the first update's gradients against the reference's. Each
+    rank writes its results and its decode step's kernel launches."""
+    import datetime
+    import faulthandler
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.data.pipeline import make_train_batches
+    from repro_torch.kernels import ops
+    from repro_torch.sharding import TRAIN_RULES, use_rules
+    from repro_torch.training.train_loop import TrainLoopConfig, train
+    faulthandler.enable()                 # a crashed rank prints its stack
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+    cfg = _ep_cfg()
+    loop = TrainLoopConfig(num_steps=EP_STEPS, batch_size=EP_BATCH,
+                           seq_len=EP_SEQ, log_every=1)
+
+    def history(out):
+        return {k: [h[k] for h in out["history"]]
+                for k in ("loss", "moe_aux")}
+    res, ref = {}, None
+    if rank == 0:                       # the one-process reference
+        with _ep_first_update() as first:
+            out = train(cfg, loop, make_train_batches(cfg, EP_BATCH, EP_SEQ),
+                        device=dev.type)
+        ref = first["grads"]
+        res["ref"] = dict(history(out), gnorm=first["gnorm"])
+        del out, first
+        _empty_cache(dev)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rdzv",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=EP_DEADLINE))
+    try:
+        mesh = init_device_mesh(dev.type, EP_SHAPE,
+                                mesh_dim_names=("data", "model"))
+        t = time.perf_counter()
+        with use_rules(TRAIN_RULES), _ep_first_update(ref) as first:
+            out = train(cfg, loop, make_train_batches(cfg, EP_BATCH, EP_SEQ),
+                        device=dev.type, mesh=mesh)
+        res["train_s"] = time.perf_counter() - t
+        res.update(history(out), gnorm=first["gnorm"], gaps=first["gaps"])
+        del out, first, ref
+        _empty_cache(dev)
+        ops.reset_launches()
+        with _ep_routes() as routes:
+            res["logits"], res["collectives"] = _ep_decode(cfg, dev, mesh)
+        res["launches"] = ops.launch_counts()
+        res["peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                          if dev.type == "cuda" else float("nan"))
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        # one process: with its own routing, then with the meshed run's
+        _empty_cache(dev)
+        with _ep_routes() as own:
+            res["ref"]["logits"] = _ep_decode(cfg, dev)[0]
+        res["flips"] = [int((a != b.to(a.device)).any(-1).sum())
+                        for a, b in zip(own, routes)]
+        with _ep_routes(force=routes):
+            res["ref"]["forced"] = _ep_decode(cfg, dev)[0]
+    torch.save(res, f"{tmp}/rank{rank}.pt")
+
+
+def ep_ranks(dev):
+    """10(a): spawn the two ranks and hold the meshed runs to rank 0's
+    one-process runs. Returns the ranks' decode launches, summed."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = torch.multiprocessing.start_processes(
+            _ep_rank, args=(2, tmp, dev.type), nprocs=2, join=False,
+            start_method="spawn")
+        deadline = time.monotonic() + EP_DEADLINE
+        while not ctx.join(timeout=1):        # raises if a rank failed
+            if time.monotonic() > deadline:
+                for proc in ctx.processes:
+                    proc.kill()
+                check(False, ("expert-parallel ranks outlasted",
+                              EP_DEADLINE))
+        ranks = [torch.load(f"{tmp}/rank{r}.pt") for r in range(2)]
+    got, ref = ranks[0], ranks[0]["ref"]
+    for key in ("loss", "moe_aux"):
+        gaps = [abs(a - b) / abs(b) for a, b in zip(got[key], ref[key])]
+        say(f"[ep] (a) {EP_STEPS} training steps on the {EP_SHAPE} mesh vs "
+            f"one process: {key} {got[key]} vs {ref[key]}, gaps "
+            f"{['%.3e' % g for g in gaps]} relative (tolerance "
+            f"{EP_LOSS_REL}: the loss every step, the aux loss at the "
+            f"first, from the same weights)")
+        held = gaps if key == "loss" else gaps[:1]
+        check(len(got[key]) == EP_STEPS and max(held) <= EP_LOSS_REL,
+              ("ep", key, got[key], ref[key]))
+    worst = max(got["gaps"], key=got["gaps"].get)
+    gn, gw = got["gnorm"], ref["gnorm"]
+    say(f"[ep] (a) first update: largest gradient gap "
+        f"{got['gaps'][worst]:.3e} of its leaf's largest ({worst}, "
+        f"{len(got['gaps'])} leaves); global norm {gn:.8e} vs {gw:.8e}")
+    check(got["gaps"][worst] <= EP_GRAD_REL and
+          abs(gn - gw) <= EP_GRAD_REL * gw, ("ep gradients", worst, gn, gw))
+    layers = len(got["flips"]) // 2       # a prefill's calls, a decode's
+    say(f"[ep] (a) rows whose expert choices differ between the one-process "
+        f"run and the meshed one ({EP_PROMPTS * EP_PROMPT} rows a prefill "
+        f"layer, {EP_PROMPTS} a decode layer): prefill "
+        f"{got['flips'][:layers]}, decode {got['flips'][layers:]}")
+    for key, tol in (("prefill", EP_LOGIT_TOL), ("decode", EP_DECODE_TOL)):
+        a = got["logits"][key]
+        errs_by = {w: float((a - ref[w][key]).abs().max())
+                   for w in ("logits", "forced")}
+        same = torch.equal(a.argmax(-1), ref["logits"][key].argmax(-1))
+        say(f"[ep] (a) {key} logits ({tuple(a.shape)}, |logits| max "
+            f"{float(a.abs().max()):.3f}) vs one process: with the meshed "
+            f"run's expert choices max_abs_err={errs_by['forced']:.3e} "
+            f"(tolerance {tol:g}); with its own {errs_by['logits']:.3e}, "
+            f"same greedy tokens {same}")
+        check(errs_by["forced"] <= tol and same,
+              ("ep logits", key, errs_by, same))
+    counts = collections.Counter()
+    for r, res in enumerate(ranks):
+        say(f"[ep] (a) rank {r}: meshed training {res['train_s']:.1f} s, "
+            f"peak {res['peak_gb']:.2f} GB; decode step launches "
+            f"{dict(res['launches'])}")
+        counts.update(res["launches"])
+        for name in EP_KERNELS:
+            check(res["launches"].get(name, 0) > 0,
+                  ("ep rank", r, "launched no", name))
+    for label, by_kind in ranks[0]["collectives"].items():
+        say(f"[ep] (a) one MoE layer's collective bytes a rank, {label} "
+            f"(counted by launch/op_cost.py, a model of the card, not a "
+            f"measurement): " + ", ".join(
+                f"{k} {v:.6e}" for k, v in sorted(by_kind.items())))
+    return counts
+
+
+def phase_ep(dev, errs):
+    """Phase 10: (a) expert parallelism on the card against one process,
+    the decode kernels first checked at a rank's shapes; (b) the MoE
+    dry-run record on fake CUDA and CPU tensors. Returns (a)'s launches."""
+    cfg = _ep_cfg()
+    half = dataclasses.replace(cfg, moska=dataclasses.replace(
+        cfg.moska, chunk_size=cfg.moska.chunk_size // EP_SHAPE[1]))
+    check_kernels_at(
+        half, dev, "ep", errs, EP_KERNELS,
+        decodes=[(torch.float32, dict(
+            corpus=EP_CORPUS // EP_SHAPE[1], slots=EP_PROMPTS,
+            slab=EP_MAX_SEQ // EP_SHAPE[1], lens=(1, EP_PROMPT + 1)))])
+    counts = ep_ranks(dev)
+    launch_dryrun(EP_ARCH, "decode_32k", tag="[ep] (b)")
+    return counts
 
 
 def main() -> int:
@@ -2972,6 +3327,7 @@ def main() -> int:
     run("7 train", phase_train, dev)
     launches.update(run("8 disagg", phase_disagg, dev, errs))
     run("9 launch", phase_launch, cfg, dev)
+    launches.update(run("10 ep", phase_ep, dev, errs))
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["max_abs_err"] = errs[row["name"]]

@@ -16,9 +16,10 @@ sizes, cache and store axes and skip reasons:
 The arguments are the port's own leaves (the dense family's per-layer
 parameters, int64 tokens) on the mesh given; each is a ``DTensor`` over
 fake tensors, so a full-size record allocates nothing. The port's tensor
-parallelism covers the dense and VLM members (``models/dense.py``): the
-MoE members and the SSM, hybrid and enc-dec families raise ``Skip`` naming
-the ROADMAP item that ports them.
+parallelism covers the dense, VLM and MoE members (``models/dense.py``,
+the MoE layer expert parallel in ``models/moe.py``; ``--variant
+expert_resident`` puts the experts over ``data``): the SSM, hybrid and
+enc-dec families raise ``Skip`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -30,8 +31,8 @@ import torch
 from torch import nn
 
 from repro_torch.configs import get_config
-from repro_torch.configs.base import (AUDIO, DENSE, HYBRID, INPUT_SHAPES, MOE,
-                                      SSM, VLM, InputShape, ModelConfig)
+from repro_torch.configs.base import (AUDIO, HYBRID, INPUT_SHAPES, SSM,
+                                      VLM, InputShape, ModelConfig)
 from repro_torch.core.shared_kv import abstract_store
 from repro_torch.models.model import build_model, empty_params
 from repro_torch.sharding import specs as sp
@@ -47,8 +48,6 @@ LONG500K_UNIQUE_BUF = 2048              # generated-token buffer at 500K
 
 #: why the families without tensor parallelism in the port are skipped
 NOT_YET = {
-    MOE: "expert parallelism (experts over model) is not ported yet "
-         "(ROADMAP Queue 1 item 9)",
     SSM: "tensor parallelism of the SSM family is not ported yet "
          "(ROADMAP Queue 1 item 10)",
     HYBRID: "tensor parallelism of the hybrid family is not ported yet "

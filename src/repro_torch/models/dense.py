@@ -26,9 +26,10 @@ the cache and the store are ``DTensor`` values placed by the rules, and
 the same entry points run tensor parallel over ``model``: ``train_loss``,
 ``prefill`` without a store, and ``decode_step`` with or without one (the
 store chunk-sharded, the unique cache split by position,
-``core/disagg.meshed_decode_attention``). ``lsc`` pins the activations at
-the reference's points; it is the identity on plain tensors, so the
-unmeshed path is what it was.
+``core/disagg.meshed_decode_attention``), the MoE FFN expert parallel
+(``models/moe.py``). ``lsc`` pins the activations at the reference's
+points; it is the identity on plain tensors, so the unmeshed path is what
+it was.
 """
 from __future__ import annotations
 
@@ -209,6 +210,18 @@ def _causal_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
                          grad_placements=(None, grad, grad))
 
 
+def _merge_heads(o: torch.Tensor) -> torch.Tensor:
+    """(..., H, D) -> (..., H * D). On a mesh the merge runs on the local
+    tensor: the output projection's backward hands it a gradient split
+    over ``model`` on H * D, which DTensor cannot view back onto heads
+    that the axis does not divide (arctic's 56 over 16); the local merge
+    gathers that gradient to o's placement instead."""
+    if not tp.is_meshed(o):
+        return o.reshape(*o.shape[:-2], -1)
+    return tp.local_call(lambda t: t.reshape(*t.shape[:-2], -1), (o,),
+                         o.placements, o.device_mesh)
+
+
 #: the profiler range around each MoE FFN call, opened only while a
 #: profiler runs (a profile attributes device time to it)
 MOE_RANGE = "moe_ffn"
@@ -228,7 +241,7 @@ def _ffn(cfg: ModelConfig, lp: DenseLayer, x: torch.Tensor,
                                rec=rec, with_aux=False)
     y = y.view(x.shape)
     if cfg.moe.dense_residual:
-        y = y + L.swiglu_mlp(x, lp.mlp)
+        y = y + L.swiglu_mlp(x, tp.gather_weights(lp.mlp))
     return y
 
 
@@ -307,6 +320,10 @@ def _layer_prefill(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
         if shared is not None:
             raise NotImplementedError("a routed prefill (with a store) "
                                       "under a mesh")
+        # a projection whose d_model dim the rules split over model (the
+        # expert_resident variant) leaves k and v partial sums
+        k = lsc(k, "batch", "seq", "kv_heads", None)
+        v = lsc(v, "batch", "seq", "kv_heads", None)
         tp.write_prefix_meshed(kc, vc, k, v)
         o = _causal_attention(cfg, q, k, v, causal=True, q_offset=q_offset,
                               kv_offset=q_offset, window=cfg.attn_window)
@@ -434,7 +451,7 @@ def _layer_train(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
     o = _causal_attention(cfg, q, k, v, causal=True, window=cfg.attn_window,
                           block_k=cfg.attn_block_k)
     wo = tp.gather_weight(lp.attn["wo"])
-    x = _act(x + _act(o.reshape(*o.shape[:-2], -1) @ wo, "seq_res"),
+    x = _act(x + _act(_merge_heads(o) @ wo, "seq_res"),
              "seq_res")
     h2 = _act(L.rms_norm(x, lp.ln2["scale"], cfg.rms_eps))
     if not cfg.moe.enabled:
@@ -445,8 +462,8 @@ def _layer_train(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
     y, aux = moe_lib.moe_ffn(h2.reshape(B * S, d), lp.moe, cfg.moe)
     y = y.view(B, S, d)
     if cfg.moe.dense_residual:
-        y = y + L.swiglu_mlp(h2, lp.mlp)
-    return x + y, aux
+        y = y + L.swiglu_mlp(h2, tp.gather_weights(lp.mlp))
+    return _act(x + _act(y, "seq_res"), "seq_res"), aux
 
 
 # ---------------------------------------------------------------------------

@@ -141,10 +141,11 @@ def logical_sharding_constraint(x: torch.Tensor, *names: Optional[str]
         names = names[len(names) - x.ndim:]
     elif len(names) < x.ndim:
         names = (None,) * (x.ndim - len(names)) + tuple(names)
+    from repro_torch.sharding.tensor_parallel import redistribute
     mesh = x.device_mesh
     axes, sizes = _mesh_axes(mesh)
     ps = _resolve(rules, names, axes, x.shape, sizes)
-    return x.redistribute(mesh, placements(ps, mesh))
+    return redistribute(x, placements(ps, mesh))
 
 
 lsc = logical_sharding_constraint

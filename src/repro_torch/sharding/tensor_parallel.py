@@ -20,9 +20,19 @@ local tensors (``local_call``); where such code splits a dim across ranks
 
 ``full_tensor`` and ``local_part`` move between a ``DTensor`` and the
 whole tensor without DTensor's own collectives: a checkpoint gathers its
-leaves by hand with ``all_gather`` (``DTensor.full_tensor`` kills the
-rank over gloo on CUDA tensors, torch 2.11) and restores each rank's
-shard by cutting it out of the whole leaf, with no collective at all.
+leaves by hand with ``all_gather`` (DTensor's all-gather kills the rank
+over gloo on CUDA tensors, torch 2.11, where its all-reduce and
+reduce-scatter run) and restores each rank's shard by cutting it out of
+the whole leaf, with no collective at all. ``redistribute`` is DTensor's
+redistribution with its all-gathers run so by hand; ``lsc`` and the
+weight and head gathers here go through it.
+
+The expert-parallel MoE layer (``models/moe.py``) runs on local tensors
+and moves them with plain c10d collectives over named mesh axes, each
+under autograd with its adjoint: ``ScatterSum`` (a reduce-scatter),
+``Gather`` (an all-gather), ``Piece`` (a local cut), ``SumGrad`` and
+``SumOver`` (all-reduces of the gradient or the value); ``rows_before``
+turns a rank's slot counts into the global positions' offsets.
 
 ``place`` and ``place_fields`` put a tensor, a cache or a store at the
 placements that its logical names resolve to (the serving inputs of a
@@ -80,6 +90,16 @@ def local_part(full: torch.Tensor, mesh, placements) -> torch.Tensor:
     return out
 
 
+def _gather_levels(local: torch.Tensor, mesh, steps) -> torch.Tensor:
+    """``local`` gathered along each (mesh dim, tensor dim, size before
+    that mesh dim splits it) of ``steps``, in their order (innermost
+    first)."""
+    for md, dim, size in steps:
+        local = all_gather_dim(local, dim, mesh, mesh.mesh_dim_names[md],
+                               size)
+    return local
+
+
 def full_tensor(t: DTensor) -> torch.Tensor:
     """The whole value of ``t``, built from every rank's ``to_local()``
     shard with ``all_gather`` over each sharded mesh dim (the last first),
@@ -89,24 +109,60 @@ def full_tensor(t: DTensor) -> torch.Tensor:
     mesh = t.device_mesh
     if any(isinstance(p, Partial) for p in t.placements):
         raise ValueError(f"full_tensor: partial placements {t.placements}")
-    out = t.to_local().detach()
-    for md, dim, size, _ in reversed(_levels(t.shape, mesh, t.placements)):
-        n = mesh.size(md)
-        sizes = _chunks(size, n)
-        pad = list(out.shape)
-        pad[dim] = sizes[0]
-        buf = out.new_zeros(pad)
-        buf.narrow(dim, 0, out.shape[dim]).copy_(out)
-        parts = [torch.empty_like(buf) for _ in range(n)]
-        dist.all_gather(parts, buf.contiguous(), group=mesh.get_group(md))
-        out = torch.cat([p.narrow(dim, 0, s) for p, s in zip(parts, sizes)],
-                        dim=dim)
-    return out
+    return _gather_levels(t.to_local().detach(), mesh, [
+        (md, dim, size) for md, dim, size, _ in
+        reversed(_levels(t.shape, mesh, t.placements))])
 
 
 # ---------------------------------------------------------------------------
 # tensor parallelism
 # ---------------------------------------------------------------------------
+
+class _GatherShards(torch.autograd.Function):
+    """Forward: a ``DTensor``'s shards gathered by hand along the tensor
+    dims of ``steps`` ((mesh dim, tensor dim, size before that mesh dim
+    splits it), innermost first), replicated there (``mid``). Backward:
+    the gradient redistributed to the input's placements (a partial
+    gradient reduce-scattered, a replicated one cut locally), as
+    DTensor's own all-gather's backward does."""
+
+    @staticmethod
+    def forward(ctx, t, mid, steps):
+        mesh = t.device_mesh
+        ctx.mesh, ctx.placements = mesh, t.placements
+        return DTensor.from_local(_gather_levels(t.to_local(), mesh, steps),
+                                  mesh, mid, run_check=False, shape=t.shape,
+                                  stride=t.stride())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.redistribute(ctx.mesh, ctx.placements), None, None
+
+
+def redistribute(t: DTensor, placements) -> DTensor:
+    """``t.redistribute(mesh, placements)``, its all-gathers run by hand
+    (plain c10d ``all_gather``): DTensor's functional all-gather kills
+    the rank over gloo on CUDA tensors (torch 2.11), where its
+    all-reduce and reduce-scatter run. Every tensor dim whose shards
+    change on some mesh dim is gathered whole first, then DTensor cuts
+    and reduces what is left (local chunks, partial sums). As DTensor's
+    own, the backward hands the gradient on at ``t``'s placements, also
+    where nothing changes (``lsc`` pins a gradient so)."""
+    placements = tuple(placements)
+    mesh = t.device_mesh
+    dims = {p.dim for p, q in zip(t.placements, placements)
+            if isinstance(p, Shard) and q != p}
+    if dims:
+        steps = tuple((md, dim, size) for md, dim, size, _ in
+                      reversed(_levels(t.shape, mesh, t.placements))
+                      if dim in dims)
+        mid = tuple(Replicate() if isinstance(p, Shard) and p.dim in dims
+                    else p for p in t.placements)
+        t = _GatherShards.apply(t, mid, steps)
+        if placements == mid:
+            return t
+    return t.redistribute(mesh, placements)
+
 
 def keep_shards(t: DTensor, axes: Sequence[str]) -> DTensor:
     """``t`` with its shards on every mesh axis outside ``axes`` gathered
@@ -114,8 +170,7 @@ def keep_shards(t: DTensor, axes: Sequence[str]) -> DTensor:
     names = t.device_mesh.mesh_dim_names
     want = tuple(p if names[md] in axes else Replicate()
                  for md, p in enumerate(t.placements))
-    return t if want == tuple(t.placements) else \
-        t.redistribute(t.device_mesh, want)
+    return t if want == tuple(t.placements) else redistribute(t, want)
 
 
 def gather_weight(w: torch.Tensor) -> torch.Tensor:
@@ -146,7 +201,7 @@ def split_heads(t: torch.Tensor, n: int, d: int) -> torch.Tensor:
                      and n % t.device_mesh.size(md) else p
                      for md, p in enumerate(t.placements))
         if want != tuple(t.placements):
-            t = t.redistribute(t.device_mesh, want)
+            t = redistribute(t, want)
     return t.reshape(*lead, n, d)
 
 
@@ -202,6 +257,180 @@ def local_call(fn: Callable, args: Sequence, out_placements, mesh,
                                   run_check=False)
     return type(out)(DTensor.from_local(o, mesh, pl, run_check=False)
                      for o, pl in zip(out, out_placements))
+
+
+# ---------------------------------------------------------------------------
+# collectives over mesh axes under autograd (the MoE layer's dispatch)
+# ---------------------------------------------------------------------------
+
+# plain c10d collectives, not DTensor's functional ones (over gloo on CUDA
+# tensors ``DTensor.full_tensor`` kills the rank, torch 2.11); the
+# ``*_single`` names replace the ``*_tensor`` ones in newer torch
+_reduce_scatter = getattr(dist, "reduce_scatter_single", None) or \
+    dist.reduce_scatter_tensor
+_all_gather = getattr(dist, "all_gather_single", None) or \
+    dist.all_gather_into_tensor
+
+
+def _padded_front(t: torch.Tensor, dim: int, rows: int) -> torch.Tensor:
+    """``t`` with ``dim`` moved to the front and zero-padded to ``rows``,
+    contiguous (what a c10d collective splits)."""
+    t = t.movedim(dim, 0)
+    if t.shape[0] < rows:
+        t = torch.cat([t, t.new_zeros((rows - t.shape[0],) + t.shape[1:])])
+    return t.contiguous()
+
+
+def _axis(mesh, axis: str) -> Tuple[object, int, int]:
+    """(process group, size, this rank's coordinate) of a mesh axis."""
+    return (mesh.get_group(axis), mesh.size(mesh.mesh_dim_names.index(axis)),
+            mesh.get_local_rank(axis))
+
+
+def all_gather_dim(t: torch.Tensor, dim: int, mesh, axis: str, total: int
+                   ) -> torch.Tensor:
+    """The whole dim ``dim`` (``total`` long) from each rank's piece of it
+    (``torch.chunk``'s pieces over the mesh ``axis``, in coordinate
+    order), outside autograd."""
+    group, n, _ = _axis(mesh, axis)
+    if n == 1:
+        return t
+    step = _chunks(total, n)[0]
+    src = _padded_front(t, dim, step)
+    out = src.new_empty((n * step,) + src.shape[1:])
+    _all_gather(out, src, group=group)
+    return out[:total].movedim(0, dim).contiguous()
+
+
+def reduce_scatter_dim(t: torch.Tensor, dim: int, mesh, axis: str
+                       ) -> torch.Tensor:
+    """This rank's ``torch.chunk`` piece of dim ``dim`` of the sum of
+    every rank's ``t`` over the mesh ``axis``, outside autograd."""
+    group, n, c = _axis(mesh, axis)
+    if n == 1:
+        return t
+    sizes = _chunks(t.shape[dim], n)
+    src = _padded_front(t, dim, n * sizes[0])
+    out = src.new_empty((sizes[0],) + src.shape[1:])
+    _reduce_scatter(out, src, group=group)
+    return out[:sizes[c]].movedim(0, dim).contiguous()
+
+
+def _piece(t: torch.Tensor, dim: int, mesh, axis: str) -> torch.Tensor:
+    """This rank's ``torch.chunk`` piece of dim ``dim`` of ``t`` over the
+    mesh ``axis``."""
+    _, n, c = _axis(mesh, axis)
+    sizes = _chunks(t.shape[dim], n)
+    return t.narrow(dim, sum(sizes[:c]), sizes[c])
+
+
+def _all_reduce(t: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
+    t = t.clone()
+    for a in axes:
+        if mesh.size(mesh.mesh_dim_names.index(a)) > 1:
+            dist.all_reduce(t, group=mesh.get_group(a))
+    return t
+
+
+class ScatterSum(torch.autograd.Function):
+    """Forward: this rank's piece of dim ``dim`` of the ranks' sum over a
+    mesh axis (a reduce-scatter). Backward: the pieces' gradients gathered
+    (each rank's input reaches one rank's piece)."""
+
+    @staticmethod
+    def forward(ctx, t, dim, mesh, axis):
+        ctx.args, ctx.total = (dim, mesh, axis), t.shape[dim]
+        return reduce_scatter_dim(t, dim, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        dim, mesh, axis = ctx.args
+        return (all_gather_dim(grad, dim, mesh, axis, ctx.total),
+                None, None, None)
+
+
+class Gather(torch.autograd.Function):
+    """Forward: the whole dim ``dim`` from the pieces over a mesh axis (an
+    all-gather). Backward: with ``summed`` the ranks' gradients of the
+    whole summed into each piece (a reduce-scatter: each rank read other
+    parts of it), else this rank's piece of its own gradient (every rank
+    read the whole alike)."""
+
+    @staticmethod
+    def forward(ctx, t, dim, mesh, axis, total, summed):
+        ctx.args, ctx.summed = (dim, mesh, axis), summed
+        return all_gather_dim(t, dim, mesh, axis, total)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = (reduce_scatter_dim if ctx.summed else _piece)(grad, *ctx.args)
+        return grad, None, None, None, None, None
+
+
+class Piece(torch.autograd.Function):
+    """Forward: this rank's piece of dim ``dim`` of a tensor that the
+    ranks of a mesh axis hold alike. Backward: the pieces' gradients
+    gathered, so each rank's input gets the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, t, dim, mesh, axis):
+        ctx.args, ctx.total = (dim, mesh, axis), t.shape[dim]
+        return _piece(t, dim, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        dim, mesh, axis = ctx.args
+        return (all_gather_dim(grad, dim, mesh, axis, ctx.total),
+                None, None, None)
+
+
+class SumGrad(torch.autograd.Function):
+    """Forward: the identity on a tensor that the ranks of the mesh
+    ``axes`` hold alike. Backward: the ranks' gradients summed, each rank
+    having used its copy for another part of the work (Megatron's f)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.args = (mesh, axes)
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, *ctx.args), None, None
+
+
+class SumOver(torch.autograd.Function):
+    """Forward: the sum over the ranks of the mesh ``axes`` (an
+    all-reduce). Backward: with ``summed`` the ranks' gradients summed
+    (each rank uses the sum for other work), else the gradient as it is
+    (every rank uses the sum alike)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes, summed):
+        ctx.args, ctx.summed = (mesh, axes), summed
+        return _all_reduce(t, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.summed:
+            grad = _all_reduce(grad, *ctx.args)
+        return grad, None, None, None
+
+
+def rows_before(counts: torch.Tensor, mesh, axes: Sequence[str]
+                ) -> torch.Tensor:
+    """Sum of ``counts`` over the ranks whose rows come before this rank's
+    in a dim split over the mesh ``axes`` (in mesh order, the first
+    outermost): the exclusive prefix that turns a rank-local position into
+    a global one. Every rank of each axis joins."""
+    before = torch.zeros_like(counts)
+    block = counts
+    for ax in reversed(tuple(axes)):
+        _, n, c = _axis(mesh, ax)
+        parts = all_gather_dim(block[None], 0, mesh, ax, n)
+        before = before + parts[:c].sum(0)
+        block = parts.sum(0)
+    return before
 
 
 def write_prefix_meshed(kc: DTensor, vc: DTensor, k: DTensor, v: DTensor

@@ -123,11 +123,64 @@ def test_ranks_sum_to_the_world_of_one(no_world, shape):
         assert 0.5 < r.useful_flops_ratio <= 1.0
 
 
+_RANK_FLOPS = r"""
+import sys
+from repro_torch.launch.dryrun import trace_at_depth
+from repro_torch.launch.mesh import init_fake_world
+init_fake_world(256, rank=int(sys.argv[3]))
+print(repr(trace_at_depth(sys.argv[1], sys.argv[2], False,
+                          device="cpu")[0].flops))
+"""
+
+
+def test_expert_parallel_ranks_sum_to_the_world_of_one(no_world):
+    """granite-moe-1b-a400m at decode_32k: the FLOPs of every rank of the
+    16x16 mesh summed equal the same step at a world of one plus the work
+    that every rank of ``model`` repeats, exactly: the router's product
+    (``models/moe.py``) and the unembedding, whose vocab of 49155 does
+    not split over 16 (the rules' guard replicates it). The ranks differ
+    only in their data coordinate's piece of the expert capacity (C = 40
+    over 16 data ranks: 13 pieces of 3, one of 1, two empty), so one rank
+    of each piece size is traced, each in a process of its own (a fake
+    world of another rank in the same process reads the first world's
+    groups through DTensor's caches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.models.moe import moe_capacity
+    from repro_torch.sharding.tensor_parallel import _chunks
+    arch, shape, D, M = "granite-moe-1b-a400m", "decode_32k", 16, 16
+    cfg = get_config(arch)
+    B = INPUT_SHAPES[shape].global_batch
+    d, E, K, V = (cfg.d_model, cfg.moe.num_experts, cfg.moe.top_k,
+                  cfg.vocab_size)
+    pieces = _chunks(min(moe_capacity(B, cfg.moe), B * K), D)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    total = 0.0
+    for size in sorted(set(pieces)):
+        rank = pieces.index(size) * M          # data coordinate, model 0
+        res = subprocess.run([sys.executable, "-c", _RANK_FLOPS, arch, shape,
+                              str(rank)], env=env, timeout=300,
+                             capture_output=True, text=True)
+        assert res.returncode == 0, res.stderr[-2000:]
+        flops = float(res.stdout.strip().splitlines()[-1])
+        print(f"capacity piece {size} (x{pieces.count(size)} data ranks): "
+              f"{flops:.6e} FLOPs a rank")
+        total += pieces.count(size) * M * flops
+    one = _world_of_one(arch, shape)
+    router = (M - 1) * cfg.num_layers * 2 * B * d * E
+    unembed = (M - 1) * 2 * B * d * V
+    assert V % M
+    print(f"{shape}: 256 ranks {total:.6e} FLOPs = a world of one "
+          f"{one:.6e} + router {router:.6e} + unembedding {unembed:.6e} "
+          f"repeated over model")
+    assert total == one + router + unembed
+
+
 def test_skipped_and_failing_records(no_world, tmp_path):
     from repro_torch.launch import dryrun
-    rec = dryrun.run_one("granite-moe-1b-a400m", "decode_32k", False,
+    rec = dryrun.run_one("mamba2-130m", "decode_32k", False,
                          str(tmp_path), verbose=False, device="cpu")
-    assert rec["status"] == "skipped" and "item 9" in rec["reason"]
+    assert rec["status"] == "skipped" and "item 10" in rec["reason"]
     rec = dryrun.run_one("whisper-tiny", "long_500k", True, str(tmp_path),
                          verbose=False, device="cpu")
     assert rec["status"] == "skipped" and "500K" in rec["reason"]

@@ -1232,8 +1232,13 @@ def _first_update():
         train_loop.adamw_update = real
 
 
-def _tp_cfg():
-    return dataclasses.replace(get_config("tinyllama-1.1b"), num_layers=2,
+#: the archs of test_tp_over_nccl, each at full width cut to 2 layers:
+#: the dense member, and the MoE member with its experts over ``model``
+TP_ARCHS = ("tinyllama-1.1b", "granite-moe-1b-a400m")
+
+
+def _tp_cfg(arch=TP_ARCHS[0]):
+    return dataclasses.replace(get_config(arch), num_layers=2,
                                dtype="float32")
 
 
@@ -1274,7 +1279,7 @@ def _tp_decode(cfg, dev, mesh=None):
         return full_tensor(logits).cpu()
 
 
-def _tp_rank(rank, world, shape, out_dir):
+def _tp_rank(rank, world, shape, out_dir, arch):
     import datetime
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -1291,7 +1296,7 @@ def _tp_rank(rank, world, shape, out_dir):
     try:
         mesh = init_device_mesh("cuda", shape,
                                 mesh_dim_names=("data", "model"))
-        cfg = _tp_cfg()
+        cfg = _tp_cfg(arch)
         loop = TrainLoopConfig(num_steps=TP_STEPS, batch_size=TP_BATCH,
                                seq_len=TP_SEQ, log_every=1)
         with use_rules(TRAIN_RULES), _first_update() as first:
@@ -1309,10 +1314,13 @@ def _tp_rank(rank, world, shape, out_dir):
         dist.destroy_process_group()
 
 
+@pytest.mark.parametrize("arch", TP_ARCHS, ids=["tinyllama", "granite"])
 @pytest.mark.parametrize("shape", [(1, 2), (2, 2)], ids=["1x2", "2x2"])
-def test_tp_over_nccl(cuda, tmp_path, shape):
-    """tinyllama-1.1b at full width cut to 2 layers, fp32, tensor parallel
-    over NCCL with a card a rank on a (1, 2) and a (2, 2) mesh: 5 training
+def test_tp_over_nccl(cuda, tmp_path, shape, arch):
+    """tinyllama-1.1b and granite-moe-1b-a400m (its experts over ``model``,
+    the expert batch's capacity rows over ``data``) at full width cut to 2
+    layers, fp32, tensor parallel over NCCL with a card a rank on a (1, 2)
+    and a (2, 2) mesh: 5 training
     steps and one routed decode step over a store split by chunk and by
     chunk position, each against the unmeshed run on one card: losses
     within TP_LOSS_REL relative, the final parameters within TP_PARAM_REL
@@ -1328,7 +1336,7 @@ def test_tp_over_nccl(cuda, tmp_path, shape):
     if torch.cuda.device_count() < world:
         pytest.skip(f"needs {world} cards (has {torch.cuda.device_count()})")
     ctx = torch.multiprocessing.start_processes(
-        _tp_rank, args=(world, shape, str(tmp_path)), nprocs=world,
+        _tp_rank, args=(world, shape, str(tmp_path), arch), nprocs=world,
         join=False, start_method="spawn")
     deadline = time.monotonic() + 600
     while not ctx.join(timeout=1):
@@ -1337,7 +1345,7 @@ def test_tp_over_nccl(cuda, tmp_path, shape):
                 proc.kill()
             raise TimeoutError(f"{world} ranks outlasted 600 s")
     got = torch.load(tmp_path / "tp.pt")
-    cfg = _tp_cfg()
+    cfg = _tp_cfg(arch)
     loop = TrainLoopConfig(num_steps=TP_STEPS, batch_size=TP_BATCH,
                            seq_len=TP_SEQ, log_every=1)
     with _first_update() as first:

@@ -1,5 +1,5 @@
 """The dry run's arguments (``repro_torch.launch.input_specs``) against the
-reference's: every leaf of every dense and VLM spec, on both production
+reference's: every leaf of every dense, VLM and MoE spec, on both production
 meshes, has on each rank the shape of the reference's
 ``NamedSharding.shard_shape`` of the same leaf. The reference builds its
 specs in a subprocess on 512 forced CPU devices, nothing lowered or
@@ -21,7 +21,8 @@ from repro_torch.configs.base import INPUT_SHAPES
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ("qwen1.5-0.5b", "tinyllama-1.1b", "llama3-8b",
-         "mistral-large-123b", "internvl2-76b", "moska-llama3.1-8b")
+         "mistral-large-123b", "internvl2-76b", "moska-llama3.1-8b",
+         "granite-moe-1b-a400m", "arctic-480b")
 MESHES = {"16x16": False, "2x16x16": True}
 LAYERS = 2
 
@@ -141,9 +142,7 @@ def test_skips_name_their_reason():
     from repro_torch.launch import input_specs as ispecs
     with pytest.raises(ispecs.Skip, match="no 500K-token decode analogue"):
         ispecs.build("whisper-tiny", "long_500k", None)
-    for arch, item in (("arctic-480b", "item 9"),
-                       ("granite-moe-1b-a400m", "item 9"),
-                       ("mamba2-130m", "item 10"),
+    for arch, item in (("mamba2-130m", "item 10"),
                        ("recurrentgemma-9b", "item 10"),
                        ("whisper-tiny", "item 10")):
         for shape in ("train_4k", "prefill_32k", "decode_32k"):
@@ -153,8 +152,10 @@ def test_skips_name_their_reason():
 
 def test_variants_change_the_placements():
     """``weights_resident`` keeps the weights whole over data, ``int8store``
-    makes the store int8 with fp32 scales."""
+    makes the store int8 with fp32 scales, ``expert_resident`` puts the
+    experts over data and their d dim over model."""
     from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import Shard
     from repro_torch.launch import input_specs as ispecs
     from repro_torch.launch.mesh import init_fake_world, make_production_mesh
     init_fake_world(256)
@@ -166,6 +167,9 @@ def test_variants_change_the_placements():
             var = _leaves(ispecs.build(
                 "tinyllama-1.1b", "decode_32k", mesh, layers=1,
                 variant="weights_resident,int8store").args)
+            moe = [_leaves(ispecs.build(
+                "granite-moe-1b-a400m", "decode_32k", mesh, layers=1,
+                variant=v).args) for v in (None, "expert_resident")]
     finally:
         dist.destroy_process_group()
     wq = "0.layers.0.attn.wq"
@@ -174,3 +178,7 @@ def test_variants_change_the_placements():
     assert base["3.k"].dtype == torch.bfloat16 and "3.k_scale" not in base
     assert var["3.k"].dtype == torch.int8
     assert var["3.k_scale"].dtype == torch.float32
+    e_gate = "0.layers.0.moe.e_gate"          # (32, 1024, 512)
+    assert moe[0][e_gate].placements == (Shard(1), Shard(0))
+    assert moe[1][e_gate].placements == (Shard(0), Shard(1))
+    assert moe[1][e_gate].to_local().shape == (2, 64, 512)
