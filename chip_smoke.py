@@ -209,10 +209,37 @@ Phases, each printed as it runs; any failure exits non-zero:
             granite-moe-1b-a400m x decode_32k on the 16x16 mesh traced on
             fake CUDA and on fake CPU tensors: the two equal.
 
-Phases 3m, 3w, 3f, 7, 8, 9 and 10 run last, after phase 6, so that phases 1-6
-run as they ran before them (cuBLAS picks GEMM kernels by what the process
-ran earlier, and phase 6 counts kernels exactly). Each phase prints its
-seconds. It then prints the kernels' JSON line (each
+  11. tp families  tensor parallelism of the SSM, hybrid and enc-dec
+            families: (a) in a gloo world of 2 on the one card, a (1, 2)
+            mesh, fp32 (TF32 off), each arch against rank 0's one-process
+            run of the same before it (run first, then freed):
+            mamba2-130m at full size and recurrentgemma-9b at full width
+            cut to one pattern cycle (3 layers), 3 training steps of
+            4 x 256, a prefill of 16 prompts of 256 tokens and one decode
+            step; whisper-tiny at full size, 3 training steps, the
+            prefill of 16 prompts behind one audio's 1,500 frames and one
+            decode step routed over a store of that audio (4 chunks of
+            375, top-2; its 6 kv heads split over the two ranks, as its
+            self cache's), its four kernels first held against their
+            plain versions at a rank's shapes (H = KH = 3, fp32). Losses
+            within 1e-5 relative, prefill logits within 1e-4 and decode
+            logits within 1e-3 (the whole-model fp32 bounds: at full
+            width the ranks' sums round at 2e-5 to 3e-5, past the CPU
+            tests' 2e-5 at reduced width, and one process on the card
+            and on the CPU differ by 4e-5 to 5e-5), the same greedy
+            tokens; the
+            first update's gradients and global norm printed beside one
+            process's; recurrentgemma's training peak memory a rank
+            printed; whisper's decode launches count in the kernels'
+            line, and each of its four kernels must have launched on each
+            rank. (b) one dry-run record of each family
+            (decode_32k, 16x16) on fake CUDA and on fake CPU tensors: the
+            two equal.
+
+Phases 3m, 3w, 3f, 7, 8, 9, 10 and 11 run last, after phase 6, so that
+phases 1-6 run as they ran before them (cuBLAS picks GEMM kernels by what
+the process ran earlier, and phase 6 counts kernels exactly). Each phase
+prints its seconds. It then prints the kernels' JSON line (each
 kernel's launches summed over every phase), the card's name and power
 limit, and, as the last line, the device JSON. Without a card it exits 1 and prints no
 result.
@@ -346,6 +373,35 @@ EP_DECODE_TOL = E2E_TOL
 # ~1e-4 relative (PERF.md), so it is held at the first step only
 EP_KERNELS = ("shared_chunk_attention", "decode_attention", "lse_merge",
               "router_scores")
+
+# phase 11: tensor parallelism of the SSM, hybrid and enc-dec families, fp32
+# on a (1, 2) mesh of two ranks on the one card against rank 0's
+# one-process run of the same before it: (arch, depth or None for the
+# config's). whisper's self cache holds the prompt and the new token (257
+# positions, which do not split over ``model``: the rules split it by kv
+# head, 3 of its 6 a rank), and its decode step routes the cross-attention
+# over a store of the one audio's 1,500 frames (4 chunks of 375, which do
+# not split either: the store too is split by kv head)
+TPS_SHAPE = (1, 2)
+TPS_ARCHS = ((SSM_ARCH, None), (HYBRID_ARCH, 3), (AUDIO_ARCH, None))
+TPS_STEPS, TPS_BATCH, TPS_SEQ = 3, 4, 256
+TPS_PROMPTS, TPS_PROMPT = 16, 256
+TPS_MAX_SEQ = TPS_PROMPT + 1
+TPS_DEADLINE = 900                     # seconds for the spawned ranks
+# logits: at full width the fp32 sums of the 1,536- to 12,288-long
+# contractions run in another order on a rank than in one process, and
+# the prefill's logits came 2.623e-05 (mamba2, 24 layers) and 2.956e-05
+# (recurrentgemma, d 4,096) apart on the card (the decode step's
+# 1.4e-05 to 2.3e-05), past the CPU tests' 2e-5 at reduced width. Two
+# fp32 orders of one process differ as much: the card's and the CPU's
+# prefill logits at these widths and shapes came 5.132e-05 (mamba2) and
+# 4.053e-05 (recurrentgemma) apart (the full-width cases of
+# tests/test_torch_gpu.py::test_family_steps_card_match_cpu). So the
+# prefill is held at 1e-4, that test's bound and the fp32 bound of the
+# whole-model parity tests (tests/test_torch_encdec.py), the decode step
+# at the whole-model card bound 1e-3 of phases 3f, 4 and 10
+TPS_LOSS_REL, TPS_LOGIT_TOL, TPS_DECODE_TOL = 1e-5, 1e-4, E2E_TOL
+TPS_KERNELS = EP_KERNELS
 
 # phase 3h: the host tier's stream, pool and tier
 TIER_CORPUS, TIER_PROMPTS = 16384, 128
@@ -3284,6 +3340,219 @@ def phase_ep(dev, errs):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 11: tensor parallelism of the SSM, hybrid and enc-dec families
+# ---------------------------------------------------------------------------
+
+def _tps_cfg(arch, layers):
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          num_layers=layers)
+
+
+def _tps_serve(cfg, dev, mesh=None):
+    """Prefill of TPS_PROMPTS prompts (whisper's behind one audio's
+    frames) and one decode step (whisper's routed over a store of the
+    audio's cross K/V, built from the run's own cross cache), inputs from
+    seeds; with ``mesh`` on inputs placed by the serving rules. Returns
+    {"prefill", "decode"}: logits whole on the CPU, and the decode step's
+    kernel launches."""
+    from repro_torch.core.shared_kv import build_store
+    from repro_torch.kernels import ops
+    from repro_torch.launch.input_specs import _CACHE_AXES, _STORE_AXES
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding import SERVE_RULES, use_rules
+    from repro_torch.sharding.tensor_parallel import (full_tensor, place,
+                                                      place_fields)
+    from repro_torch.training.train_loop import tensor_parallel
+    model = build_model(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(1), dev)
+    g = torch.Generator(dev).manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (TPS_PROMPTS, TPS_PROMPT),
+                           generator=g, device=dev)
+    nxt = torch.randint(0, cfg.vocab_size, (TPS_PROMPTS,), generator=g,
+                        device=dev)
+    frames = None
+    if cfg.encoder.enabled:
+        F_ = cfg.encoder.frontend_seq
+        frames = torch.randn((1, F_, cfg.d_model), generator=g, device=dev
+                             ).expand(TPS_PROMPTS, -1, -1).contiguous()
+    cache = model.init_cache(TPS_PROMPTS, TPS_MAX_SEQ, dtype=torch.float32,
+                             device=dev)
+    whole = (lambda t: t) if mesh is None else full_tensor
+    with use_rules(None if mesh is None else SERVE_RULES):
+        if mesh is not None:
+            tensor_parallel(model, params, mesh)
+            cache = place_fields(cache, _CACHE_AXES, SERVE_RULES, mesh)
+            tokens, nxt, frames = (None if t is None else place(
+                t, ("batch",), SERVE_RULES, mesh)
+                for t in (tokens, nxt, frames))
+        lp, cache = model.prefill(params, tokens, cache,
+                                  frontend_embeds=frames)
+        store = None
+        if cfg.encoder.enabled:
+            store = build_store(whole(cache["cross_k"])[:, 0],
+                                whole(cache["cross_v"])[:, 0],
+                                cfg.moska.chunk_size)
+            if mesh is not None:
+                store = place_fields(store, _STORE_AXES, SERVE_RULES, mesh)
+        _sync(dev)
+        ops.reset_launches()
+        ld, _ = model.decode_step(params, nxt, cache, store=store)
+        _sync(dev)
+        launches = ops.launch_counts()
+        out = {"prefill": whole(lp).cpu(), "decode": whole(ld).cpu()}
+    return out, launches
+
+
+def _tps_rank(rank, world, tmp, device="cuda"):
+    """One rank of phase 11(a) on the one card, over gloo: for each arch,
+    rank 0 first runs the one-process training and serving steps (the
+    reference, its first gradients kept on the card) while rank 1 waits,
+    then both ranks run them on the (1, 2) mesh. Each rank writes its
+    results and its decode steps' kernel launches."""
+    import datetime
+    import faulthandler
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.data.pipeline import make_train_batches
+    from repro_torch.sharding import TRAIN_RULES, use_rules
+    from repro_torch.training.train_loop import TrainLoopConfig, train
+    faulthandler.enable()
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+    loop = TrainLoopConfig(num_steps=TPS_STEPS, batch_size=TPS_BATCH,
+                           seq_len=TPS_SEQ, log_every=1)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rdzv",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=TPS_DEADLINE))
+    res = {}
+    try:
+        mesh = init_device_mesh(dev.type, TPS_SHAPE,
+                                mesh_dim_names=("data", "model"))
+        for arch, layers in TPS_ARCHS:
+            cfg, got, ref = _tps_cfg(arch, layers), {}, None
+            batches = make_train_batches(cfg, TPS_BATCH, TPS_SEQ)
+            if rank == 0:                     # the one-process reference
+                with _ep_first_update() as first:
+                    out = train(cfg, loop, batches, device=dev.type)
+                ref = first["grads"]
+                got["ref"] = {"loss": [h["loss"] for h in out["history"]],
+                              "gnorm": first["gnorm"]}
+                del out, first
+                _empty_cache(dev)
+                got["ref"]["logits"] = _tps_serve(cfg, dev)[0]
+                _empty_cache(dev)
+            dist.barrier()
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            t = time.perf_counter()
+            with use_rules(TRAIN_RULES), _ep_first_update(ref) as first:
+                out = train(cfg, loop, make_train_batches(
+                    cfg, TPS_BATCH, TPS_SEQ), device=dev.type, mesh=mesh)
+            got["train_s"] = time.perf_counter() - t
+            got["peak_gb"] = (torch.cuda.max_memory_allocated(dev) / 1e9
+                              if dev.type == "cuda" else float("nan"))
+            got.update(loss=[h["loss"] for h in out["history"]],
+                       gnorm=first["gnorm"], gaps=first["gaps"])
+            del out, first, ref
+            _empty_cache(dev)
+            got["logits"], got["launches"] = _tps_serve(cfg, dev, mesh)
+            _empty_cache(dev)
+            res[arch] = got
+            dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    torch.save(res, f"{tmp}/rank{rank}.pt")
+
+
+def tps_ranks(dev):
+    """11(a): spawn the two ranks and hold each arch's meshed runs to rank
+    0's one-process runs. Returns the ranks' decode launches, summed."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = torch.multiprocessing.start_processes(
+            _tps_rank, args=(2, tmp, dev.type), nprocs=2, join=False,
+            start_method="spawn")
+        deadline = time.monotonic() + TPS_DEADLINE
+        while not ctx.join(timeout=1):        # raises if a rank failed
+            if time.monotonic() > deadline:
+                for proc in ctx.processes:
+                    proc.kill()
+                check(False, ("state-family ranks outlasted",
+                              TPS_DEADLINE))
+        ranks = [torch.load(f"{tmp}/rank{r}.pt") for r in range(2)]
+    counts, failed = collections.Counter(), []
+    for arch, layers in TPS_ARCHS:
+        got, ref = ranks[0][arch], ranks[0][arch]["ref"]
+        tag = f"[tp-state] (a) {arch}" + ("" if layers is None
+                                          else f" ({layers} layers)")
+        gaps = [abs(a - b) / abs(b) for a, b in zip(got["loss"],
+                                                     ref["loss"])]
+        say(f"{tag}: {TPS_STEPS} training steps on the {TPS_SHAPE} mesh "
+            f"vs one process: losses {got['loss']} vs {ref['loss']}, gaps "
+            f"{['%.3e' % g for g in gaps]} relative (tolerance "
+            f"{TPS_LOSS_REL})")
+        if not (len(got["loss"]) == TPS_STEPS and
+                max(gaps) <= TPS_LOSS_REL):
+            failed.append((arch, "loss", got["loss"], ref["loss"]))
+        # a key bias's gradient is 0 in exact arithmetic (softmax does not
+        # see a bias added to every key): its gap is one of rounding noises
+        held = {n: g for n, g in got["gaps"].items()
+                if not n.endswith(".bk")}
+        worst = max(held, key=held.get)
+        say(f"{tag}: first update: largest gradient gap "
+            f"{held[worst]:.3e} of its leaf's largest ({worst}, "
+            f"{len(held)} leaves besides the key biases; printed, not "
+            f"held); global norm {got['gnorm']:.8e} vs {ref['gnorm']:.8e}")
+        for key, tol in (("prefill", TPS_LOGIT_TOL),
+                         ("decode", TPS_DECODE_TOL)):
+            a, b = got["logits"][key], ref["logits"][key]
+            err = float((a - b).abs().max())
+            same = torch.equal(a.argmax(-1), b.argmax(-1))
+            say(f"{tag}: {key} logits ({tuple(a.shape)}, |logits| max "
+                f"{float(a.abs().max()):.3f}) vs one process: max_abs_err="
+                f"{err:.3e} (tolerance {tol:g}), same greedy tokens {same}")
+            failed += [] if (bool(torch.isfinite(a).all()) and err <= tol
+                             and same) else [(arch, key, err, same)]
+        for r, res in enumerate(ranks):
+            mine = res[arch]
+            say(f"{tag}: rank {r}: meshed training {mine['train_s']:.1f} s, "
+                f"peak {mine['peak_gb']:.2f} GB; decode step launches "
+                f"{dict(mine['launches'])}")
+            counts.update(res[arch]["launches"])
+            if arch == AUDIO_ARCH:
+                failed += [(r, "launched no", name) for name in TPS_KERNELS
+                           if not res[arch]["launches"].get(name, 0)]
+    check(not failed, ("tp-state", failed))
+    return counts
+
+
+def phase_tp_state(dev, errs):
+    """Phase 11: (a) the state families tensor parallel on the card
+    against one process, whisper's kernels first checked at a rank's
+    shapes; (b) a dry-run record of each family on fake CUDA and CPU
+    tensors. Returns (a)'s launches."""
+    cfg = _tps_cfg(AUDIO_ARCH, None)
+    per = cfg.num_heads // TPS_SHAPE[1]
+    half = dataclasses.replace(cfg, num_heads=per, num_kv_heads=per)
+    F_ = cfg.encoder.frontend_seq
+    check_kernels_at(
+        half, dev, "tp-state", errs, TPS_KERNELS,
+        decodes=[(torch.float32, dict(
+            corpus=F_, slots=TPS_PROMPTS, slab=TPS_MAX_SEQ,
+            lens=(TPS_MAX_SEQ, TPS_MAX_SEQ + 1)))])
+    counts = tps_ranks(dev)
+    for arch, _ in TPS_ARCHS:
+        launch_dryrun(arch, "decode_32k", tag="[tp-state] (b)")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is present", file=sys.stderr)
@@ -3328,6 +3597,7 @@ def main() -> int:
     launches.update(run("8 disagg", phase_disagg, dev, errs))
     run("9 launch", phase_launch, cfg, dev)
     launches.update(run("10 ep", phase_ep, dev, errs))
+    launches.update(run("11 tp families", phase_tp_state, dev, errs))
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["max_abs_err"] = errs[row["name"]]

@@ -154,9 +154,14 @@ def meshed_decode_attention(q, k_new, v_new, kc, vc, lengths, shared,
                             cfg: MoSKAConfig, *, window: int = 0):
     """``moska_decode_attention`` (with the new token's K/V appended to the
     cache first) on ``DTensor`` values: q (B, H, D), k_new/v_new (B, KH,
-    D), caches kc/vc (B, S, KH, D) split by row and by position, lengths
-    (B,), and ``shared`` (a layer's store: k/v (E, C, KH, D) split by chunk
-    and by chunk position, emb (E, KH, D) by chunk) or None.
+    D), caches kc/vc (B, S, KH, D) split by row and by position or by kv
+    head, lengths (B,), and ``shared`` (a layer's store: k/v (E, C, KH, D)
+    split by chunk and by chunk position or by kv head, emb (E, KH, D) by
+    chunk and by kv head) or None. Without ``k_new`` nothing is appended
+    and the cache's first ``lengths`` positions are attended (every
+    position without ``lengths``: an encoder's cross cache); without
+    ``kc`` the store's partial is the whole output (the enc-dec
+    cross-attention over a shared audio).
 
     Each rank appends the token where its positions hold it and takes the
     unique partial of its rows over its positions (the ``decode_attention``
@@ -168,60 +173,88 @@ def meshed_decode_attention(q, k_new, v_new, kc, vc, lengths, shared,
     chunks the ``lse_merge`` kernel). Its unique partial joins its rows of
     the shared one (the ``lse_merge`` pair entry), and ``lse_combine``
     over every mesh axis makes the partials one: each rank contributes
-    once what its peers compute alike. Returns o (B, H, D) at q's row
-    placement, whole over the heads."""
+    once what its peers compute alike. Where the cache or the store is
+    split by kv head, each rank keeps its query heads (the kv heads' split
+    must put whole GQA groups on a rank) and does all of this for them
+    alone, its router scores summed over the heads' axes. Returns o (B,
+    H, D) at q's row placement, whole over the heads or split as the kv
+    heads."""
     from repro_torch.core.router import Routing, top_k
     mesh = q.device_mesh
     names = mesh.mesh_dim_names
     row_axes = tp.split_axes(q, 0)
-    pos_axes = tp.split_axes(kc, 1)
-    q, k_new, v_new = (tp.keep_shards(t, row_axes)
-                       for t in (q, k_new, v_new))
+    pos_axes = () if kc is None else tp.split_axes(kc, 1)
+    head_axes = tp.split_axes(kc if kc is not None else shared.k, 2)
+    if shared is not None and kc is not None and \
+            tp.split_axes(shared.k, 2) != head_axes:
+        raise NotImplementedError("a cache and a store split by kv head "
+                                  "over other axes")
+    if head_axes and tp.split_axes(q, 1) != head_axes:
+        raise ValueError(f"query heads over {tp.split_axes(q, 1)}, kv heads "
+                         f"over {head_axes}")
+    q = tp.keep_shards(q, row_axes + head_axes)
+    new = [t if t is None else tp.keep_shards(t, row_axes + head_axes)
+           for t in (k_new, v_new)]
     row0, nrows = tp.local_range(q, 0)
-    pos0, npos = tp.local_range(kc, 1)
-    S = kc.shape[1]
-    args = [q, k_new, v_new, kc, vc, lengths]
+    qh0, nqh = tp.local_range(q, 1)
+    args = [q, *new, kc, vc, lengths]
+    if kc is not None:
+        pos0, npos = tp.local_range(kc, 1)
+        S = kc.shape[1]
+        kh0, nkh = tp.local_range(kc, 2)
+        if tp.split_axes(kc, 2) and (qh0, nqh) != (
+                kh0 * (q.shape[1] // kc.shape[2]),
+                nkh * (q.shape[1] // kc.shape[2])):
+            raise ValueError(f"query heads {qh0}+{nqh} over kv heads "
+                             f"{kh0}+{nkh}: a rank needs whole groups")
     if shared is not None:
         chunk_axes = tp.split_axes(shared.k, 0)
         cpos_axes = tp.split_axes(shared.k, 1)
         c0, _ = tp.local_range(shared.k, 0)
         E = shared.k.shape[0]
-        # every kv head on every rank (the embeddings' heads may be split)
-        keep = chunk_axes + cpos_axes
+        # every kv head on every rank (the embeddings' heads may be
+        # split), unless the store splits them
+        keep = chunk_axes + cpos_axes + head_axes
         args += [None if t is None else tp.keep_shards(t, keep)
                  for t in (shared.k, shared.v)]
-        args.append(tp.keep_shards(shared.emb, chunk_axes))
+        args.append(tp.keep_shards(shared.emb, chunk_axes + head_axes))
         args += [None if t is None else tp.keep_shards(t, keep)
                  for t in (shared.k_scale, shared.v_scale)]
-    if tp.split_axes(kc, 2):
-        raise NotImplementedError("a unique cache split by kv head")
     if window and pos_axes:
         raise NotImplementedError("a sliding window over a cache split by "
                                   "position")
+    rest = set(names) - set(head_axes)
 
     def body(ql, kn, vn, kcl, vcl, lens, sk=None, sv=None, emb=None,
              ks=None, vs=None):
         B = ql.shape[0]
-        rows = torch.arange(B, device=ql.device)
-        at = lens.long().clamp(0, S - 1) - pos0     # the reference's clamp
-        mine = ((at >= 0) & (at < npos))[:, None, None]
-        at = at.clamp(0, npos - 1)
-        for cl, new in ((kcl, kn), (vcl, vn)):
-            cl[rows, at] = torch.where(mine, new.to(cl.dtype), cl[rows, at])
-        n_local = (lens + 1 - pos0).clamp(0, npos).to(torch.int32)
-        o_u, lse_u = ops.decode_attention(ql, kcl, vcl, n_local,
-                                          window=window)
-        if sk is None:
-            out, _ = lse_combine(o_u.float(), lse_u, mesh, pos_axes)
-            return out.to(ql.dtype)
+        if kcl is not None:
+            n = (torch.full((B,), S, dtype=torch.int32, device=ql.device)
+                 if lens is None else lens + (kn is not None))
+            if kn is not None:
+                rows = torch.arange(B, device=ql.device)
+                at = lens.long().clamp(0, S - 1) - pos0  # the reference's
+                mine = ((at >= 0) & (at < npos))[:, None, None]   # clamp
+                at = at.clamp(0, npos - 1)
+                for cl, new_t in ((kcl, kn), (vcl, vn)):
+                    cl[rows, at] = torch.where(mine, new_t.to(cl.dtype),
+                                               cl[rows, at])
+            n_local = (n - pos0).clamp(0, npos).to(torch.int32)
+            o_u, lse_u = ops.decode_attention(ql, kcl, vcl, n_local,
+                                              window=window)
+            if sk is None:
+                out, _ = lse_combine(o_u.float(), lse_u, mesh, pos_axes)
+                return out.to(ql.dtype)
         q_all = _gather_cat(ql, mesh, row_axes, 0)
         # score this rank's chunks (its model share of them), gather
-        mshare = ("model",) if "model" in names and "model" not in \
+        mshare = ("model",) if "model" in rest and "model" not in \
             chunk_axes and emb.shape[0] % mesh["model"].size() == 0 else ()
         emb_m = emb
         for ax in mshare:
             emb_m = local_shard(emb, mesh, ax)
         s = ops.router_scores(q_all.contiguous(), emb_m.contiguous())
+        for ax in head_axes:             # the heads' partial scores
+            dist.all_reduce(s, group=mesh.get_group(ax))
         s = _gather_cat(_gather_cat(s, mesh, mshare, 1), mesh, chunk_axes, 1)
         scores, ids = top_k(s, min(cfg.top_k_chunks, E))
         part = sa.shared_attention_batched(
@@ -229,18 +262,19 @@ def meshed_decode_attention(q, k_new, v_new, kc, vc, lengths, shared,
             capacity_factor=cfg.query_capacity_factor, k_scale=ks,
             v_scale=vs, chunk_offset=c0, num_chunks=E)
         o_c, lse_c = part.out[:, 0], part.lse[:, 0]
-        if not _first_on(mesh, set(names) - set(chunk_axes)
-                         - set(cpos_axes)):
+        if not _first_on(mesh, rest - set(chunk_axes) - set(cpos_axes)):
             o_c = torch.zeros_like(o_c)
             lse_c = torch.full_like(lse_c, NEG_INF)
-        if _first_on(mesh, set(names) - set(row_axes) - set(pos_axes)):
+        if kcl is not None and _first_on(mesh, rest - set(row_axes)
+                                         - set(pos_axes)):
             sl = slice(row0, row0 + nrows)
             o_r, lse_r = ops.lse_merge_pair(
                 o_u.contiguous(), lse_u.float().contiguous(),
                 o_c[sl].contiguous(), lse_c[sl].float().contiguous())
             o_c = torch.cat([o_c[:row0], o_r, o_c[row0 + nrows:]])
             lse_c = torch.cat([lse_c[:row0], lse_r, lse_c[row0 + nrows:]])
-        out, _ = lse_combine(o_c.float(), lse_c, mesh, names)
+        out, _ = lse_combine(o_c.float(), lse_c, mesh, sorted(
+            rest, key=names.index))
         return out[row0:row0 + nrows].to(ql.dtype)
 
     return tp.local_call(body, args, q.placements, mesh)

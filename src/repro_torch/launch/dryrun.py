@@ -15,7 +15,8 @@ bytes (``launch/op_cost.py``) and ``launch/roofline.py`` turns them into
 terms of the card. An eager trace pays for every op of every layer (a
 32K-token prefill runs some 57,000 ops a layer, about 7 s on a CPU),
 so the step is traced at a depth of 1 and of 2 layers and each count is
-extrapolated to the config's depth: the dense stack is identical layers,
+extrapolated to the config's depth (the hybrid's at one and two pattern
+cycles and one cycle with its tail): the dense stack is identical layers,
 so every count, the peak included (a layer's weights, cache, store and
 saved activations), grows by the same amount per layer, as the reference
 multiplies a scan body's cost by its trip count
@@ -81,31 +82,47 @@ def trace(arch: str, shape: str, multi_pod: bool, variant=None,
     return cost, peak, spec
 
 
-def extrapolate(one, two, layers: int):
-    """(cost, peak) at ``layers`` layers from the (cost, peak) traced at 1
-    and at 2 layers: each count grows by the second layer's share."""
-    (c1, p1), (c2, p2) = one, two
-    n = layers - 1
-    kinds = set(c1.per_collective) | set(c2.per_collective)
-    per = {k: c1.per_collective.get(k, 0.0) + n * (
-        c2.per_collective.get(k, 0.0) - c1.per_collective.get(k, 0.0))
-        for k in kinds}
-    cost = Cost(c1.flops + n * (c2.flops - c1.flops),
-                c1.traffic + n * (c2.traffic - c1.traffic),
-                c1.collective + n * (c2.collective - c1.collective), per)
-    return cost, p1 + n * (p2 - p1)
+def _plus(a, b, n: float = 1.0):
+    """(cost, peak) a + n * b, b a difference of two traces."""
+    (ca, pa), (cb, pb) = a, b
+    kinds = set(ca.per_collective) | set(cb.per_collective)
+    per = {k: ca.per_collective.get(k, 0.0) + n * cb.per_collective.get(
+        k, 0.0) for k in kinds}
+    return Cost(ca.flops + n * cb.flops, ca.traffic + n * cb.traffic,
+                ca.collective + n * cb.collective, per), pa + n * pb
+
+
+def _minus(a, b):
+    """(cost, peak) a - b."""
+    return _plus(a, b, -1.0)
+
+
+def extrapolate_cycles(one, two, tail, cycles: int):
+    """(cost, peak) of ``cycles`` whole pattern cycles and a tail from
+    traces of one cycle, two cycles, and one cycle with the tail (``tail``
+    None: no tail): each cycle adds the second cycle's share, the tail its
+    own. A stack of one kind of layer is a pattern of one layer."""
+    out = _plus(one, _minus(two, one), cycles - 1)
+    return out if tail is None else _plus(out, _minus(tail, one))
 
 
 def trace_at_depth(arch: str, shape: str, multi_pod: bool, variant=None,
                    device: str = "cuda"):
-    """(cost, peak, spec) of the step at the config's depth, traced at 1
-    and 2 layers and extrapolated (``extrapolate``)."""
-    L = get_config(arch).num_layers
-    if L <= 2:
+    """(cost, peak, spec) of the step at the config's depth, traced at one
+    and two pattern cycles (a hybrid stack's layers are of two kinds in a
+    repeating pattern; any other stack's pattern is one layer) and one
+    cycle with the tail, and extrapolated (``extrapolate_cycles``)."""
+    cfg = get_config(arch)
+    p = len(cfg.hybrid.pattern) if cfg.hybrid.enabled else 1
+    cycles, t = divmod(cfg.num_layers, p)
+    if cycles <= 2:
         return trace(arch, shape, multi_pod, variant, device)
-    c1, p1, spec = trace(arch, shape, multi_pod, variant, device, layers=1)
-    c2, p2, _ = trace(arch, shape, multi_pod, variant, device, layers=2)
-    return (*extrapolate((c1, p1), (c2, p2), L), spec)
+
+    def at(n):
+        return trace(arch, shape, multi_pod, variant, device, layers=n)[:2]
+    spec = trace(arch, shape, multi_pod, variant, device, layers=p)
+    tail = at(p + t) if t else None
+    return (*extrapolate_cycles(spec[:2], at(2 * p), tail, cycles), spec[2])
 
 
 def run_one(arch: str, shape: str, multi_pod: bool,

@@ -9,17 +9,20 @@ sizes, cache and store axes and skip reasons:
   prefill_32k  prefill, seq 32768, batch 32 (writes the unique cache)
   decode_32k   one decode step: a unique cache of 32768 per request, batch
                128, and a 2M-token shared store (MoSKA at decode)
-  long_500k    one decode step over a 524288-token context, batch 1: the
-               context is the shared chunk store, attention MoSKA-routed;
-               whisper-tiny is skipped (no 500K decode analogue)
+  long_500k    one decode step over a 524288-token context, batch 1: for
+               the dense family the context is the shared chunk store,
+               attention MoSKA-routed; the SSM and hybrid decode with
+               their O(1) state (a cache of the context's length, as the
+               reference sizes it); whisper-tiny is skipped (no 500K
+               decode analogue)
 
 The arguments are the port's own leaves (the dense family's per-layer
-parameters, int64 tokens) on the mesh given; each is a ``DTensor`` over
-fake tensors, so a full-size record allocates nothing. The port's tensor
-parallelism covers the dense, VLM and MoE members (``models/dense.py``,
-the MoE layer expert parallel in ``models/moe.py``; ``--variant
-expert_resident`` puts the experts over ``data``): the SSM, hybrid and
-enc-dec families raise ``Skip`` naming the ROADMAP item that ports them.
+parameters, the other families' ``ParamTree``, int64 tokens) on the mesh
+given; each is a ``DTensor`` over fake tensors, so a full-size record
+allocates nothing. Every family runs tensor parallel (the MoE layer
+expert parallel in ``models/moe.py``; ``--variant expert_resident`` puts
+the experts over ``data``). As the reference's, whisper-tiny's decode
+reads its cross cache, without a store.
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs import get_config
-from repro_torch.configs.base import (AUDIO, HYBRID, INPUT_SHAPES, SSM,
+from repro_torch.configs.base import (AUDIO, DENSE, INPUT_SHAPES, MOE,
                                       VLM, InputShape, ModelConfig)
 from repro_torch.core.shared_kv import abstract_store
 from repro_torch.models.model import build_model, empty_params
@@ -45,16 +48,6 @@ from repro_torch.training.train_loop import (TrainLoopConfig,
 # tokens in the attached shared store per shape (MoSKA-enabled archs)
 DECODE32K_SHARED_TOKENS = 2 * 2**20     # 1024 x 2048-token chunks
 LONG500K_UNIQUE_BUF = 2048              # generated-token buffer at 500K
-
-#: why the families without tensor parallelism in the port are skipped
-NOT_YET = {
-    SSM: "tensor parallelism of the SSM family is not ported yet "
-         "(ROADMAP Queue 1 item 10)",
-    HYBRID: "tensor parallelism of the hybrid family is not ported yet "
-            "(ROADMAP Queue 1 item 10)",
-    AUDIO: "tensor parallelism of the enc-dec family is not ported yet "
-           "(ROADMAP Queue 1 item 10)",
-}
 
 
 @dataclass
@@ -139,15 +132,9 @@ def _token_batch(cfg: ModelConfig, B: int, S: int, rules, mesh, device,
     return {k: place(t, ("batch",), rules, mesh) for k, t in out.items()}
 
 
-def _supported(cfg: ModelConfig) -> None:
-    if cfg.family in NOT_YET:
-        raise Skip(NOT_YET[cfg.family])
-
-
 def build_train(arch: str, cfg: ModelConfig, ishape: InputShape, mesh,
                 variant: Optional[str] = None, device="cpu"
                 ) -> LoweringSpec:
-    _supported(cfg)
     zero1 = False
     if variant and "zero1" in variant:
         # ZeRO-1: weights TP-only (replicated over data), the optimizer
@@ -181,7 +168,6 @@ def build_train(arch: str, cfg: ModelConfig, ishape: InputShape, mesh,
 def build_prefill(arch: str, cfg: ModelConfig, ishape: InputShape, mesh,
                   variant: Optional[str] = None, device="cpu"
                   ) -> LoweringSpec:
-    _supported(cfg)
     rules = sp.apply_variant(sp.SERVE_RULES, variant)
     model = build_model(cfg)
     params = _abstract_params(cfg, rules, mesh, device)
@@ -206,14 +192,14 @@ def build_decode(arch: str, cfg: ModelConfig, ishape: InputShape, mesh,
                  variant: Optional[str] = None, device="cpu"
                  ) -> LoweringSpec:
     long_ctx = ishape.name == "long_500k"
+    dense = cfg.family in (DENSE, VLM, MOE)
     if long_ctx and cfg.family == AUDIO:
         raise Skip("enc-dec audio has no 500K-token decode analogue "
                    "(DESIGN.md §4)")
-    _supported(cfg)
     rules = sp.apply_variant(
         sp.LONGCTX_RULES if long_ctx else sp.SERVE_RULES, variant)
     note = ""
-    if long_ctx:
+    if long_ctx and dense:
         if not cfg.moska.enabled:
             raise Skip("full-attention arch without MoSKA routing is "
                        "quadratic at 500K")
@@ -226,13 +212,14 @@ def build_decode(arch: str, cfg: ModelConfig, ishape: InputShape, mesh,
         toks = torch.empty((B,), dtype=torch.int64, device=device)
     toks = place(toks, ("batch",), rules, mesh)
     if long_ctx:
-        cache_len, shared_tokens = LONG500K_UNIQUE_BUF, ishape.seq_len
+        cache_len = LONG500K_UNIQUE_BUF if dense else ishape.seq_len
+        shared_tokens = ishape.seq_len
     else:
         cache_len, shared_tokens = ishape.seq_len, DECODE32K_SHARED_TOKENS
     cache = place_fields(model.init_cache(B, cache_len, device=device,
                                           abstract=True),
                          _CACHE_AXES, rules, mesh)
-    if not cfg.moska.enabled:
+    if not (cfg.moska.enabled and dense):
         return LoweringSpec(arch, ishape.name,
                             lambda p, t, c: model.decode_step(p, t, c),
                             (params, toks, cache), rules, note)

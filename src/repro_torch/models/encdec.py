@@ -22,6 +22,17 @@ Weights are layer-stacked (``enc_layers``/``dec_layers`` leaves are
 ``(L, ...)``); the layers run as a Python loop. Cache: {"self_k"/
 "self_v": (Ld, B, S, KH, D), "cross_k"/"cross_v": (Ld, B, F, H, D),
 "length": (B,) int32}, written in place and returned.
+
+Under a mesh (``sharding/tensor_parallel.py``) the same entry points run
+tensor parallel over ``model`` through the dense family's meshed helpers:
+the encoder's and the decoder's attention by heads, the GELU MLPs by
+columns, the tied unembedding by vocab rows where the rules split them
+(whisper-tiny's 6 heads and 51,865-row vocabulary stay whole over a
+``model`` axis of 16). The cross K/V come out split by head and are
+re-placed as the cross cache's rules place it (by position) before the
+write. The decode step's self-attention, its cross-attention over the
+cross cache and its routed cross-attention over a chunk-sharded store go
+through ``core/disagg.meshed_decode_attention``.
 """
 from __future__ import annotations
 
@@ -32,14 +43,19 @@ import torch
 
 from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import disagg
 from repro_torch.core import router as router_lib
 from repro_torch.core import shared_attention as sa
 from repro_torch.core.shared_kv import SharedKVStore
 from repro_torch.kvcache.cache import append_token, write_prefix
 from repro_torch.models import layers as L
 from repro_torch.models import params as P_
-from repro_torch.models.dense import lm_loss, torch_dtype
+from repro_torch.models.dense import (_act, _causal_attention, _embed,
+                                      _merge_heads, _shared_layer, lm_loss,
+                                      torch_dtype)
 from repro_torch.models.params import ParamTree
+from repro_torch.sharding import tensor_parallel as tp
+from repro_torch.sharding.specs import lsc
 
 Cache = Dict[str, torch.Tensor]
 
@@ -92,7 +108,34 @@ def _ln(x: torch.Tensor, p) -> torch.Tensor:
 
 def _out(x: torch.Tensor, o: torch.Tensor, p) -> torch.Tensor:
     """Residual output projection of an attention output (..., H, D)."""
-    return x + o.reshape(*o.shape[:-2], -1) @ p["wo"]
+    return _act(x + _act(_merge_heads(o) @ tp.gather_weight(p["wo"])))
+
+
+def _mlp(x: torch.Tensor, lp) -> torch.Tensor:
+    """The residual GELU MLP block."""
+    return _act(x + _act(L.gelu_mlp(_ln(x, lp["ln2"]),
+                                    tp.gather_weights(lp["mlp"]))))
+
+
+def _qkv(x: torch.Tensor, p, H: int, KH: int, D: int):
+    """q (..., H, D), k and v (..., KH, D) of x; on a mesh pinned by
+    heads."""
+    q, k, v = L.qkv_project(x, tp.gather_weights(p), H, KH, D)
+    seq = ("seq",)[:x.ndim - 2]
+    return (lsc(q, "batch", *seq, "heads", None),
+            lsc(k, "batch", *seq, "kv_heads", None),
+            lsc(v, "batch", *seq, "kv_heads", None))
+
+
+def _plus_positions(x: torch.Tensor, positions: torch.Tensor, d: int
+                    ) -> torch.Tensor:
+    """x + the sinusoidal embeddings of ``positions`` (broadcast over x's
+    leading dims); a ``DTensor`` on its local rows."""
+    def add(t, pos):
+        return t + sinusoid_pos(pos, d).to(t.dtype)
+    if not tp.is_meshed(x):
+        return add(x, positions)
+    return tp.local_call(add, (x, positions), x.placements, x.device_mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -103,15 +146,15 @@ def encode(cfg: ModelConfig, params: ParamTree,
            frames: torch.Tensor) -> torch.Tensor:
     """frames: (B, F, d) stub frontend embeddings -> (B, F, d)."""
     F_ = frames.shape[1]
-    x = frames + sinusoid_pos(torch.arange(F_, device=frames.device),
-                              cfg.d_model)[None].to(frames.dtype)
+    x = _act(_plus_positions(frames, torch.arange(F_, device=frames.device),
+                             cfg.d_model))
     H = cfg.num_heads
     for i in range(cfg.encoder.num_layers):
         lp = P_.select(params["enc_layers"], i)
-        q, k, v = L.qkv_project(_ln(x, lp["ln1"]), lp["attn"], H, H,
-                                cfg.head_dim)
-        x = _out(x, L.flash_attention(q, k, v, causal=False), lp["attn"])
-        x = x + L.gelu_mlp(_ln(x, lp["ln2"]), lp["mlp"])
+        q, k, v = _qkv(_ln(x, lp["ln1"]), lp["attn"], H, H, cfg.head_dim)
+        x = _out(x, _causal_attention(cfg, q, k, v, causal=False),
+                 lp["attn"])
+        x = _mlp(x, lp)
     return _ln(x, params["enc_norm"])
 
 
@@ -138,22 +181,24 @@ def _cross_kv(cfg: ModelConfig, lp, enc_out: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """A decoder layer's cross-attention K/V of the encoder output (B, F,
     d) -> (B, F, H, D) each."""
-    p = lp["xattn"]
+    p = tp.gather_weights(lp["xattn"])
     k, v = enc_out @ p["wk"], enc_out @ p["wv"]
     if "bk" in p:
         k, v = k + p["bk"], v + p["bv"]
-    shape = (*enc_out.shape[:-1], cfg.num_heads, cfg.head_dim)
-    return k.reshape(shape), v.reshape(shape)
+    H, D = cfg.num_heads, cfg.head_dim
+    return (lsc(tp.split_heads(k, H, D), "batch", "seq", "heads", None),
+            lsc(tp.split_heads(v, H, D), "batch", "seq", "heads", None))
 
 
 def _logits(params: ParamTree, x: torch.Tensor) -> torch.Tensor:
-    return L.unembed(_ln(x, params["final_norm"]), params["embed"]["embed"])
+    return L.unembed(_ln(x, params["final_norm"]),
+                     tp.gather_weight(params["embed"]["embed"]))
 
 
-def _embed(cfg: ModelConfig, params: ParamTree, tokens: torch.Tensor,
-           positions: torch.Tensor) -> torch.Tensor:
-    x = params["embed"]["embed"][tokens]
-    return x + sinusoid_pos(positions, cfg.d_model).to(x.dtype)
+def _embed_at(cfg: ModelConfig, params: ParamTree, tokens: torch.Tensor,
+              positions: torch.Tensor) -> torch.Tensor:
+    return _act(_plus_positions(_embed(params, tokens), positions,
+                                cfg.d_model))
 
 
 # ---------------------------------------------------------------------------
@@ -165,11 +210,12 @@ def _dec_layer_full(cfg: ModelConfig, lp, x: torch.Tensor,
                     xv: torch.Tensor) -> torch.Tensor:
     """Teacher-forced decoder layer. x: (B, S, d); xk/xv: (B, F, H, D)."""
     H, KH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q, k, v = L.qkv_project(_ln(x, lp["ln1"]), lp["attn"], H, KH, D)
-    x = _out(x, L.flash_attention(q, k, v, causal=True), lp["attn"])
-    qx, _, _ = L.qkv_project(_ln(x, lp["ln_x"]), lp["xattn"], H, H, D)
-    x = _out(x, L.flash_attention(qx, xk, xv, causal=False), lp["xattn"])
-    return x + L.gelu_mlp(_ln(x, lp["ln2"]), lp["mlp"])
+    q, k, v = _qkv(_ln(x, lp["ln1"]), lp["attn"], H, KH, D)
+    x = _out(x, _causal_attention(cfg, q, k, v, causal=True), lp["attn"])
+    qx = _qkv(_ln(x, lp["ln_x"]), lp["xattn"], H, H, D)[0]
+    x = _out(x, _causal_attention(cfg, qx, xk, xv, causal=False),
+             lp["xattn"])
+    return _mlp(x, lp)
 
 
 def forward_teacher_forced(cfg: ModelConfig, params: ParamTree,
@@ -180,7 +226,7 @@ def forward_teacher_forced(cfg: ModelConfig, params: ParamTree,
     K/V computed outside). Returns the final-normed hidden (B, S, d)."""
     enc_out = encode(cfg, params, frames)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x = _embed(cfg, params, tokens, positions)
+    x = _embed_at(cfg, params, tokens, positions)
     body = L.remat(_dec_layer_full, "nothing" if remat else "none")
     for i in range(cfg.num_layers):
         lp = P_.select(params["dec_layers"], i)
@@ -214,19 +260,28 @@ def prefill(cfg: ModelConfig, params: ParamTree, tokens: torch.Tensor,
     enc_out = encode(cfg, params, frontend_embeds)
     S = tokens.shape[1]
     H, KH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    x = _embed(cfg, params, tokens,
-               start_pos + torch.arange(S, device=tokens.device))
+    x = _embed_at(cfg, params, tokens,
+                  start_pos + torch.arange(S, device=tokens.device))
+    meshed = tp.is_meshed(x)
     for i in range(cfg.num_layers):
         lp = P_.select(params["dec_layers"], i)
         xk, xv = _cross_kv(cfg, lp, enc_out)
-        q, k, v = L.qkv_project(_ln(x, lp["ln1"]), lp["attn"], H, KH, D)
-        write_prefix(cache["self_k"][i], cache["self_v"][i], k, v)
-        x = _out(x, L.flash_attention(q, k, v, causal=True), lp["attn"])
-        qx, _, _ = L.qkv_project(_ln(x, lp["ln_x"]), lp["xattn"], H, H, D)
-        x = _out(x, L.flash_attention(qx, xk, xv, causal=False), lp["xattn"])
-        x = x + L.gelu_mlp(_ln(x, lp["ln2"]), lp["mlp"])
-        cache["cross_k"][i] = xk
-        cache["cross_v"][i] = xv
+        q, k, v = _qkv(_ln(x, lp["ln1"]), lp["attn"], H, KH, D)
+        (tp.write_prefix_meshed if meshed else write_prefix)(
+            cache["self_k"][i], cache["self_v"][i], k, v)
+        x = _out(x, _causal_attention(cfg, q, k, v, causal=True),
+                 lp["attn"])
+        qx = _qkv(_ln(x, lp["ln_x"]), lp["xattn"], H, H, D)[0]
+        x = _out(x, _causal_attention(cfg, qx, xk, xv, causal=False),
+                 lp["xattn"])
+        x = _mlp(x, lp)
+        for name, t in (("cross_k", xk), ("cross_v", xv)):
+            if meshed:        # re-placed as the cross cache: by position
+                dst = cache[name][i]
+                dst.to_local().copy_(tp.redistribute(
+                    t, dst.placements).to_local())
+            else:
+                cache[name][i] = t
     cache["length"].fill_(S)
     return _logits(params, x[:, -1]), cache
 
@@ -245,21 +300,32 @@ def decode_step(cfg: ModelConfig, params: ParamTree, tokens: torch.Tensor,
     B = tokens.shape[0]
     H, KH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     lengths = cache["length"]
-    x = _embed(cfg, params, tokens,
-               lengths if positions is None else positions)
+    x = _embed_at(cfg, params, tokens,
+                  lengths if positions is None else positions)
     use_store = store is not None and cfg.moska.enabled
+    meshed = tp.is_meshed(x)
     full = torch.full((B,), cfg.encoder.frontend_seq, dtype=torch.int32,
                       device=x.device)
     for i in range(cfg.num_layers):
         lp = P_.select(params["dec_layers"], i)
-        q, k, v = (t[:, 0] for t in L.qkv_project(
-            _ln(x, lp["ln1"])[:, None], lp["attn"], H, KH, D))
+        q, k, v = (t[:, 0] for t in _qkv(_ln(x, lp["ln1"])[:, None],
+                                          lp["attn"], H, KH, D))
         kc, vc = cache["self_k"][i], cache["self_v"][i]
-        append_token(kc, vc, k, v, lengths)
-        x = _out(x, L.decode_attention(q, kc, vc, lengths + 1), lp["attn"])
-        qx = L.qkv_project(_ln(x, lp["ln_x"])[:, None], lp["xattn"], H, H,
-                           D)[0][:, 0]
-        if use_store:
+        if meshed:
+            o = disagg.meshed_decode_attention(q, k, v, kc, vc, lengths,
+                                               None, cfg.moska)
+        else:
+            append_token(kc, vc, k, v, lengths)
+            o = L.decode_attention(q, kc, vc, lengths + 1)
+        x = _out(x, o, lp["attn"])
+        qx = _qkv(_ln(x, lp["ln_x"])[:, None], lp["xattn"], H, H, D)[0][:, 0]
+        if meshed:
+            sh = _shared_layer(store, i) if use_store else None
+            ck, cv = (None, None) if use_store else (cache["cross_k"][i],
+                                                     cache["cross_v"][i])
+            ox = disagg.meshed_decode_attention(qx, None, None, ck, cv, None,
+                                                sh, cfg.moska)
+        elif use_store:
             routing = router_lib.route(qx, store.emb[i],
                                        cfg.moska.top_k_chunks)
             ox = sa.shared_attention_batched(
@@ -269,6 +335,6 @@ def decode_step(cfg: ModelConfig, params: ParamTree, tokens: torch.Tensor,
             ox = L.decode_attention(qx, cache["cross_k"][i],
                                     cache["cross_v"][i], full)
         x = _out(x, ox, lp["xattn"])
-        x = x + L.gelu_mlp(_ln(x, lp["ln2"]), lp["mlp"])
+        x = _mlp(x, lp)
     lengths.add_(1)
     return _logits(params, x), cache

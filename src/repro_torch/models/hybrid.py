@@ -20,6 +20,19 @@ B, W) int32 absolute positions (-1: empty slot), "lru": (n_rec, B, lw)
 fp32, "conv": (n_rec, B, 3, lw), "length": (B,) int32}, written in place
 by ``prefill`` and ``decode_step``, which return the cache they were
 given.
+
+Under a mesh (``sharding/tensor_parallel.py``) the same entry points run
+tensor parallel over ``model``: the attention layers and every MLP
+through the dense family's meshed helpers (heads and FFN columns split,
+MQA's single kv head read whole by each rank's query heads), the RG-LRU
+branch on local tensors (``_rec_branch_meshed``): each rank convolves and
+scans its own channels of the LRU width (the rules' split), the
+concatenated ``lru_in`` (xa | xb) and gate (r | i) products are gathered
+whole before each rank takes its channels of each part, and
+``lru_out``'s rows reduce over ``model``. The ring's slots are split over
+``model`` (``ring_pos`` whole): a token is written on the rank that owns
+its slot, and each rank's partial attention over its slots joins the
+others' by the exact LSE all-reduce of ``core/disagg.py``.
 """
 from __future__ import annotations
 
@@ -30,10 +43,15 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.disagg import lse_combine
 from repro_torch.models import layers as L
 from repro_torch.models import params as P_
-from repro_torch.models.dense import lm_loss, torch_dtype
+from repro_torch.models.dense import (_act, _causal_attention, _embed,
+                                      _merge_heads, _qkv_rope, lm_loss,
+                                      torch_dtype)
 from repro_torch.models.params import ParamTree
+from repro_torch.sharding import tensor_parallel as tp
+from repro_torch.sharding.specs import lsc
 
 Cache = Dict[str, torch.Tensor]
 _LRU_C = 8.0
@@ -126,7 +144,7 @@ def _layers(cfg: ModelConfig, params: ParamTree
             n[kind] += 1
     for lp, kind in zip(params["tail"], tail):
         kind = "attn" if kind == "attn" else "rec"
-        yield kind, lp, n[kind]
+        yield kind, P_.select(lp), n[kind]
         n[kind] += 1
 
 
@@ -138,7 +156,14 @@ def _rglru_gates(x: torch.Tensor, lp):
     """x: (..., lw) post-conv branch input -> (log_a, gated input), fp32."""
     gates = x @ lp["lru_gate_w"] + lp["lru_gate_b"]
     r, i = torch.sigmoid(gates.float()).chunk(2, dim=-1)
-    log_a = -_LRU_C * F.softplus(lp["lru_a"]) * r           # (..., lw) <= 0
+    return _rglru_inputs(x, r, i, lp["lru_a"])
+
+
+def _rglru_inputs(x: torch.Tensor, r: torch.Tensor, i: torch.Tensor,
+                  lru_a: torch.Tensor):
+    """The gates r and i (fp32) of the branch input x -> (log_a, gated
+    input): a = exp(log_a), the input scaled by sqrt(1 - a^2)."""
+    log_a = -_LRU_C * F.softplus(lru_a) * r                  # (..., lw) <= 0
     a2 = torch.exp(2.0 * log_a)
     gated = torch.sqrt(torch.clamp_min(1.0 - a2, 1e-12)) * (i * x.float())
     return log_a, gated
@@ -147,7 +172,13 @@ def _rglru_gates(x: torch.Tensor, lp):
 def _rglru_full(x: torch.Tensor, lp, h0: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """h_t = a_t h_{t-1} + b_t over the sequence. x: (B, S, lw); h0:
-    (B, lw). Returns (h in x's dtype, h_S fp32).
+    (B, lw). Returns (h in x's dtype, h_S fp32)."""
+    return _rglru_scan(*_rglru_gates(x, lp), h0, x.dtype)
+
+
+def _rglru_scan(log_a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor,
+                dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The recurrence over (B, S, lw) gates from h0 (B, lw).
 
     The reference runs ``lax.associative_scan``; here a log-depth
     doubling scan (Hillis-Steele) of the same combine, (a1, b1) . (a2, b2)
@@ -157,16 +188,15 @@ def _rglru_full(x: torch.Tensor, lp, h0: torch.Tensor
     recurrent layers). Both are exact in exact arithmetic; in fp32 they
     round in another order, within 1e-6 of each other.
     """
-    log_a, b = _rglru_gates(x, lp)
     a = torch.exp(log_a)
     b = b.clone()
     b[:, 0] += a[:, 0] * h0                  # h_1 = a_1 h0 + b_1
-    S, k = x.shape[1], 1
+    S, k = b.shape[1], 1
     while k < S:
         b = torch.cat([b[:, :k], a[:, k:] * b[:, :-k] + b[:, k:]], dim=1)
         a = torch.cat([a[:, :k], a[:, k:] * a[:, :-k]], dim=1)
         k *= 2
-    return b.to(x.dtype), b[:, -1]
+    return b.to(dtype), b[:, -1]
 
 
 def _rglru_step(x: torch.Tensor, lp, h: torch.Tensor
@@ -177,17 +207,112 @@ def _rglru_step(x: torch.Tensor, lp, h: torch.Tensor
     return h_new.to(x.dtype), h_new
 
 
+def _mlp_block(cfg: ModelConfig, lp, x: torch.Tensor) -> torch.Tensor:
+    """The residual GeGLU block (on a mesh its columns over ``model``)."""
+    h2 = L.rms_norm(x, lp["ln2"]["scale"], cfg.rms_eps)
+    return _act(x + _act(L.geglu_mlp(h2, tp.gather_weights(lp["mlp"]))))
+
+
+def _rec_branch_meshed(cfg: ModelConfig, lp, x: torch.Tensor,
+                       conv: Optional[torch.Tensor] = None,
+                       lru: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The recurrent branch's output (the LRU's gated output through
+    ``lru_out``) on a mesh, tensor parallel over ``model``
+    (``tp.block_call``). x: (B, S, d), or (B, d) for a decode step, which
+    advances its layer's ``conv`` (B, 3, lw) and ``lru`` (B, lw) cache in
+    place; a prefill given them writes its conv tail and final state.
+
+    Each rank takes its channels of the LRU width (the rules' split of
+    ``conv_w``, ``lru_a`` and ``lru_out``'s rows; every channel where
+    they leave them whole): ``lru_in``'s product (xa | xb, split
+    contiguously) is gathered whole and cut into the rank's channels of
+    each half; the gate product contracts over every channel, so the
+    convolved input is gathered whole, and its product (r | i) gathered
+    and cut as ``lru_in``'s."""
+    mesh = x.device_mesh
+    lw = _lru_width(cfg)
+    cols = tp.model_piece(lp["lru_in"], 1)
+    l0, nl, _ = ch = tp.model_piece(lp["lru_a"], 0)
+    gcols = tp.model_piece(lp["lru_gate_w"], 1)
+    rows = tp.model_share(lp["lru_out"], 0)
+    cache = [None if t is None else t.to_local() for t in (conv, lru)]
+    cpiece = None if conv is None else tp.model_piece(conv, 2)
+    hpiece = None if lru is None else tp.model_piece(lru, 1)
+    names = ("ln1", "lru_in", "conv_w", "conv_b", "lru_gate_w",
+             "lru_gate_b", "lru_a", "lru_out")
+    leaves = [lp["ln1"]["scale"]] + [lp[k] for k in names[1:]]
+
+    def branch(xl, w):
+        conv_l, lru_l = cache
+        hn = L.rms_norm(xl, w["ln1"], cfg.rms_eps)
+        xin = tp.concat_whole(hn @ w["lru_in"], cols, (lw, lw), mesh)
+        xa, xb = xin[..., l0:l0 + nl], xin[..., lw + l0:lw + l0 + nl]
+        cw, cb = tp.own_piece(w["conv_w"], 1, ch), tp.own_piece(
+            w["conv_b"], 0, ch)
+        if xl.ndim == 2:
+            full = torch.cat([tp.own_piece(conv_l, -1, cpiece),
+                              xa[:, None].to(conv_l.dtype)], dim=1)
+            xc = (torch.einsum("bwl,wl->bl", full, cw) + cb).to(xa.dtype)
+            _put(conv_l, full[:, 1:], cpiece, ch, lw, mesh)
+        else:
+            if conv_l is not None:
+                tail = xa[:, -(_CONV_W - 1):]
+                _put(conv_l, F.pad(tail, (0, 0, _CONV_W - 1 - tail.shape[1],
+                                          0)), cpiece, ch, lw, mesh)
+            xc = L.causal_conv(xa, cw, cb)
+        gates = tp.concat_whole(
+            tp.whole_over_model(xc, -1, ch, lw, mesh) @ w["lru_gate_w"]
+            + w["lru_gate_b"], gcols, (lw, lw), mesh)
+        gates = torch.sigmoid(gates.float())
+        log_a, b = _rglru_inputs(xc, gates[..., l0:l0 + nl],
+                                 gates[..., lw + l0:lw + l0 + nl],
+                                 tp.own_piece(w["lru_a"], 0, ch))
+        if xl.ndim == 2:
+            h = torch.exp(log_a) * tp.own_piece(lru_l, -1, hpiece) + b
+            y = h.to(xc.dtype)
+        else:
+            h0 = xc.new_zeros((xc.shape[0], nl), dtype=torch.float32)
+            y, h = _rglru_scan(log_a, b, h0, xc.dtype)
+        if lru_l is not None:
+            _put(lru_l, h, hpiece, ch, lw, mesh)
+        y = tp.own_piece(y * L.gelu(xb), -1, _within(rows, ch))
+        out = y @ tp.own_piece(w["lru_out"], 0, rows)
+        return tp.SumOver.apply(out, mesh, ("model",), False)
+
+    return tp.block_call(branch, x, dict(zip(names, leaves)))
+
+
+def _within(rows, ch):
+    """``rows`` (a share of the LRU width) relative to the channels ``ch``
+    that the rank computed (the same piece where both are split)."""
+    if rows[2]:
+        return 0, rows[1], True
+    return rows[0] - ch[0], rows[1], False
+
+
+def _put(cache_l: torch.Tensor, value: torch.Tensor, piece, ch, lw: int,
+         mesh) -> None:
+    """Write this rank's channels ``ch`` of a recurrent state into its
+    local cache, which holds the cache's ``piece`` of the LRU width (the
+    channels gathered whole where the cache is whole and the channels
+    split)."""
+    if ch[2] and not piece[2]:
+        value = tp.all_gather_dim(value, value.ndim - 1, mesh, "model", lw)
+    cache_l.copy_(value)
+
+
 def _rec_block_full(cfg: ModelConfig, lp, x: torch.Tensor,
                     h0: torch.Tensor):
     """x: (B, S, d) -> (out, (conv_tail, h_final))."""
+    if tp.is_meshed(x):
+        x = _act(x + _rec_branch_meshed(cfg, lp, x))
+        return _mlp_block(cfg, lp, x), None
     h = L.rms_norm(x, lp["ln1"]["scale"], cfg.rms_eps)
     xa, xb = (h @ lp["lru_in"]).chunk(2, dim=-1)
     y, h_fin = _rglru_full(L.causal_conv(xa, lp["conv_w"], lp["conv_b"]), lp,
                            h0)
     x = x + (y * L.gelu(xb)) @ lp["lru_out"]
-    h2 = L.rms_norm(x, lp["ln2"]["scale"], cfg.rms_eps)
-    x = x + L.geglu_mlp(h2, lp["mlp"])
-    return x, (xa[:, -(_CONV_W - 1):], h_fin)
+    return _mlp_block(cfg, lp, x), (xa[:, -(_CONV_W - 1):], h_fin)
 
 
 def _rec_block_step(cfg: ModelConfig, lp, x: torch.Tensor,
@@ -200,9 +325,7 @@ def _rec_block_step(cfg: ModelConfig, lp, x: torch.Tensor,
                + lp["conv_b"]).to(xa.dtype)
     y, h = _rglru_step(xa_conv, lp, h)
     x = x + (y * L.gelu(xb)) @ lp["lru_out"]
-    h2 = L.rms_norm(x, lp["ln2"]["scale"], cfg.rms_eps)
-    x = x + L.geglu_mlp(h2, lp["mlp"])
-    return x, full[:, 1:], h
+    return _mlp_block(cfg, lp, x), full[:, 1:], h
 
 
 # ---------------------------------------------------------------------------
@@ -211,20 +334,20 @@ def _rec_block_step(cfg: ModelConfig, lp, x: torch.Tensor,
 
 def _attn_out_mlp(cfg: ModelConfig, lp, x: torch.Tensor,
                   o: torch.Tensor) -> torch.Tensor:
-    x = x + o.reshape(*o.shape[:-2], -1) @ lp["attn"]["wo"]
-    h2 = L.rms_norm(x, lp["ln2"]["scale"], cfg.rms_eps)
-    return x + L.geglu_mlp(h2, lp["mlp"])
+    wo = tp.gather_weight(lp["attn"]["wo"])
+    return _mlp_block(cfg, lp, _act(x + _act(_merge_heads(o) @ wo)))
 
 
 def _attn_block_full(cfg: ModelConfig, lp, x: torch.Tensor,
                      positions: torch.Tensor):
-    h = L.rms_norm(x, lp["ln1"]["scale"], cfg.rms_eps)
-    q, k, v = L.qkv_project(h, lp["attn"], cfg.num_heads, cfg.num_kv_heads,
-                            cfg.head_dim)
-    q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
+    """Windowed causal attention block (on a mesh its query heads over
+    ``model``). Returns (out, (k, v))."""
+    q, k, v = _qkv_rope(cfg, x, lp, positions)
+    q = lsc(q, "batch", "seq", "heads", None)
+    k = lsc(k, "batch", "seq", "kv_heads", None)
+    v = lsc(v, "batch", "seq", "kv_heads", None)
     W = cfg.hybrid.window
-    o = L.flash_attention(q, k, v, causal=True, window=W,
+    o = _causal_attention(cfg, q, k, v, causal=True, window=W,
                           block_k=min(L.DEFAULT_BLOCK_K, W))
     return _attn_out_mlp(cfg, lp, x, o), (k, v)
 
@@ -241,6 +364,54 @@ def _ring_write(rk: torch.Tensor, rv: torch.Tensor, rpos: torch.Tensor,
     rpos[rows, slots] = positions.to(rpos.dtype)
 
 
+def _ring_write_meshed(rk: torch.Tensor, rv: torch.Tensor,
+                       rpos: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       positions: torch.Tensor, W: int) -> None:
+    """``_ring_write`` on a mesh: ring ``DTensor`` values (B, W, KH, D)
+    split by slot over ``model``, ``rpos`` (B, W) whole; keys and values
+    (B, S, KH, D) whole over ``model``; positions: (S,) absolute, the
+    same for every row (S <= W), or (B,) one token a row. Each rank
+    writes the tokens whose slots it holds, and every rank the whole
+    ``rpos``; (S,) positions are consecutive (a prompt's tail)."""
+    w0, nw = tp.local_range(rk, 1)
+    kl, vl = (t.to_local() for t in (k, v))
+    rkl, rvl, rposl = (t.to_local() for t in (rk, rv, rpos))
+    pos = positions.to_local() if tp.is_meshed(positions) else positions
+    if kl.ndim == 3:                          # one token a row (decode)
+        slots = pos.long() % W
+        rows = torch.arange(rkl.shape[0], device=rkl.device)
+        rposl[rows, slots] = pos.to(rposl.dtype)
+        mine = ((slots >= w0) & (slots < w0 + nw))[:, None, None]
+        at = (slots - w0).clamp(0, nw - 1)
+        for cl, new in ((rkl, kl), (rvl, vl)):
+            cl[rows, at] = torch.where(mine, new.to(cl.dtype), cl[rows, at])
+        return
+    # consecutive positions p0 .. p0 + n - 1: slot j holds token
+    # (j - p0) mod W where that is below n (no shape follows the values)
+    n = kl.shape[1]
+    t = (torch.arange(W, device=rkl.device) - pos[0].long()) % W
+    fill = t < n
+    rposl.copy_(torch.where(fill, (pos[0] + t).to(rposl.dtype), rposl))
+    t, fill = t[w0:w0 + nw], fill[w0:w0 + nw, None, None]
+    for cl, new in ((rkl, kl), (rvl, vl)):
+        cl.copy_(torch.where(fill, new[:, t.clamp(max=n - 1)].to(cl.dtype),
+                             cl))
+
+
+def _ring_scores(q: torch.Tensor, rk: torch.Tensor, rpos: torch.Tensor,
+                 q_pos: torch.Tensor, window: int):
+    """fp32 scores (B, KH, G, W) of q (B, H, D) against the ring's keys,
+    -1e30 outside the window, and the mask of valid slots (B, W)."""
+    B, H, D = q.shape
+    KH = rk.shape[2]
+    qg = q.reshape(B, KH, H // KH, D)
+    s = torch.einsum("bhgd,bwhd->bhgw", qg.float(), rk.float()) / math.sqrt(D)
+    qp = q_pos[:, None]
+    valid = (rpos >= 0) & (rpos <= qp) & (rpos > qp - window)
+    return torch.where(valid[:, None, None], s,
+                       torch.full_like(s, L.NEG_INF)), valid
+
+
 def _ring_attend(q: torch.Tensor, rk: torch.Tensor, rv: torch.Tensor,
                  rpos: torch.Tensor, q_pos: torch.Tensor,
                  window: int) -> torch.Tensor:
@@ -249,31 +420,55 @@ def _ring_attend(q: torch.Tensor, rk: torch.Tensor, rv: torch.Tensor,
     scores, p cast to v's dtype before PV, as the reference. Returns
     (B, H, D)."""
     B, H, D = q.shape
-    KH = rk.shape[2]
-    qg = q.reshape(B, KH, H // KH, D)
-    s = torch.einsum("bhgd,bwhd->bhgw", qg.float(), rk.float()) / math.sqrt(D)
-    qp = q_pos[:, None]
-    valid = (rpos >= 0) & (rpos <= qp) & (rpos > qp - window)
-    s = torch.where(valid[:, None, None], s, torch.full_like(s, L.NEG_INF))
+    s, _ = _ring_scores(q, rk, rpos, q_pos, window)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     l = p.sum(dim=-1)
     o = torch.einsum("bhgw,bwhd->bhgd", p.to(rv.dtype).float(), rv.float())
     return (o / l.clamp_min(1e-37)[..., None]).reshape(B, H, D).to(q.dtype)
 
 
+def _ring_partial(q: torch.Tensor, rk: torch.Tensor, rv: torch.Tensor,
+                  rpos: torch.Tensor, q_pos: torch.Tensor, window: int):
+    """``_ring_attend`` over some of the ring's slots, as a partial: (o
+    (B, H, D) fp32, lse (B, H); -1e30 where no slot of these is valid)."""
+    B, H, D = q.shape
+    s, valid = _ring_scores(q, rk, rpos, q_pos, window)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1)
+    o = torch.einsum("bhgw,bwhd->bhgd", p.to(rv.dtype).float(), rv.float())
+    o = o / l.clamp_min(1e-37)[..., None]
+    lse = torch.where(valid.any(-1)[:, None, None], m[..., 0] + torch.log(l),
+                      torch.full_like(l, L.NEG_INF))
+    return o.reshape(B, H, D), lse.reshape(B, H)
+
+
 def _attn_block_step(cfg: ModelConfig, lp, x: torch.Tensor,
                      rk: torch.Tensor, rv: torch.Tensor, rpos: torch.Tensor,
                      q_pos: torch.Tensor) -> torch.Tensor:
     """x: (B, d); q_pos: (B,) absolute position of the new token, whose
-    key and value are written into the ring (in place) before attending."""
-    h = L.rms_norm(x, lp["ln1"]["scale"], cfg.rms_eps)
-    q, k, v = L.qkv_project(h[:, None], lp["attn"], cfg.num_heads,
-                            cfg.num_kv_heads, cfg.head_dim)
-    pos = q_pos[:, None]
-    q = L.apply_rope(q, pos, cfg.rope_theta)[:, 0]
-    k = L.apply_rope(k, pos, cfg.rope_theta)
-    _ring_write(rk, rv, rpos, k, v, pos)
-    o = _ring_attend(q, rk, rv, rpos, q_pos, cfg.hybrid.window)
+    key and value are written into the ring (in place) before attending.
+    On a mesh each rank attends every query head over its slots and the
+    partials join by the LSE all-reduce over the ring's slot axes."""
+    q, k, v = (t[:, 0] for t in _qkv_rope(cfg, x[:, None], lp,
+                                          q_pos[:, None]))
+    W = cfg.hybrid.window
+    if not tp.is_meshed(q):
+        _ring_write(rk, rv, rpos, k[:, None], v[:, None], q_pos[:, None])
+        return _attn_out_mlp(cfg, lp, x,
+                             _ring_attend(q, rk, rv, rpos, q_pos, W))
+    q = lsc(q, "batch", "heads", None)
+    keep = tp.split_axes(q, 0)
+    q, k, v = (tp.keep_shards(t, keep) for t in (q, k, v))
+    _ring_write_meshed(rk, rv, rpos, k, v, q_pos, W)
+    w0, nw = tp.local_range(rk, 1)
+    mesh, slot_axes = q.device_mesh, tp.split_axes(rk, 1)
+
+    def body(ql, rkl, rvl, rposl, qp):
+        o, lse = _ring_partial(ql, rkl, rvl, rposl[:, w0:w0 + nw], qp, W)
+        return lse_combine(o, lse, mesh, slot_axes)[0].to(ql.dtype)
+
+    o = tp.local_call(body, (q, rk, rv, rpos, q_pos), q.placements, mesh)
     return _attn_out_mlp(cfg, lp, x, o)
 
 
@@ -308,7 +503,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 def _logits(cfg: ModelConfig, params: ParamTree,
             x: torch.Tensor) -> torch.Tensor:
     return L.unembed(L.rms_norm(x, params["final_norm"]["scale"],
-                                cfg.rms_eps), params["embed"]["embed"])
+                                cfg.rms_eps),
+                     tp.gather_weight(params["embed"]["embed"]))
 
 
 def _run_layers(cfg: ModelConfig, layers, x: torch.Tensor,
@@ -348,7 +544,7 @@ def train_loss(cfg: ModelConfig, params: ParamTree, batch, *,
     """Next-token cross-entropy over the tied embedding; batch as the
     dense family's. Returns (loss, {"ce_loss", "moe_aux": 0})."""
     tokens = batch["tokens"]
-    x = params["embed"]["embed"][tokens]
+    x = _embed(params, tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
     hidden, zero = forward_hidden(cfg, params, x, positions, remat=remat)
     loss = lm_loss(cfg, params, hidden, batch["targets"], batch["mask"])
@@ -361,7 +557,7 @@ def prefill(cfg: ModelConfig, params: ParamTree, tokens: torch.Tensor,
     """Run the prompt with windowed causal attention; each attention layer
     writes its last min(W, S) keys into its ring, each recurrent layer
     its LRU state and conv tail (left-padded with zeros below 3 tokens)."""
-    x = params["embed"]["embed"][tokens]
+    x = _embed(params, tokens)
     B, S, _ = x.shape
     positions = start_pos + torch.arange(S, device=x.device)
     n = min(cfg.hybrid.window, S)
@@ -369,7 +565,15 @@ def prefill(cfg: ModelConfig, params: ParamTree, tokens: torch.Tensor,
     h0 = torch.zeros((B, _lru_width(cfg)), dtype=torch.float32,
                      device=x.device)
     for kind, lp, j in _layers(cfg, params):
-        if kind == "attn":
+        if tp.is_meshed(x) and kind == "attn":
+            x, (k, v) = _attn_block_full(cfg, lp, x, positions)
+            _ring_write_meshed(cache["ring_k"][j], cache["ring_v"][j],
+                               cache["ring_pos"][j], k[:, -n:], v[:, -n:],
+                               positions[-n:], cfg.hybrid.window)
+        elif tp.is_meshed(x):
+            x = _mlp_block(cfg, lp, _act(x + _rec_branch_meshed(
+                cfg, lp, x, cache["conv"][j], cache["lru"][j])))
+        elif kind == "attn":
             x, (k, v) = _attn_block_full(cfg, lp, x, positions)
             _ring_write(cache["ring_k"][j], cache["ring_v"][j],
                         cache["ring_pos"][j], k[:, -n:], v[:, -n:], tail_pos)
@@ -388,13 +592,16 @@ def decode_step(cfg: ModelConfig, params: ParamTree, tokens: torch.Tensor,
     """One token per request. tokens: (B,); positions: (B,) absolute
     (default: the cache lengths). Returns (logits (B, V) fp32, cache) with
     rings, states and lengths advanced in place."""
-    x = params["embed"]["embed"][tokens]
+    x = _embed(params, tokens)
     q_pos = cache["length"] if positions is None else positions
     for kind, lp, j in _layers(cfg, params):
         if kind == "attn":
             x = _attn_block_step(cfg, lp, x, cache["ring_k"][j],
                                  cache["ring_v"][j], cache["ring_pos"][j],
                                  q_pos)
+        elif tp.is_meshed(x):
+            x = _mlp_block(cfg, lp, _act(x + _rec_branch_meshed(
+                cfg, lp, x, cache["conv"][j], cache["lru"][j])))
         else:
             x, conv_s, h = _rec_block_step(cfg, lp, x, cache["conv"][j],
                                            cache["lru"][j])

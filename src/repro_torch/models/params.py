@@ -53,15 +53,26 @@ def stacked(spec: Spec, *lead: int) -> Spec:
             for name, s in spec.items()}
 
 
+class Layer(dict):
+    """One layer's parameters, by name or as attributes (``lp["attn"]``,
+    ``lp.attn``), as the dense family's layer modules read them."""
+
+    def __getattr__(self, name: str):
+        try:
+            return self[name]
+        except KeyError:
+            raise AttributeError(name) from None
+
+
 def select(tree: Union[ParamTree, Dict[str, Any]],
-           idx) -> Dict[str, Any]:
+           idx=None) -> Layer:
     """One layer of a stacked tree: every leaf indexed by ``idx`` (views,
-    no copy)."""
+    no copy); with ``idx`` None the leaves as they are."""
     items = (tree.items() if isinstance(tree, dict) else
              list(tree._parameters.items()) + list(tree._modules.items()))
-    return {name: (select(t, idx) if isinstance(t, (dict, ParamTree))
-                   else t[idx])
-            for name, t in items}
+    return Layer((name, select(t, idx) if isinstance(t, (dict, ParamTree))
+                  else t if idx is None else t[idx])
+                 for name, t in items)
 
 
 Rule = Callable[[torch.Tensor, torch.Generator], None]

@@ -17,20 +17,31 @@ layers run as a Python loop.
 Cache: {"conv": (L, B, W-1, conv_dim), "state": (L, B, NH, P, N) fp32,
 "length": (B,) int32}, written in place by ``prefill`` and
 ``decode_step``, which return the cache they were given.
+
+Under a mesh (``sharding/tensor_parallel.py``) the parameters, tokens and
+cache are ``DTensor`` values placed by the rules and the same entry points
+run tensor parallel over ``model`` (``_meshed_block``): ``in_proj``'s
+columns (z | x | B | C | dt, split contiguously where the rules split
+them) are gathered whole, the conv runs on every channel, each rank scans
+its own heads (the rules' split of the head vectors; all heads where
+they leave those whole), the gate norm sums its squares over the heads'
+ranks, and ``out_proj``'s rows reduce over ``model``. The state cache is
+whole on every rank of ``model``, the conv cache split by channel.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.dense import lm_loss, torch_dtype
+from repro_torch.models.dense import _act, _embed, lm_loss, torch_dtype
 from repro_torch.models import params as P_
 from repro_torch.models.params import ParamTree
+from repro_torch.sharding import tensor_parallel as tp
 
 Cache = Dict[str, torch.Tensor]
 NEG_INF = -1e30
@@ -157,23 +168,120 @@ def _conv_step(x_t: torch.Tensor, conv_state: torch.Tensor,
     return F.silu(out), full[:, 1:]
 
 
-def _ssd_inputs(cfg: ModelConfig, lp, xbc: torch.Tensor, dt: torch.Tensor):
+def _conv_tail(cfg: ModelConfig, xbc: torch.Tensor) -> torch.Tensor:
+    """A prefill's conv cache: its last W - 1 pre-conv [x, B, C] rows,
+    left-padded with zeros below W - 1 tokens (the zeros the prefill's own
+    conv pads with)."""
+    W = cfg.ssm.conv_width
+    tail = xbc[:, -(W - 1):]
+    return F.pad(tail, (0, 0, W - 1 - tail.shape[1], 0))
+
+
+def _ssd_inputs(cfg: ModelConfig, lp, xbc: torch.Tensor, dt: torch.Tensor,
+                heads: Optional[Tuple[int, int]] = None):
     """Post-conv [x, B, C] and the raw dt -> the SSD's fp32 inputs (x as
-    heads, dt after softplus, A, B, C)."""
+    heads, dt after softplus, A, B, C). ``heads`` (first, count): those
+    heads' x and dt only, ``lp``'s head vectors being theirs; B and C are
+    every head's."""
     di, P, NH, N, _ = _dims(cfg)
+    h_0, nh = heads or (0, NH)
     xs, Bm, Cm = xbc.split([di, N, N], dim=-1)
-    dt = F.softplus(dt.float() + lp["dt_bias"])
+    dt = F.softplus(dt[..., h_0:h_0 + nh].float() + lp["dt_bias"])
     A = -torch.exp(lp["a_log"])
-    xh = xs.reshape(*xs.shape[:-1], NH, P).float()
+    xs = xs[..., h_0 * P:(h_0 + nh) * P]
+    xh = xs.reshape(*xs.shape[:-1], nh, P).float()
     return xh, dt, A, Bm.float(), Cm.float()
 
 
 def _gated_out(cfg: ModelConfig, lp, y: torch.Tensor, xh: torch.Tensor,
-               z: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+               z: torch.Tensor, dtype: torch.dtype,
+               norm: Optional[Callable] = None) -> torch.Tensor:
+    """The skip, the gate, the gate norm (``norm``, default the RMS norm
+    over every row of ``z``) and ``out_proj`` (of the rows it is given)."""
     y = y + xh * lp["d_skip"][:, None]
-    y = y.reshape(*y.shape[:-2], -1).to(dtype)
-    y = L.rms_norm(y * F.silu(z), lp["gate_norm"]["scale"], cfg.rms_eps)
-    return y @ lp["out_proj"]
+    g = y.reshape(*y.shape[:-2], -1).to(dtype) * F.silu(z)
+    if norm is None:
+        g = L.rms_norm(g, lp["gate_norm"]["scale"], cfg.rms_eps)
+    else:
+        g = norm(g)
+    return g @ lp["out_proj"]
+
+
+def _meshed_block(cfg: ModelConfig, lp, x: torch.Tensor,
+                  conv: Optional[torch.Tensor] = None,
+                  state: Optional[torch.Tensor] = None,
+                  h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The block's output on a mesh, tensor parallel over ``model``
+    (``tp.block_call``). x: (B, S, d), or (B, d) for a decode step, which
+    advances its layer's ``conv`` (B, W-1, conv_dim) and ``state`` (B,
+    NH, P, N) cache in place; a prefill given them writes its conv tail
+    and final state there (``h0``: a warm-start state, whole over
+    ``model``, as the cache's)."""
+    mesh = x.device_mesh
+    di, P, NH, N, conv_dim = _dims(cfg)
+    cols = tp.model_piece(lp["in_proj"], 1)
+    chans = tp.model_piece(lp["conv_w"], 1)
+    h_0, nh, _ = heads = tp.model_piece(lp["a_log"], 0)
+    rows = tp.model_share(lp["out_proj"], 0)
+    if nh < NH and rows[:2] != (h_0 * P, nh * P):
+        raise ValueError(f"out_proj rows {rows} are not heads {heads}")
+    own = slice(h_0 * P, (h_0 + nh) * P)
+    cache = [None if t is None else t.to_local() for t in (conv, state, h0)]
+    c0, nc, _ = cpiece = (None, None, None) if conv is None else \
+        tp.model_piece(conv, 2)
+    names = ("ln1", "in_proj", "conv_w", "conv_b", "a_log", "d_skip",
+             "dt_bias", "gate", "out_proj")
+    leaves = [lp["ln1"]["scale"], lp["in_proj"], lp["conv_w"], lp["conv_b"],
+              lp["a_log"], lp["d_skip"], lp["dt_bias"],
+              lp["gate_norm"]["scale"], lp["out_proj"]]
+
+    def gate_norm(w):
+        if nh == NH:     # every row here: the norm, then this rank's rows
+            return lambda g: tp.own_piece(
+                L.rms_norm(g, w["gate"], cfg.rms_eps), -1,
+                rows[:2] + (False,))
+
+        def norm(g):     # this rank's heads: the squares summed over model
+            gf = g.float()
+            var = tp.SumOver.apply((gf * gf).sum(dim=-1, keepdim=True),
+                                   mesh, ("model",), True) / di
+            return (gf * torch.rsqrt(var + cfg.rms_eps)
+                    * (1.0 + w["gate"][own].float())).to(g.dtype)
+        return norm
+
+    def branch(xl, w):
+        conv_l, state_l, h0_l = cache
+        hn = L.rms_norm(xl, w["ln1"], cfg.rms_eps)
+        proj = tp.concat_whole(hn @ w["in_proj"], cols,
+                               (di, di, N, N, NH), mesh)
+        z, xbc, dt = _split_proj(cfg, proj)
+        cw, cb = (tp.whole_over_model(w[k], -1, chans, conv_dim, mesh)
+                  for k in ("conv_w", "conv_b"))
+        if xl.ndim == 2:                  # decode: the conv tail, whole
+            past = tp.whole_over_model(conv_l, -1, cpiece, conv_dim, mesh)
+            xbc, tail = _conv_step(xbc, past, cw, cb)
+        else:
+            tail = None if conv_l is None else _conv_tail(cfg, xbc)
+            xbc = F.silu(L.causal_conv(xbc, cw, cb))
+        if conv_l is not None:
+            conv_l.copy_(tail[..., c0:c0 + nc])
+        hp = {k: tp.own_piece(w[k], 0, heads)
+              for k in ("a_log", "d_skip", "dt_bias")}
+        xh, dt, A, Bm, Cm = _ssd_inputs(cfg, hp, xbc, dt, (h_0, nh))
+        if xl.ndim == 2:
+            y, h = _ssd_step(xh, dt, A, Bm, Cm, state_l[:, h_0:h_0 + nh])
+        else:
+            start = (h0_l[:, h_0:h_0 + nh] if h0_l is not None else
+                     xh.new_zeros((xh.shape[0], nh, P, N)))
+            y, h = _ssd_chunked(xh, dt, A, Bm, Cm, start, cfg.ssm.chunk_size)
+        if state_l is not None:           # every rank keeps the whole state
+            state_l.copy_(tp.all_gather_dim(h, 1, mesh, "model", NH)
+                          if nh < NH else h)
+        hp["out_proj"] = tp.own_piece(w["out_proj"], 0, rows)
+        out = _gated_out(cfg, hp, y, xh, z[..., own], xl.dtype, gate_norm(w))
+        return tp.SumOver.apply(out, mesh, ("model",), False)
+
+    return tp.block_call(branch, x, dict(zip(names, leaves)))
 
 
 def _block_full(cfg: ModelConfig, lp, x: torch.Tensor, h0: torch.Tensor):
@@ -221,11 +329,14 @@ def _logits(cfg: ModelConfig, params: ParamTree,
     """fp32 logits of the final-normed hidden state over the tied
     embedding."""
     return L.unembed(L.rms_norm(x, params["final_norm"]["scale"],
-                                cfg.rms_eps), params["embed"]["embed"])
+                                cfg.rms_eps),
+                     tp.gather_weight(params["embed"]["embed"]))
 
 
 def _block_out(cfg: ModelConfig, lp, x: torch.Tensor,
                h0: torch.Tensor) -> torch.Tensor:
+    if tp.is_meshed(x):
+        return _meshed_block(cfg, lp, x)
     return _block_full(cfg, lp, x, h0)[0]
 
 
@@ -240,7 +351,7 @@ def forward_hidden(cfg: ModelConfig, params: ParamTree, x: torch.Tensor,
                      device=x.device)
     body = L.remat(_block_out, "nothing" if remat else "none")
     for i in range(cfg.num_layers):
-        x = x + body(cfg, P_.select(params["layers"], i), x, h0)
+        x = _act(x + body(cfg, P_.select(params["layers"], i), x, h0))
     x = L.rms_norm(x, params["final_norm"]["scale"], cfg.rms_eps)
     return x, x.new_zeros((), dtype=torch.float32)
 
@@ -249,7 +360,7 @@ def train_loss(cfg: ModelConfig, params: ParamTree, batch, *,
                remat: bool = True):
     """Next-token cross-entropy over the tied embedding; batch as the
     dense family's. Returns (loss, {"ce_loss", "moe_aux": 0})."""
-    x = params["embed"]["embed"][batch["tokens"]]
+    x = _embed(params, batch["tokens"])
     hidden, zero = forward_hidden(cfg, params, x, remat=remat)
     loss = lm_loss(cfg, params, hidden, batch["targets"], batch["mask"])
     return loss, {"ce_loss": loss, "moe_aux": zero}
@@ -264,25 +375,29 @@ def prefill(cfg: ModelConfig, params: ParamTree, tokens: torch.Tensor,
 
     ``store`` may be a shared warm-start state {"state": (L, B, NH, P,
     N)}, the SSM analogue of a shared corpus (``shared_state``, tiled to
-    the batch by the caller). Each layer's conv tail is its last W - 1
-    pre-conv inputs, left-padded with zeros below W - 1 tokens (the
-    zeros the prefill's own conv pads with).
+    the batch by the caller). Each layer's conv tail is ``_conv_tail``.
     """
-    x = params["embed"]["embed"][tokens]
+    x = _embed(params, tokens)
     B, S, _ = x.shape
     if store is not None and store["state"].shape[1] != B:
         raise ValueError(
             f"shared state of batch {store['state'].shape[1]} for a prefill "
             f"of batch {B}: tile it to the batch")
-    W = cfg.ssm.conv_width
+    if tp.is_meshed(x):
+        for i in range(cfg.num_layers):
+            x = _act(x + _meshed_block(
+                cfg, P_.select(params["layers"], i), x, cache["conv"][i],
+                cache["state"][i],
+                None if store is None else store["state"][i]))
+        cache["length"].fill_(start_pos + S)
+        return _logits(cfg, params, x[:, -1]), cache
     h0 = torch.zeros(cache["state"].shape[1:], dtype=torch.float32,
                      device=x.device)
     for i in range(cfg.num_layers):
         lp = P_.select(params["layers"], i)
         y, h_fin, xbc = _block_full(
             cfg, lp, x, h0 if store is None else store["state"][i])
-        tail = xbc[:, -(W - 1):]
-        cache["conv"][i] = F.pad(tail, (0, 0, W - 1 - tail.shape[1], 0))
+        cache["conv"][i] = _conv_tail(cfg, xbc)
         cache["state"][i] = h_fin
         x = x + y
     cache["length"].fill_(start_pos + S)
@@ -294,7 +409,14 @@ def decode_step(cfg: ModelConfig, params: ParamTree, tokens: torch.Tensor,
                 cache: Cache) -> Tuple[torch.Tensor, Cache]:
     """One token per request. tokens: (B,). Returns (logits (B, V) fp32,
     cache) with the states and lengths advanced in place."""
-    x = params["embed"]["embed"][tokens]
+    x = _embed(params, tokens)
+    if tp.is_meshed(x):
+        for i in range(cfg.num_layers):
+            x = _act(x + _meshed_block(cfg, P_.select(params["layers"], i),
+                                       x, cache["conv"][i],
+                                       cache["state"][i]))
+        cache["length"].add_(1)
+        return _logits(cfg, params, x), cache
     for i in range(cfg.num_layers):
         y, conv_s, h = _block_step(cfg, P_.select(params["layers"], i), x,
                                    cache["conv"][i], cache["state"][i])

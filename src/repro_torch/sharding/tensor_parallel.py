@@ -433,14 +433,118 @@ def rows_before(counts: torch.Tensor, mesh, axes: Sequence[str]
     return before
 
 
+# ---------------------------------------------------------------------------
+# a block's branch on local tensors (the state families' mixers)
+# ---------------------------------------------------------------------------
+
+def model_piece(t: DTensor, dim: int) -> Tuple[int, int, bool]:
+    """(first, count, split) of the piece of dim ``dim`` of a ``DTensor``
+    that this rank holds over ``model``: its piece where ``model`` splits
+    that dim (``split``), else the whole dim."""
+    if "model" in split_axes(t, dim):
+        first, count = local_range(t, dim)
+        return first, count, True
+    return 0, t.shape[dim], False
+
+
+def model_share(t: DTensor, dim: int) -> Tuple[int, int, bool]:
+    """``model_piece``, but where ``model`` leaves the dim whole, this
+    rank's ``torch.chunk`` share of it by its ``model`` coordinate: the
+    rows a rank contracts over in a row-parallel product whose weight the
+    rules leave whole (each rank does its share of the work once)."""
+    first, count, split = model_piece(t, dim)
+    if split:
+        return first, count, split
+    _, n, c = _axis(t.device_mesh, "model")
+    sizes = _chunks(count, n)
+    return sum(sizes[:c]), sizes[c], False
+
+
+def whole_over_model(t: torch.Tensor, dim: int, span: Tuple[int, int, bool],
+                     total: int, mesh) -> torch.Tensor:
+    """The whole dim ``dim`` (``total`` long) of a local tensor that holds
+    its ``span`` (``model_piece``): gathered over ``model`` where the span
+    is a piece (``Gather``, the ranks' gradients summed back into each
+    piece), as it is where the span is the whole."""
+    if not span[2] or span[1] == total:
+        return t
+    return Gather.apply(t, dim % t.ndim, mesh, "model", total, True)
+
+
+def concat_whole(t: torch.Tensor, span: Tuple[int, int, bool],
+                 parts: Sequence[int], mesh) -> torch.Tensor:
+    """The whole last dim of a product whose output concatenates ``parts``
+    (mamba2's z | x | B | C | dt, the RG-LRU's xa | xb and r | i) from
+    this rank's ``span`` of its columns. The rules split such a product
+    contiguously, so a rank's columns are not its slice of each part (at
+    a ``model`` of 2 the first rank may hold all of the first part): the
+    columns are gathered whole and each rank cuts what it needs of each
+    part from the whole."""
+    return whole_over_model(t, -1, span, sum(parts), mesh)
+
+
+def own_piece(t: torch.Tensor, dim: int, span: Tuple[int, int, bool]
+              ) -> torch.Tensor:
+    """This rank's ``span`` (``model_piece`` or ``model_share``) of dim
+    ``dim`` of a local tensor that holds either that piece or the whole
+    dim."""
+    first, count, split = span
+    return t if split else t.narrow(dim, first, count)
+
+
+def _branch_grad(w: DTensor, x: DTensor) -> tuple:
+    """The placements of a weight's gradient from one rank's share of a
+    branch (``block_call``): partial over ``model`` where the weight is
+    whole there, its own piece where ``model`` splits it, and partial over
+    every axis that splits the rows of ``x``."""
+    names = w.device_mesh.mesh_dim_names
+    return tuple(
+        (p if isinstance(p, Shard) else Partial()) if names[md] == "model"
+        else (Partial() if isinstance(x.placements[md], Shard) else p)
+        for md, p in enumerate(w.placements))
+
+
+def block_call(fn: Callable, x: DTensor, weights: dict) -> DTensor:
+    """A block's branch ``fn(x, weights)`` on this rank's local tensors,
+    Megatron's way: its output (x's shape) comes back at ``x``'s
+    placements, whole over ``model``.
+
+    ``x`` is the residual stream (rows over the batch axes, whole over
+    ``model``); ``fn`` gets it through ``SumGrad`` over ``model``, so that
+    inside ``fn`` a tensor that the ranks of ``model`` hold alike carries a
+    partial gradient (the ranks' gradients add up to its gradient) and a
+    piece that only this rank holds carries its whole gradient. ``fn``
+    moves between the two with ``whole_over_model`` (an all-gather whose
+    backward reduce-scatters) and ``own_piece`` (a local cut), and ends
+    with ``SumOver(..., summed=False)`` over ``model`` of its share of the
+    output. ``weights`` ({name: a ``DTensor`` parameter}) reach ``fn`` as
+    their local tensors after ``gather_weight`` (their ``model`` piece, or
+    the whole where ``model`` leaves them whole)."""
+    mesh = x.device_mesh
+    names = list(weights)
+    ws = [gather_weight(weights[n]) for n in names]
+
+    def body(xl, *wl):
+        xl = SumGrad.apply(xl, mesh, ("model",))
+        return fn(xl, dict(zip(names, wl)))
+
+    return local_call(body, [x] + ws, x.placements, mesh,
+                      grad_placements=[None] + [_branch_grad(w, x)
+                                                for w in ws])
+
+
 def write_prefix_meshed(kc: DTensor, vc: DTensor, k: DTensor, v: DTensor
                         ) -> None:
     """``kvcache.cache.write_prefix`` on a mesh: the fresh keys and values
     (B, S_new, KH, D) written at positions [0, S_new) of caches (B, S, KH,
-    D) split by row and by position; each rank writes the positions it
-    holds, in place."""
-    rows = split_axes(kc, 0)
-    k, v = (keep_shards(t, rows) for t in (k, v))
+    D) split by row and by position or by kv head; each rank writes the
+    positions and heads it holds, in place."""
+    names = kc.device_mesh.mesh_dim_names
+    rows, heads = split_axes(kc, 0), split_axes(kc, 2)
+    want = tuple(Shard(0) if n in rows else Shard(2) if n in heads
+                 else Replicate() for n in names)
+    k, v = (t if tuple(t.placements) == want else redistribute(t, want)
+            for t in (k, v))
     first, n = local_range(kc, 1)
     S_new = k.shape[1]
     take = max(0, min(n, S_new - first))
@@ -467,12 +571,15 @@ def place(t: torch.Tensor, names: Sequence[Optional[str]], rules, mesh
 
 
 def place_fields(tup, table, rules, mesh):
-    """A NamedTuple of tensors (a cache, a store) placed field by field by
-    ``table`` ({field: logical names}; a field it does not name is
+    """A NamedTuple or a dict of tensors (a cache, a store) placed field by
+    field by ``table`` ({field: logical names}; a field it does not name is
     replicated, a None field stays None)."""
-    return type(tup)(*(None if t is None else
-                       place(t, table.get(name, ()), rules, mesh)
-                       for name, t in zip(tup._fields, tup)))
+    def put(name, t):
+        return None if t is None else place(t, table.get(name, ()), rules,
+                                            mesh)
+    if isinstance(tup, dict):
+        return {name: put(name, t) for name, t in tup.items()}
+    return type(tup)(*(put(name, t) for name, t in zip(tup._fields, tup)))
 
 
 def fake_tensors():

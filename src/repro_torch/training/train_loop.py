@@ -21,11 +21,12 @@ layers take the global capacity, positions and aux means
 clip's norm spans every shard, and AdamW updates each shard where it lies.
 Every rank logs the same history.
 
-A mesh whose ``model`` axis is larger than 1 adds tensor parallelism (the
-dense, VLM and MoE members): every parameter becomes a ``DTensor`` at the
-placements the rules give it over the whole 2-D mesh, ``data`` on its
-FSDP dim and ``model`` on its heads, FFN, vocab or expert dim (the MoE
-layer expert parallel, ``models/moe.py``), and each rank's
+A mesh whose ``model`` axis is larger than 1 adds tensor parallelism
+(every family): every parameter becomes a ``DTensor`` at the placements
+the rules give it over the whole 2-D mesh, ``data`` on its FSDP dim and
+``model`` on its heads, FFN, vocab, expert or inner (SSM, RG-LRU) dim
+(the MoE layer expert parallel, ``models/moe.py``; the state families'
+mixers on local tensors, ``tensor_parallel.block_call``), and each rank's
 rows of the batch a ``DTensor`` split over ``data``. The step is the
 unmeshed one on these values (``sharding/tensor_parallel.py``): each
 weight is gathered over ``data`` where its product reads it and its
@@ -46,7 +47,7 @@ import torch.distributed as dist
 from torch import nn
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from repro_torch.configs.base import DENSE, MOE, VLM, ModelConfig
+from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import make_train_batches
 from repro_torch.models.model import Model, build_model
 from repro_torch.sharding import data_parallel as dp
@@ -176,14 +177,8 @@ def shard_params(model: Model, params: nn.Module, mesh, *,
 def tensor_parallel(model: Model, params: nn.Module, mesh) -> None:
     """Place every parameter of ``params`` (gradients on) as a ``DTensor``
     at its rules' placements over the 2-D ``mesh`` (the installed rules,
-    else ``TRAIN_RULES``), in place. The dense, VLM and MoE members only
-    (the MoE layer expert parallel, ``models/moe.py``): the SSM, hybrid
-    and enc-dec families' tensor parallelism is not ported yet."""
-    family = model.cfg.family
-    if family not in (DENSE, VLM, MOE):
-        raise NotImplementedError(
-            f"tensor parallelism of the {family} family (ROADMAP Queue 1 "
-            "item 10: the SSM, hybrid and enc-dec families)")
+    else ``TRAIN_RULES``), in place, for every family's module: the
+    dense family's layers, or the others' ``ParamTree``."""
     placed = named_sharding_tree(params, current_rules() or TRAIN_RULES,
                                  mesh)
     for name, t in placed.items():

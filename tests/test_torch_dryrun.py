@@ -1,8 +1,9 @@
 """The port's dry run (``repro_torch.launch.dryrun``): one full-size record
 from the command line in a subprocess, the depth extrapolation against a
-trace of every layer, the per-rank counts of the 16x16 mesh summed over
-its 256 ranks against the same step at a world of one, and the records of
-skipped and failing combinations."""
+trace of every layer (the hybrid's cycle-wise one too), the per-rank
+counts of the 16x16 mesh summed over its 256 ranks against the same step
+at a world of one, and the records of skipped and failing
+combinations."""
 import json
 import os
 import subprocess
@@ -50,7 +51,8 @@ def test_one_full_size_record_from_the_command_line(tmp_path):
 
 
 @pytest.mark.parametrize("arch,shape", [("tinyllama-1.1b", "decode_32k"),
-                                        ("tinyllama-1.1b", "long_500k")])
+                                        ("tinyllama-1.1b", "long_500k"),
+                                        ("recurrentgemma-9b", "decode_32k")])
 def test_depth_extrapolation_equals_every_layer_traced(no_world, arch,
                                                        shape):
     from repro_torch.launch.dryrun import trace, trace_at_depth
@@ -64,36 +66,41 @@ def test_depth_extrapolation_equals_a_cut_depth_traced(no_world, shape):
     """Training (remat's saved inputs, the chunked loss, the optimizer's
     moments) and the prefill: the 1- and 2-layer traces extrapolated to 3
     layers equal a trace of 3 layers, every count and the peak."""
-    from repro_torch.launch.dryrun import extrapolate, trace
+    from repro_torch.launch.dryrun import extrapolate_cycles, trace
     one, two, three = (trace("tinyllama-1.1b", shape, False, device="cpu",
                              layers=n)[:2] for n in (1, 2, 3))
-    cost, peak = extrapolate(one, two, 3)
+    cost, peak = extrapolate_cycles(one, two, None, 3)
     assert cost == three[0] and peak == three[1]
 
 
 def _world_of_one(arch, shape):
-    """The step's flops traced at a world of one: a (1, 1) mesh."""
+    """The step's flops traced at a world of one: a (1, 1) mesh, at the
+    depths the dry run traces (``trace_at_depth``), extrapolated alike."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config
     from repro_torch.launch import input_specs as ispecs
+    from repro_torch.launch.dryrun import extrapolate_cycles
     from repro_torch.launch.mesh import init_fake_world
     from repro_torch.launch.op_cost import analyze_ops
     from repro_torch.sharding import use_rules
+    cfg = get_config(arch)
+    p = len(cfg.hybrid.pattern) if cfg.hybrid.enabled else 1
+    cycles, tail = divmod(cfg.num_layers, p)
     init_fake_world(1)
     try:
         mesh = init_device_mesh("cpu", (1, 1),
                                 mesh_dim_names=("data", "model"))
-        flops = []
-        for layers in (1, 2):
+        traced = {}
+        for layers in (p, 2 * p) + ((p + tail,) if tail else ()):
             with FakeTensorMode(allow_non_fake_inputs=True):
                 spec = ispecs.build(arch, shape, mesh, layers=layers)
                 with use_rules(spec.rules):
-                    flops.append(analyze_ops(spec.fn, *spec.args)[0].flops)
+                    traced[layers] = analyze_ops(spec.fn, *spec.args)
     finally:
         dist.destroy_process_group()
-    from repro_torch.configs import get_config
-    return flops[0] + (get_config(arch).num_layers - 1) * (flops[1]
-                                                            - flops[0])
+    return extrapolate_cycles(traced[p], traced[2 * p],
+                              traced.get(p + tail), cycles)[0].flops
 
 
 @pytest.mark.parametrize("shape", ["train_4k", "decode_32k"])
@@ -176,11 +183,33 @@ def test_expert_parallel_ranks_sum_to_the_world_of_one(no_world):
     assert total == one + router + unembed
 
 
+def test_hybrid_ranks_sum_to_the_world_of_one(no_world):
+    """recurrentgemma-9b at decode_32k: the FLOPs of the 256 ranks of the
+    16x16 mesh sum to the same step at a world of one plus the work that
+    the rules leave replicated over ``model``, exactly, and that work is
+    none: every product's split dim divides 16 (16 query heads, the LRU
+    width of 4,096 in ``lru_in``, the gates and ``lru_out``, d_ff 12,288,
+    the vocab of 256,000, the ring's 2,048 slots, and the one kv head's
+    head_dim of 256 in ``wk`` and ``wv``), and the decode batch of 128
+    splits over 16 data ranks, so every rank does the same work: one rank
+    is traced, in a subprocess of its own, at the cycle-wise depths of
+    ``trace_at_depth``."""
+    arch, shape = "recurrentgemma-9b", "decode_32k"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", _RANK_FLOPS, arch, shape,
+                          "0"], env=env, timeout=300, capture_output=True,
+                         text=True)
+    assert res.returncode == 0, res.stderr[-2000:]
+    rank = float(res.stdout.strip().splitlines()[-1])
+    one = _world_of_one(arch, shape)
+    replicated = 0.0
+    print(f"{shape}: 256 ranks x {rank:.6e} = {256 * rank:.6e} FLOPs, a "
+          f"world of one {one:.6e} + replicated over model {replicated}")
+    assert 256 * rank == one + replicated
+
+
 def test_skipped_and_failing_records(no_world, tmp_path):
     from repro_torch.launch import dryrun
-    rec = dryrun.run_one("mamba2-130m", "decode_32k", False,
-                         str(tmp_path), verbose=False, device="cpu")
-    assert rec["status"] == "skipped" and "item 10" in rec["reason"]
     rec = dryrun.run_one("whisper-tiny", "long_500k", True, str(tmp_path),
                          verbose=False, device="cpu")
     assert rec["status"] == "skipped" and "500K" in rec["reason"]

@@ -748,16 +748,36 @@ def _family_steps(cfg, params, device, B, S, steps, frames=None,
     return [x.cpu() for x in out]
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-9b",
-                                  "whisper-tiny"])
-def test_family_steps_card_match_cpu(cuda, arch):
+#: (arch, depth): the reduced model of each family, and chip_smoke.py
+#: phase 11's SSM and hybrid members at full width (the hybrid cut to one
+#: pattern cycle) at its serving shapes
+FAMILY_STEPS = [("mamba2-130m", "reduced"), ("recurrentgemma-9b", "reduced"),
+                ("whisper-tiny", "reduced"), ("mamba2-130m", None),
+                ("recurrentgemma-9b", 3)]
+
+
+@pytest.mark.parametrize("arch,depth", FAMILY_STEPS, ids=[
+    "mamba2-130m", "recurrentgemma-9b", "whisper-tiny", "mamba2-130m-full",
+    "recurrentgemma-9b-full"])
+def test_family_steps_card_match_cpu(cuda, arch, depth):
     """A reduced fp32 model of each family: a prefill (the hybrid's past
     its 64-key window) and three decode steps on the card and on the CPU
     give the same logits and greedy tokens. whisper-tiny routes its
     cross-attention over 4 chunks of its 256 frames on the card through
     ``router_scores``, ``shared_chunk_attention``, the routed
-    ``lse_merge`` and ``decode_attention``; SSM and hybrid run no kernel."""
-    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    ``lse_merge`` and ``decode_attention``; SSM and hybrid run no kernel.
+    At full width, a prefill of 16 prompts of 256 tokens and one decode
+    step, each gap printed: two fp32 orders of one process, the spread
+    that phase 11's bounds on the ranks against one process admit."""
+    B, S, steps = 6, 80 if arch == "recurrentgemma-9b" else 20, 3
+    if depth == "reduced":
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  dtype="float32")
+    else:
+        cfg = dataclasses.replace(get_config(arch), dtype="float32")
+        cfg = cfg if depth is None else dataclasses.replace(
+            cfg, num_layers=depth)
+        B, S, steps = 16, 256, 1
     frames = chunk = None
     if arch == "whisper-tiny":
         cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
@@ -768,9 +788,8 @@ def test_family_steps_card_match_cpu(cuda, arch):
             (6, 256, cfg.d_model)).astype(np.float32).copy())
         chunk = cfg.moska.chunk_size
     params = build_model(cfg).init(torch.Generator().manual_seed(2))
-    S = 80 if arch == "recurrentgemma-9b" else 20
     n0 = ops.launch_counts()
-    on_card = _family_steps(cfg, params, cuda, 6, S, 3, frames, chunk)
+    on_card = _family_steps(cfg, params, cuda, B, S, steps, frames, chunk)
     n1 = ops.launch_counts()
     L_ = cfg.num_layers
     want = {k: 0 for k in n0}
@@ -778,11 +797,54 @@ def test_family_steps_card_match_cpu(cuda, arch):
         want.update(decode_attention=3 * L_, router_scores=3 * L_,
                     shared_chunk_attention=3 * L_, lse_merge=3 * L_)
     assert {k: n1[k] - n0[k] for k in n0} == want
-    on_cpu = _family_steps(cfg, params, torch.device("cpu"), 6, S, 3,
+    on_cpu = _family_steps(cfg, params, torch.device("cpu"), B, S, steps,
                            frames, chunk)
-    for a, b in zip(on_card, on_cpu):
+    for i, (a, b) in enumerate(zip(on_card, on_cpu)):
+        print(f"{cfg.name} step {i}: |logits| max {float(b.abs().max()):.3f}"
+              f", card vs CPU max_abs_err {float((a - b).abs().max()):.3e}")
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
         assert torch.equal(a.argmax(-1), b.argmax(-1))
+
+
+def test_mamba2_training_card_matches_cpu(cuda):
+    """test_tp_over_nccl's mamba2-130m (full width, 2 layers, fp32) and
+    steps in one process on the card (its reference run) and on the CPU
+    from the same weights: the spread of two fp32 orders, which its
+    bounds must admit. The first update's gradients, the final parameters
+    and their loss on the next batch held as ``test_tp_over_nccl`` holds
+    them; the gaps printed."""
+    from repro_torch.data.pipeline import make_train_batches
+    from repro_torch.training.train_loop import TrainLoopConfig, train
+    cfg = _tp_cfg("mamba2-130m")
+    loop = TrainLoopConfig(num_steps=TP_STEPS, batch_size=TP_BATCH,
+                           seq_len=TP_SEQ, log_every=1)
+    params = build_model(cfg).init(
+        torch.Generator(cuda).manual_seed(loop.seed), cuda)
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        with _first_update() as first:
+            out = train(cfg, loop, make_train_batches(cfg, TP_BATCH, TP_SEQ),
+                        params=copy.deepcopy(params), device=dev)
+        runs.append((out, first))
+    (card, fc), (cpu, fp) = runs
+    gaps = {n: float((fc["grads"][n] - g).abs().max() / g.abs().max())
+            for n, g in fp["grads"].items()}
+    print("first gradients, card vs CPU, of each leaf's largest: "
+          + ", ".join(f"{n} {gaps[n]:.3e}"
+                      for n in sorted(gaps, key=gaps.get)[::-1]))
+    assert all(g <= TP_NOISY_GRAD.get(n, TP_GRAD_REL)
+               for n, g in gaps.items()), gaps
+    on_card = copy.deepcopy(card["params"])
+    with torch.no_grad():
+        for (n, p), (_, q) in zip(on_card.named_parameters(),
+                                  cpu["params"].named_parameters()):
+            p.copy_(q)
+    batches = make_train_batches(cfg, TP_BATCH, TP_SEQ)
+    for _ in range(TP_STEPS):
+        next(batches)
+    _assert_trained_alike(cfg, loop, {"params": on_card}, card,
+                          next(batches), param_rel=TP_PARAM_REL,
+                          loss_rel=TP_LOSS_REL, noisy=TP_NOISY_PARAM)
 
 
 def test_train_step_card_matches_cpu(cuda):
@@ -908,12 +970,13 @@ def _loss_after(cfg, params, batch):
 
 
 def _assert_trained_alike(cfg, loop, a, b, batch, param_rel=1e-5,
-                          loss_rel=1e-5):
+                          loss_rel=1e-5, noisy=None):
     """Two runs of ``loop``'s steps: their final parameters within
-    ``param_rel`` of each leaf's scale, the larger of its largest element
-    and the sum of the steps' learning rates (how far AdamW can move an
-    element: the scale of a leaf that starts at 0), and their losses on
-    ``batch`` within ``loss_rel`` relative. Prints the largest gaps."""
+    ``param_rel`` (``noisy``: {leaf: its own bound}) of each leaf's scale,
+    the larger of its largest element and the sum of the steps' learning
+    rates (how far AdamW can move an element: the scale of a leaf that
+    starts at 0), and their losses on ``batch`` within ``loss_rel``
+    relative. Prints the largest gaps."""
     from repro_torch.training.optimizer import cosine_schedule
     lr = cosine_schedule(loop.lr, loop.warmup, loop.num_steps)
     moved = sum(lr(s) for s in range(1, loop.num_steps + 1))
@@ -926,10 +989,12 @@ def _assert_trained_alike(cfg, loop, a, b, batch, param_rel=1e-5,
         gaps[n] = float((p - q).abs().max()) / scale
     la, lb = _loss_after(cfg, a["params"], batch), \
         _loss_after(cfg, b["params"], batch)
-    worst = max(gaps, key=gaps.get)
-    print(f"largest parameter gap {gaps[worst]:.3e} of its scale ({worst}),"
-          f" loss gap {abs(la - lb) / abs(la):.3e} relative")
-    assert gaps[worst] <= param_rel, worst
+    top = sorted(gaps, key=gaps.get)[::-1]
+    print(f"largest parameter gaps of their scale: " + ", ".join(
+        f"{n} {gaps[n]:.3e}" for n in top[:3])
+        + f"; loss gap {abs(la - lb) / abs(la):.3e} relative")
+    noisy = noisy or {}
+    assert all(g <= noisy.get(n, param_rel) for n, g in gaps.items()), top
     assert abs(la - lb) <= loss_rel * abs(la)
 
 
@@ -1206,6 +1271,16 @@ TP_LOSS_REL, TP_PARAM_REL, TP_LOGIT_TOL = 1e-5, 2e-4, 2e-5
 # AdamW's step does not see a gradient's scale: the first update's
 # gradients are held leaf by leaf, and their global norm
 TP_GRAD_REL = 1e-5
+# Two fp32 orders of one process (test_mamba2_training_card_matches_cpu:
+# mamba2's reference run on the card against the CPU, H100) are further
+# apart than the bounds above for three of mamba2's leaves, and so are the
+# ranks: its head vectors' first gradients, which sum terms of both signs
+# over every token and position (a_log 5.215e-05 and dt_bias 1.048e-05 of
+# their largest), and the final gate_norm.scale (4.853e-04 of its scale),
+# whose small gradients AdamW's normalized step turns into full steps.
+# They are held at about 4x those gaps.
+TP_NOISY_GRAD = {"layers.a_log": 2e-4, "layers.dt_bias": 2e-4}
+TP_NOISY_PARAM = {"layers.gate_norm.scale": 2e-3}
 
 
 @contextlib.contextmanager
@@ -1233,8 +1308,9 @@ def _first_update():
 
 
 #: the archs of test_tp_over_nccl, each at full width cut to 2 layers:
-#: the dense member, and the MoE member with its experts over ``model``
-TP_ARCHS = ("tinyllama-1.1b", "granite-moe-1b-a400m")
+#: the dense member, the MoE member with its experts over ``model``, and
+#: the SSM member (its mixer on local tensors, no store)
+TP_ARCHS = ("tinyllama-1.1b", "granite-moe-1b-a400m", "mamba2-130m")
 
 
 def _tp_cfg(arch=TP_ARCHS[0]):
@@ -1244,9 +1320,9 @@ def _tp_cfg(arch=TP_ARCHS[0]):
 
 def _tp_decode(cfg, dev, mesh=None):
     """Prefill (no store) and one decode step routed over a store of
-    TP_CHUNKS chunks, all inputs from seeds; with ``mesh`` both tensor
-    parallel on inputs placed by the serving rules. Returns the decode
-    step's logits whole, on the CPU."""
+    TP_CHUNKS chunks (an arch without MoSKA: no store), all inputs from
+    seeds; with ``mesh`` both tensor parallel on inputs placed by the
+    serving rules. Returns the decode step's logits whole, on the CPU."""
     from repro_torch.core.shared_kv import build_store
     from repro_torch.launch.input_specs import _CACHE_AXES, _STORE_AXES
     from repro_torch.sharding import SERVE_RULES, use_rules
@@ -1259,7 +1335,8 @@ def _tp_decode(cfg, dev, mesh=None):
     L, KH, D = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
     S = TP_CHUNKS * cfg.moska.chunk_size
     store = build_store(*(_randn(g, (L, S, KH, D), torch.float32, dev)
-                          for _ in range(2)), cfg.moska.chunk_size)
+                          for _ in range(2)), cfg.moska.chunk_size) \
+        if cfg.moska.enabled else None
     tokens = torch.from_numpy(g.integers(0, cfg.vocab_size,
                                          (TP_B, TP_PROMPT))).to(dev)
     nxt = torch.from_numpy(g.integers(0, cfg.vocab_size, (TP_B,))).to(dev)
@@ -1271,7 +1348,8 @@ def _tp_decode(cfg, dev, mesh=None):
     with use_rules(SERVE_RULES):
         tensor_parallel(model, params, mesh)
         cache = place_fields(cache, _CACHE_AXES, SERVE_RULES, mesh)
-        store = place_fields(store, _STORE_AXES, SERVE_RULES, mesh)
+        if store is not None:
+            store = place_fields(store, _STORE_AXES, SERVE_RULES, mesh)
         tokens, nxt = (place(t, ("batch",), SERVE_RULES, mesh)
                        for t in (tokens, nxt))
         _, cache = model.prefill(params, tokens, cache)
@@ -1314,19 +1392,23 @@ def _tp_rank(rank, world, shape, out_dir, arch):
         dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("arch", TP_ARCHS, ids=["tinyllama", "granite"])
+@pytest.mark.parametrize("arch", TP_ARCHS,
+                         ids=["tinyllama", "granite", "mamba2"])
 @pytest.mark.parametrize("shape", [(1, 2), (2, 2)], ids=["1x2", "2x2"])
 def test_tp_over_nccl(cuda, tmp_path, shape, arch):
-    """tinyllama-1.1b and granite-moe-1b-a400m (its experts over ``model``,
-    the expert batch's capacity rows over ``data``) at full width cut to 2
-    layers, fp32, tensor parallel over NCCL with a card a rank on a (1, 2)
-    and a (2, 2) mesh: 5 training
-    steps and one routed decode step over a store split by chunk and by
-    chunk position, each against the unmeshed run on one card: losses
+    """tinyllama-1.1b, granite-moe-1b-a400m (its experts over ``model``,
+    the expert batch's capacity rows over ``data``) and mamba2-130m (its
+    concatenated ``in_proj`` split over ``model``, each rank's heads
+    scanned) at full width cut to 2 layers, fp32, tensor parallel over
+    NCCL with a card a rank on a (1, 2) and a (2, 2) mesh: 5 training
+    steps and one decode step (routed over a store split by chunk and by
+    chunk position where the arch has MoSKA), each against the unmeshed
+    run on one card: losses
     within TP_LOSS_REL relative, the final parameters within TP_PARAM_REL
-    of each leaf's scale and their loss on the next batch within
-    TP_LOSS_REL, the first update's gradients within TP_GRAD_REL of each
-    leaf's largest and their global norm within TP_GRAD_REL relative, the
+    of each leaf's scale (TP_NOISY_PARAM's leaves within theirs) and their
+    loss on the next batch within TP_LOSS_REL, the first update's
+    gradients within TP_GRAD_REL of each leaf's largest (TP_NOISY_GRAD's
+    within theirs) and their global norm within TP_GRAD_REL relative, the
     decode step's logits within TP_LOGIT_TOL and the same greedy
     tokens."""
     import time
@@ -1356,8 +1438,10 @@ def test_tp_over_nccl(cuda, tmp_path, shape, arch):
     worst = max(gaps, key=gaps.get)
     gn, gw = got["first"]["gnorm"], first["gnorm"]
     print(f"largest gradient gap {gaps[worst]:.3e} of its leaf's largest "
-          f"({worst}); global norm {gn:.8e} vs {gw:.8e}")
-    assert gaps[worst] <= TP_GRAD_REL, worst
+          f"({worst}); global norm {gn:.8e} vs {gw:.8e}; " + ", ".join(
+              f"{n} {gaps[n]:.3e}" for n in TP_NOISY_GRAD if n in gaps))
+    assert all(g <= TP_NOISY_GRAD.get(n, TP_GRAD_REL)
+               for n, g in gaps.items()), gaps
     assert abs(gn - gw) <= TP_GRAD_REL * gw
     a, b = got["loss"], [h["loss"] for h in want["history"]]
     print(f"losses {a} vs {b}")
@@ -1372,7 +1456,7 @@ def test_tp_over_nccl(cuda, tmp_path, shape, arch):
         next(batches)
     _assert_trained_alike(cfg, loop, {"params": meshed}, want,
                           next(batches), param_rel=TP_PARAM_REL,
-                          loss_rel=TP_LOSS_REL)
+                          loss_rel=TP_LOSS_REL, noisy=TP_NOISY_PARAM)
     del meshed, want
     ld = _tp_decode(cfg, cuda)
     err = float((got["logits"] - ld).abs().max())
