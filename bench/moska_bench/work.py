@@ -1,0 +1,102 @@
+"""The benchmark's yardstick for kernel work: the operations of each
+hand-written kernel's products and the bytes it must move (each input read
+once, each output written once), from its arguments' shapes.
+
+A frozen copy of the program's ``repro_torch/kernels/work.py`` as it stood
+when the benchmark was defined. It lives here so that a change to the
+program cannot move the bound that its kernels' roofline shares are read
+against. Operations are multiply-adds, two to each. Where the work depends
+on the data (the dispatched queries of the shared kernel, the cached tokens
+of the decode kernels) the caller passes its counts; without them the count
+is bounded by capacity.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+
+def _nb(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def shared_chunk_attention(qd, k, v, qmask, k_scale=None, v_scale=None, *,
+                           valid: Optional[int] = None,
+                           active: Optional[int] = None
+                           ) -> Tuple[float, float]:
+    """(operations, bytes) of ``shared_chunk_attention`` (and of its int8
+    entry, with the scales). ``valid``: dispatched (chunk, slot) pairs;
+    ``active``: chunks with a query."""
+    E, cap, H, D = qd.shape
+    C, KH = k.shape[1], k.shape[2]
+    valid = E * cap if valid is None else valid
+    active = E if active is None else active
+    # K/V (and an int8 store's f32 scales) of the chunks with a query
+    per_token = 2 * KH * (D * k.element_size() + 4 * (k_scale is not None))
+    byts = (valid * H * D * qd.element_size() + active * C * per_token
+            + _nb(qmask) + _nb(qd) + E * cap * H * 4)
+    return 4.0 * valid * H * C * D, float(byts)
+
+
+def shared_chunk_attention_q8(qd, k, v, k_scale, v_scale, qmask, **counts):
+    return shared_chunk_attention(qd, k, v, qmask, k_scale, v_scale,
+                                  **counts)
+
+
+def decode_attention(q, k, v, kv_len, window: int = 0, *,
+                     tokens: Optional[int] = None) -> Tuple[float, float]:
+    """``tokens``: the cached tokens attended, summed over the requests
+    (capacity: every request's S)."""
+    B, H, D = q.shape
+    KH = k.shape[-2]
+    tokens = B * k.shape[1] if tokens is None else tokens
+    byts = (2 * _nb(q) + 2 * tokens * KH * D * k.element_size()
+            + _nb(kv_len) + B * H * 4)
+    return 4.0 * tokens * H * D, float(byts)
+
+
+def paged_decode_attention(q, k_pool, v_pool, table, kv_len, window: int = 0,
+                           *, tokens: Optional[int] = None
+                           ) -> Tuple[float, float]:
+    """``tokens`` as for ``decode_attention`` (capacity: every request's
+    table of pages full)."""
+    B, H, D = q.shape
+    KH = k_pool.shape[-2]
+    cap = table.shape[1] * k_pool.shape[1]
+    tokens = B * cap if tokens is None else tokens
+    byts = (2 * _nb(q) + 2 * tokens * KH * D * k_pool.element_size()
+            + _nb(kv_len) + B * H * 4 + _nb(table))
+    return 4.0 * tokens * H * D, float(byts)
+
+
+def lse_merge(outs, lses) -> Tuple[float, float]:
+    byts = _nb(outs) + _nb(lses) + _nb(outs[0]) + _nb(lses[0])
+    return 0.0, float(byts)
+
+
+def lse_merge_pair(o0, l0, o1, l1) -> Tuple[float, float]:
+    return 0.0, float(3 * _nb(o0) + 3 * _nb(l0))
+
+
+def lse_merge_routed(od, lsed, lin) -> Tuple[float, float]:
+    """Each of the G groups reads its K partials' rows of Q queries."""
+    R, Q, H, D = od.shape
+    G, K = lin.shape
+    row = Q * H * (D * od.element_size() + 4)
+    return 0.0, float(G * K * row + _nb(lin) + G * row)
+
+
+def router_scores(q, emb) -> Tuple[float, float]:
+    """The queries of each kv head are summed before the dot."""
+    G, H, D = q.shape
+    E, KH = emb.shape[:2]
+    return 2.0 * G * E * KH * D, float(_nb(q) + _nb(emb) + G * E * 4)
+
+
+#: every kernel entry of ``kernels/ops.py`` by name
+WORK: Dict[str, Callable[..., Tuple[float, float]]] = {
+    f.__name__: f for f in (shared_chunk_attention, shared_chunk_attention_q8,
+                            decode_attention, paged_decode_attention,
+                            lse_merge, lse_merge_pair, lse_merge_routed,
+                            router_scores)}
