@@ -22,17 +22,6 @@ from repro_torch.core import shared_attention as sa
 from repro_torch.models import layers as L
 
 
-def _record_merge(rec: Optional[obs.DeviceRecorder], lse_u: torch.Tensor,
-                  lse_s: torch.Tensor, phase: str) -> None:
-    """Mixture diagnostics, queued as device tensors: how often the routed
-    shared path outweighs the request's unique cache, per head."""
-    if rec is None:
-        return
-    rec.inc(f"moska/{phase}/calls", torch.ones((), device=lse_u.device))
-    rec.observe(f"moska/{phase}/shared_win_frac",
-                (lse_s > lse_u).float().mean(), obs.FRACTION_EDGES)
-
-
 class MoskaLayerContext(NamedTuple):
     """Per-layer shared store slices + routing, computed once per step.
     An int8 store keeps its int8 K/V here with their scales; the shared
@@ -46,12 +35,15 @@ class MoskaLayerContext(NamedTuple):
 
 
 def _shared_partial(q: torch.Tensor, ctx: MoskaLayerContext,
-                    cfg: MoSKAConfig, layer_idx: Optional[int],
+                    cfg: MoSKAConfig, phase: str,
                     rec: Optional[obs.DeviceRecorder]) -> sa.SharedPartial:
-    """q: (G, Q, H, D) query groups against the context's store."""
+    """q: (G, Q, H, D) query groups against the context's store; counts
+    the call under ``moska/{phase}/calls``."""
+    if rec is not None:
+        rec.inc(f"moska/{phase}/calls", 1)
     return sa.shared_attention_batched(
         q, ctx.k, ctx.v, ctx.routing,
-        capacity_factor=cfg.query_capacity_factor, layer_idx=layer_idx,
+        capacity_factor=cfg.query_capacity_factor,
         k_scale=ctx.k_scale, v_scale=ctx.v_scale, rec=rec)
 
 
@@ -62,7 +54,6 @@ def moska_decode_merge(
     ctx: Optional[MoskaLayerContext],
     cfg: MoSKAConfig,
     *,
-    layer_idx: Optional[int] = None,
     rec: Optional[obs.DeviceRecorder] = None,
 ) -> torch.Tensor:
     """The routed shared partial of a decode step, merged with the unique
@@ -70,10 +61,10 @@ def moska_decode_merge(
     it. Returns (B, H, D); the unique partial alone without a store."""
     if ctx is None or not cfg.enabled:
         return o_u
-    part = _shared_partial(q[:, None], ctx, cfg, layer_idx, rec)
-    o_s, lse_s = part.out[:, 0], part.lse[:, 0]
-    _record_merge(rec, lse_u, lse_s, "decode")
-    out, _ = L.merge_partial_attention([o_u, o_s], [lse_u, lse_s])
+    part = _shared_partial(q[:, None], ctx, cfg, "decode", rec)
+    with obs.profiled_span("layer.merge"):
+        out, _ = L.merge_partial_attention([o_u, part.out[:, 0]],
+                                           [lse_u, part.lse[:, 0]])
     return out
 
 
@@ -86,14 +77,13 @@ def moska_decode_attention(
     cfg: MoSKAConfig,
     *,
     window: int = 0,
-    layer_idx: Optional[int] = None,
     rec: Optional[obs.DeviceRecorder] = None,
 ) -> torch.Tensor:
     """Returns the merged attention output (B, H, D)."""
-    o_u, lse_u = L.decode_attention(q, k_cache, v_cache, kv_len,
-                                    window=window, return_lse=True)
-    return moska_decode_merge(q, o_u, lse_u, ctx, cfg, layer_idx=layer_idx,
-                              rec=rec)
+    with obs.profiled_span("layer.unique_attention"):
+        o_u, lse_u = L.decode_attention(q, k_cache, v_cache, kv_len,
+                                        window=window, return_lse=True)
+    return moska_decode_merge(q, o_u, lse_u, ctx, cfg, rec=rec)
 
 
 def moska_prefill_attention(
@@ -106,22 +96,22 @@ def moska_prefill_attention(
     q_offset: int = 0,
     window: int = 0,
     route_block: int = 128,
-    layer_idx: Optional[int] = None,
     rec: Optional[obs.DeviceRecorder] = None,
 ) -> torch.Tensor:
     """Prefill: causal attention over the unique prefix, plus routed shared
     attention for every query block when a shared corpus is attached."""
-    o_u, lse_u = L.flash_attention(q, k, v, causal=True, q_offset=q_offset,
-                                   kv_offset=q_offset, window=window,
-                                   return_lse=True)
+    with obs.profiled_span("layer.unique_attention"):
+        o_u, lse_u = L.flash_attention(q, k, v, causal=True,
+                                       q_offset=q_offset, kv_offset=q_offset,
+                                       window=window, return_lse=True)
     if ctx is None or not cfg.enabled:
         return o_u
     B, S, H, D = q.shape
     nb = S // route_block
     part = _shared_partial(q.reshape(B * nb, route_block, H, D), ctx, cfg,
-                           layer_idx, rec)
-    o_s = part.out.reshape(B, S, H, D)
-    lse_s = part.lse.reshape(B, S, H)
-    _record_merge(rec, lse_u, lse_s, "prefill")
-    out, _ = L.merge_partial_attention([o_u, o_s], [lse_u, lse_s])
+                           "prefill", rec)
+    with obs.profiled_span("layer.merge"):
+        out, _ = L.merge_partial_attention(
+            [o_u, part.out.reshape(B, S, H, D)],
+            [lse_u, part.lse.reshape(B, S, H)])
     return out

@@ -44,6 +44,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import itertools
+import time
 from dataclasses import dataclass, field
 from typing import Callable, Deque, Dict, List, Optional, Sequence
 
@@ -58,6 +59,9 @@ class Request:
     max_new_tokens: int
     corpus_id: Optional[str] = None      # shared KV store this request uses
     arrival: float = 0.0
+    # host clock (time.perf_counter) at submit and at admission to a slot
+    submitted_s: float = 0.0
+    admitted_s: float = 0.0
     # lifecycle
     generated: List[int] = field(default_factory=list)
     slot: int = -1
@@ -135,7 +139,8 @@ class Scheduler:
                 "up to the block budget")
         uid = next(self._uid)
         self.queue.append(Request(uid, list(prompt), max_new_tokens,
-                                  corpus_id))
+                                  corpus_id,
+                                  submitted_s=time.perf_counter()))
         return uid
 
     # -- memory accounting ---------------------------------------------
@@ -265,6 +270,7 @@ class Scheduler:
             if offloaded > 0:
                 obs.get_registry().inc("scheduler/offload_admissions")
             req.slot = i
+            req.admitted_s = time.perf_counter()
             self.slots[i] = req
             admitted.append(req)
         self._record_wave(len(admitted))

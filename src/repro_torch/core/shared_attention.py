@@ -40,22 +40,16 @@ class SharedPartial(NamedTuple):
 
 
 def _record_dispatch(rec: Optional[obs.DeviceRecorder], qmask: torch.Tensor,
-                     keep: torch.Tensor, layer_idx: Optional[int]) -> None:
+                     keep: torch.Tensor) -> None:
     """Dispatch-density metrics, queued as device tensors (no sync): the
     fraction of (chunk, capacity) slots filled, and how many (group, k)
-    routes fell off the capacity cliff, overall and per layer."""
+    routes were dispatched and how many fell off the capacity cliff."""
     if rec is None:
         return
-    util = qmask.float().mean()
-    dropped = (~keep).sum()
-    rec.observe("moska/dispatch_capacity_utilization", util,
+    rec.observe("moska/dispatch_capacity_utilization", qmask.float().mean(),
                 obs.FRACTION_EDGES)
-    if layer_idx is not None:
-        rec.observe(f"moska/dispatch_capacity_utilization_by_layer/"
-                    f"L{layer_idx}", util, obs.FRACTION_EDGES)
-        rec.inc(f"moska/dropped_queries_by_layer/L{layer_idx}", dropped)
     rec.inc("moska/dispatched_queries", keep.sum())
-    rec.inc("moska/dropped_queries", dropped)
+    rec.inc("moska/dropped_queries", (~keep).sum())
 
 
 def shared_attention_batched(
@@ -66,7 +60,6 @@ def shared_attention_batched(
     *,
     capacity: Optional[int] = None,
     capacity_factor: float = 2.0,
-    layer_idx: Optional[int] = None,
     k_scale: Optional[torch.Tensor] = None,   # (E, C, KH) f32: int8 store
     v_scale: Optional[torch.Tensor] = None,
     rec: Optional[obs.DeviceRecorder] = None,
@@ -89,44 +82,49 @@ def shared_attention_batched(
         capacity = router_lib.required_capacity(G, K, E_all, capacity_factor)
     capacity = min(capacity, G * K)
 
-    flat, pos, keep = router_lib.dispatch_plan(routing.chunk_ids, E_all,
-                                               capacity)
-    if num_chunks is not None:
-        keep = keep & (flat >= chunk_offset) & (flat < chunk_offset + E)
-        flat = (flat - chunk_offset).clamp(0, E - 1)
-    # slot (chunk, pos) -> row chunk * capacity + pos of a flat buffer with
-    # one extra trash row: dropped routes land there, which realises the
-    # reference's scatter mode="drop" without a host sync
-    trash = E * capacity
-    lin = torch.where(keep, flat * capacity + pos,
-                      torch.full_like(pos, trash))
-    q_slots = q.repeat_interleave(K, dim=0)                # (G*K, Q, H, D)
-    qd = q.new_zeros((trash + 1, Q, H, D))
-    qd[lin] = q_slots
-    qmask = torch.zeros(trash + 1, dtype=torch.bool, device=q.device)
-    qmask[lin] = keep
-    qmask = qmask[:trash].view(E, capacity)
-    _record_dispatch(rec, qmask, keep, layer_idx)
+    with obs.profiled_span("layer.dispatch"):
+        flat, pos, keep = router_lib.dispatch_plan(routing.chunk_ids, E_all,
+                                                   capacity)
+        if num_chunks is not None:
+            keep = keep & (flat >= chunk_offset) & (flat < chunk_offset + E)
+            flat = (flat - chunk_offset).clamp(0, E - 1)
+        # slot (chunk, pos) -> row chunk * capacity + pos of a flat buffer
+        # with one extra trash row: dropped routes land there, which
+        # realises the reference's scatter mode="drop" without a host sync
+        trash = E * capacity
+        lin = torch.where(keep, flat * capacity + pos,
+                          torch.full_like(pos, trash))
+        q_slots = q.repeat_interleave(K, dim=0)            # (G*K, Q, H, D)
+        qd = q.new_zeros((trash + 1, Q, H, D))
+        qd[lin] = q_slots
+        qmask = torch.zeros(trash + 1, dtype=torch.bool, device=q.device)
+        qmask[lin] = keep
+        qmask = qmask[:trash].view(E, capacity)
+        # the kernel takes (E, cap, H, D): fold the per-group query dim
+        # into cap
+        qd = lsc(qd[:trash].view(E, capacity * Q, H, D), "chunks", None,
+                 "heads", None)
+        kv = (layer_store_k.contiguous(), layer_store_v.contiguous())
+        qmask_d = qmask.repeat_interleave(Q, dim=1).contiguous()
+    # outside the dispatch's span: its self time is the dispatch alone
+    _record_dispatch(rec, qmask, keep)
 
-    # the kernel takes (E, cap, H, D): fold the per-group query dim into cap
-    qd = lsc(qd[:trash].view(E, capacity * Q, H, D), "chunks", None,
-             "heads", None)
-    kv = (layer_store_k.contiguous(), layer_store_v.contiguous())
-    qmask_d = qmask.repeat_interleave(Q, dim=1).contiguous()
-    if k_scale is None:
-        od, lsed = ops.shared_chunk_attention(qd, *kv, qmask_d)
-    else:
-        od, lsed = ops.shared_chunk_attention_q8(
-            qd, *kv, k_scale.contiguous(), v_scale.contiguous(), qmask_d)
-    od = lsc(od, "chunks", None, "heads", None)
-    lsed = lsc(lsed, "chunks", None, "heads")
+    with obs.profiled_span("layer.shared_attention"):
+        if k_scale is None:
+            od, lsed = ops.shared_chunk_attention(qd, *kv, qmask_d)
+        else:
+            od, lsed = ops.shared_chunk_attention_q8(
+                qd, *kv, k_scale.contiguous(), v_scale.contiguous(), qmask_d)
+        od = lsc(od, "chunks", None, "heads", None)
+        lsed = lsc(lsed, "chunks", None, "heads")
 
     # LSE-merge over the K selected chunks, reading partial k of group g
     # from row lin[g * K + k] of the kernel's output where it lies; the
     # trash row is an empty partial (the reference's gather mode="fill")
-    out, lse = ops.lse_merge_routed(od.reshape(trash, Q, H, D),
-                                    lsed.reshape(trash, Q, H),
-                                    lin.view(G, K))
+    with obs.profiled_span("layer.merge"):
+        out, lse = ops.lse_merge_routed(od.reshape(trash, Q, H, D),
+                                        lsed.reshape(trash, Q, H),
+                                        lin.view(G, K))
     return SharedPartial(out.view(G, Q, H, D), lse.view(G, Q, H))
 
 

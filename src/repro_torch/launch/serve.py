@@ -157,7 +157,8 @@ def serve(argv=None) -> Tuple[dict, List[Request]]:
     corpus = synthesize_corpus(CorpusSpec(
         "domain-0", corpus_tokens, cfg.vocab_size, seed=args.seed))
     nchunks = eng.register_corpus("domain-0", corpus)
-    reg_span = eng.registry.spans[-1]
+    reg_span = next(s for s in reversed(eng.registry.spans)
+                    if s.name == "engine.register_corpus")
     print(f"registered corpus domain-0: {nchunks} chunks "
           f"({reg_span.duration_s:.1f}s)")
 

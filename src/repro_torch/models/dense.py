@@ -33,7 +33,6 @@ it was.
 """
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -222,8 +221,8 @@ def _merge_heads(o: torch.Tensor) -> torch.Tensor:
                          o.placements, o.device_mesh)
 
 
-#: the profiler range around each MoE FFN call, opened only while a
-#: profiler runs (a profile attributes device time to it)
+#: the profiler range around each MoE FFN call (``obs.profiled_span``:
+#: opened only while a profiler runs)
 MOE_RANGE = "moe_ffn"
 
 
@@ -234,14 +233,15 @@ def _ffn(cfg: ModelConfig, lp: DenseLayer, x: torch.Tensor,
     plus Arctic's dense residual. Serving drops the MoE aux loss, so it is
     not computed."""
     if not cfg.moe.enabled:
-        return L.swiglu_mlp(x, tp.gather_weights(lp.mlp))
-    with (torch.profiler.record_function(MOE_RANGE)
-          if torch.autograd._profiler_enabled() else contextlib.nullcontext()):
+        with obs.profiled_span("layer.ffn"):
+            return L.swiglu_mlp(x, tp.gather_weights(lp.mlp))
+    with obs.profiled_span(MOE_RANGE):
         y, _ = moe_lib.moe_ffn(x.reshape(-1, x.shape[-1]), lp.moe, cfg.moe,
                                rec=rec, with_aux=False)
     y = y.view(x.shape)
     if cfg.moe.dense_residual:
-        y = y + L.swiglu_mlp(x, tp.gather_weights(lp.mlp))
+        with obs.profiled_span("layer.ffn"):
+            y = y + L.swiglu_mlp(x, tp.gather_weights(lp.mlp))
     return y
 
 
@@ -297,15 +297,15 @@ def _decode_context(cfg: ModelConfig, q: torch.Tensor,
     """Route each request's decode query (B, H, D) over the layer's chunks."""
     if shared is None:
         return None
-    return shared.context(router_lib.route(q, shared.emb,
-                                           cfg.moska.top_k_chunks))
+    with obs.profiled_span("layer.route"):
+        routing = router_lib.route(q, shared.emb, cfg.moska.top_k_chunks)
+    return shared.context(routing)
 
 
 def _layer_prefill(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
                    positions: torch.Tensor, kc: torch.Tensor,
                    vc: torch.Tensor, shared: Optional[SharedLayer],
                    q_offset: int, true_len: Optional[int] = None,
-                   layer_idx: Optional[int] = None,
                    rec: Optional[obs.DeviceRecorder] = None) -> torch.Tensor:
     """Prefill layer: causal attention + cache write + optional MoSKA path.
 
@@ -332,15 +332,16 @@ def _layer_prefill(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
 
     if shared is not None:
         rb = min(128, q.shape[1])
-        routing = router_lib.route(_pooled_queries(q, true_len, rb),
-                                   shared.emb, cfg.moska.top_k_chunks)
+        with obs.profiled_span("layer.route"):
+            routing = router_lib.route(_pooled_queries(q, true_len, rb),
+                                       shared.emb, cfg.moska.top_k_chunks)
         o = MA.moska_prefill_attention(
             q, k, v, shared.context(routing), cfg.moska, q_offset=q_offset,
-            window=cfg.attn_window, route_block=rb, layer_idx=layer_idx,
-            rec=rec)
+            window=cfg.attn_window, route_block=rb, rec=rec)
     else:
-        o = L.flash_attention(q, k, v, causal=True, q_offset=q_offset,
-                              kv_offset=q_offset, window=cfg.attn_window)
+        with obs.profiled_span("layer.unique_attention"):
+            o = L.flash_attention(q, k, v, causal=True, q_offset=q_offset,
+                                  kv_offset=q_offset, window=cfg.attn_window)
     return _attn_out_mlp(cfg, x, o, lp, rec)
 
 
@@ -348,7 +349,6 @@ def _layer_decode(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
                   positions: torch.Tensor, kc: torch.Tensor,
                   vc: torch.Tensor, lengths: torch.Tensor,
                   shared: Optional[SharedLayer],
-                  layer_idx: Optional[int] = None,
                   rec: Optional[obs.DeviceRecorder] = None) -> torch.Tensor:
     """Decode layer: one token per request. x: (B, d); positions: (B,)
     absolute position of the new token; the new K/V are appended to the
@@ -364,8 +364,7 @@ def _layer_decode(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
     append_token(kc, vc, k, v, lengths)
     o = MA.moska_decode_attention(q, kc, vc, lengths + 1,
                                   _decode_context(cfg, q, shared), cfg.moska,
-                                  window=cfg.attn_window,
-                                  layer_idx=layer_idx, rec=rec)
+                                  window=cfg.attn_window, rec=rec)
     return _attn_out_mlp(cfg, x, o, lp, rec)
 
 
@@ -374,7 +373,6 @@ def _layer_decode_paged(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
                         vp: torch.Tensor, table: torch.Tensor,
                         lengths: torch.Tensor, index,
                         shared: Optional[SharedLayer],
-                        layer_idx: Optional[int] = None,
                         rec: Optional[obs.DeviceRecorder] = None
                         ) -> torch.Tensor:
     """Paged decode layer: ``_layer_decode``'s math with the unique KV in a
@@ -390,10 +388,12 @@ def _layer_decode_paged(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
     q = lsc(q, "batch", "heads", None)
     append_layer(kp, k, index)
     append_layer(vp, v, index)
-    o_u, lse_u = ops.paged_decode_attention(q, kp, vp, table, lengths + 1,
-                                            window=cfg.attn_window)
+    with obs.profiled_span("layer.unique_attention"):
+        o_u, lse_u = ops.paged_decode_attention(q, kp, vp, table,
+                                                lengths + 1,
+                                                window=cfg.attn_window)
     o = MA.moska_decode_merge(q, o_u, lse_u, _decode_context(cfg, q, shared),
-                              cfg.moska, layer_idx=layer_idx, rec=rec)
+                              cfg.moska, rec=rec)
     return _attn_out_mlp(cfg, x, o, lp, rec)
 
 
@@ -401,7 +401,6 @@ def _layer_prefill_chunk(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
                          positions: torch.Tensor, kc: torch.Tensor,
                          vc: torch.Tensor, base: int, chunk_len: int,
                          shared: Optional[SharedLayer], start_pos: int,
-                         layer_idx: Optional[int] = None,
                          rec: Optional[obs.DeviceRecorder] = None
                          ) -> torch.Tensor:
     """One chunk of a long prompt against the growing context view.
@@ -421,18 +420,22 @@ def _layer_prefill_chunk(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
     attn = dict(causal=True, q_offset=start_pos + base, kv_offset=start_pos,
                 kv_len=base + chunk_len, window=cfg.attn_window)
     if shared is None:
-        return _attn_out_mlp(cfg, x, L.flash_attention(q, kc, vc, **attn),
-                             lp, rec)
+        with obs.profiled_span("layer.unique_attention"):
+            o = L.flash_attention(q, kc, vc, **attn)
+        return _attn_out_mlp(cfg, x, o, lp, rec)
     rb = min(128, C)
-    routing = router_lib.route(_pooled_queries(q, chunk_len, rb),
-                               shared.emb, cfg.moska.top_k_chunks)
-    o_u, lse_u = L.flash_attention(q, kc, vc, return_lse=True, **attn)
+    with obs.profiled_span("layer.route"):
+        routing = router_lib.route(_pooled_queries(q, chunk_len, rb),
+                                   shared.emb, cfg.moska.top_k_chunks)
+    with obs.profiled_span("layer.unique_attention"):
+        o_u, lse_u = L.flash_attention(q, kc, vc, return_lse=True, **attn)
     part = sa.shared_attention_batched(
         q.reshape(B * (C // rb), rb, H, D), shared.k, shared.v, routing,
-        capacity_factor=cfg.moska.query_capacity_factor, layer_idx=layer_idx,
+        capacity_factor=cfg.moska.query_capacity_factor,
         k_scale=shared.k_scale, v_scale=shared.v_scale, rec=rec)
-    o, _ = L.merge_partial_attention([o_u, part.out.reshape(B, C, H, D)],
-                                     [lse_u, part.lse.reshape(B, C, H)])
+    with obs.profiled_span("layer.merge"):
+        o, _ = L.merge_partial_attention([o_u, part.out.reshape(B, C, H, D)],
+                                         [lse_u, part.lse.reshape(B, C, H)])
     return _attn_out_mlp(cfg, x, o, lp, rec)
 
 
@@ -474,8 +477,9 @@ def _logits(cfg: ModelConfig, params: DenseLM, x: torch.Tensor
             ) -> torch.Tensor:
     """fp32 logits of the final-normed hidden state (the reference's
     preferred_element_type=float32 unembedding)."""
-    x = L.rms_norm(x, params.final_norm["scale"], cfg.rms_eps)
-    return L.unembed(x, tp.gather_weight(params.unembed_matrix()))
+    with obs.profiled_span("unembed"):
+        x = L.rms_norm(x, params.final_norm["scale"], cfg.rms_eps)
+        return L.unembed(x, tp.gather_weight(params.unembed_matrix()))
 
 
 def _embed(params: DenseLM, tokens: torch.Tensor) -> torch.Tensor:
@@ -521,9 +525,9 @@ def prefill(cfg: ModelConfig, params: DenseLM, tokens: torch.Tensor,
     use_store = store is not None and cfg.moska.enabled
     for i, lp in enumerate(params.layers):
         sh = _shared_layer(store, i) if use_store else None
-        x = _layer_prefill(cfg, x, lp, positions, cache.k[i], cache.v[i], sh,
-                           start_pos, true_len=true_len, layer_idx=i,
-                           rec=rec)
+        with obs.profiled_span("layer"):
+            x = _layer_prefill(cfg, x, lp, positions, cache.k[i], cache.v[i],
+                               sh, start_pos, true_len=true_len, rec=rec)
     n_valid = S if true_len is None else int(true_len)
     logits = _logits(cfg, params, x[:, n_valid - 1])
     cache.length.fill_(n_valid)
@@ -545,8 +549,9 @@ def decode_step(cfg: ModelConfig, params: DenseLM, tokens: torch.Tensor,
     use_store = store is not None and cfg.moska.enabled
     for i, lp in enumerate(params.layers):
         sh = _shared_layer(store, i) if use_store else None
-        x = _layer_decode(cfg, x, lp, positions, cache.k[i], cache.v[i],
-                          cache.length, sh, layer_idx=i, rec=rec)
+        with obs.profiled_span("layer"):
+            x = _layer_decode(cfg, x, lp, positions, cache.k[i], cache.v[i],
+                              cache.length, sh, rec=rec)
     logits = _logits(cfg, params, x)
     cache.length.add_(1)
     return logits, cache
@@ -573,9 +578,10 @@ def decode_step_paged(cfg: ModelConfig, params: DenseLM,
     use_store = store is not None and cfg.moska.enabled
     for i, lp in enumerate(params.layers):
         sh = _shared_layer(store, i) if use_store else None
-        x = _layer_decode_paged(cfg, x, lp, positions, pool.k[i], pool.v[i],
-                                table, lengths, index, sh, layer_idx=i,
-                                rec=rec)
+        with obs.profiled_span("layer"):
+            x = _layer_decode_paged(cfg, x, lp, positions, pool.k[i],
+                                    pool.v[i], table, lengths, index, sh,
+                                    rec=rec)
     return _logits(cfg, params, x), pool
 
 
@@ -603,9 +609,10 @@ def prefill_chunk(cfg: ModelConfig, params: DenseLM, tokens: torch.Tensor,
     use_store = store is not None and cfg.moska.enabled
     for i, lp in enumerate(params.layers):
         sh = _shared_layer(store, i) if use_store else None
-        x = _layer_prefill_chunk(cfg, x, lp, positions, cache.k[i],
-                                 cache.v[i], base, chunk_len, sh, start_pos,
-                                 layer_idx=i, rec=rec)
+        with obs.profiled_span("layer"):
+            x = _layer_prefill_chunk(cfg, x, lp, positions, cache.k[i],
+                                     cache.v[i], base, chunk_len, sh,
+                                     start_pos, rec=rec)
     logits = _logits(cfg, params, x[:, chunk_len - 1])
     cache.length.add_(chunk_len)
     cache.offset.fill_(start_pos)

@@ -329,7 +329,7 @@ def decode_step(cfg: ModelConfig, params: ParamTree, tokens: torch.Tensor,
             routing = router_lib.route(qx, store.emb[i],
                                        cfg.moska.top_k_chunks)
             ox = sa.shared_attention_batched(
-                qx[:, None], store.k[i], store.v[i], routing, layer_idx=i,
+                qx[:, None], store.k[i], store.v[i], routing,
                 rec=rec).out[:, 0]
         else:
             ox = L.decode_attention(qx, cache["cross_k"][i],

@@ -2,7 +2,7 @@
 
 Plain Python code (scheduler, engine loop) records directly on the
 registry. Values computed on the device during a step (dispatch density,
-dropped routes, the shared-path win fraction) are queued on a
+dispatched and dropped routes) are queued on a
 :class:`DeviceRecorder` as device tensors and read back in one transfer
 per wave, after the token readback, so recording never adds a device sync
 inside the layer loop.
@@ -13,8 +13,9 @@ exporters stay importable in dependency-free contexts.
 from __future__ import annotations
 
 import bisect
+import collections
 import threading
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Deque, Dict, List, Optional, Sequence, Tuple, Union
 
 Number = Union[int, float]
 
@@ -40,6 +41,12 @@ BYTES_EDGES: Tuple[float, ...] = tuple(float((4 ** i) * 1024)
                                        for i in range(11))
 
 DEFAULT_EDGES = LATENCY_EDGES_S
+
+#: finished spans a registry keeps, the newest: a traced benchmark run of
+#: the cell with the most waves records about 5,100 of them (PERF.md §6),
+#: so one run's spans are all kept while a long-lived server's memory
+#: stays bounded
+SPAN_CAPACITY = 1 << 16
 
 
 class Counter:
@@ -147,12 +154,15 @@ Metric = Union[Counter, Gauge, Histogram]
 
 
 class MetricsRegistry:
-    """Named metrics + completed trace spans. Thread-safe get-or-create."""
+    """Named metrics + completed trace spans. Thread-safe get-or-create.
+    ``spans`` keeps the newest ``SPAN_CAPACITY`` spans, dropping the
+    oldest."""
 
     def __init__(self):
         self._lock = threading.RLock()
         self._metrics: Dict[str, Metric] = {}
-        self.spans: List[object] = []     # trace.Span, appended by trace.py
+        # trace.Span, appended by trace.py
+        self.spans: Deque[object] = collections.deque(maxlen=SPAN_CAPACITY)
 
     # -- get-or-create ---------------------------------------------------
     def _get(self, name: str, cls, *args) -> Metric:

@@ -434,92 +434,17 @@ class ServingEngine:
         a livelocked configuration (queued work that can never be admitted
         under mem_budget_bytes).
         """
-        B = self.ecfg.max_slots
         reg = self.registry
         t0 = time.perf_counter()
         tok0 = self.metrics["tokens_generated"]
         self._ensure_cache()
-        slot_tokens = np.zeros((B,), np.int64)
+        slot_tokens = np.zeros((self.ecfg.max_slots,), np.int64)
 
         waves = 0
         with obs.span("engine.run"):
             while not self.scheduler.idle and waves < max_waves:
-                admitted = self.scheduler.schedule()
-                for req in admitted:
-                    tp = time.perf_counter()
-                    first = (self._prefill_slot_paged(req) if self._paged
-                             else self._prefill_slot(req))
-                    reg.observe("engine/prefill_latency_s",
-                                time.perf_counter() - tp,
-                                obs.LATENCY_EDGES_S)
-                    slot_tokens[req.slot] = first
-                    self._record_token(req, first)
-                active = self.scheduler.active()
-                if not active:
-                    if not admitted and not self.scheduler.idle:
-                        raise self._livelock()
-                    waves += 1
-                    continue
-                store = self._get_store(self.scheduler.resident_corpus)
-                use_store = store is not None and self.cfg.moska.enabled
-                store = store if use_store else None
-                if self._paged:
-                    self._prepare_wave_blocks(active)
-                    self._note_hbm(self._pool.nbytes)
-                else:
-                    self._note_hbm(_cache_nbytes(self._cache))
-                reg.observe("engine/wave_batch_density",
-                            len(active) / B, obs.FRACTION_EDGES)
-                reg.observe("engine/wave_active_slots", len(active),
-                            obs.COUNT_EDGES)
-                td = time.perf_counter()
-                tokens = torch.as_tensor(slot_tokens, device=self.device)
-                if self._paged:
-                    tbl, lens, offs = (torch.as_tensor(a, device=self.device)
-                                       for a in self._tables.device_args())
-                    logits, _ = self.model.decode_step_paged(
-                        self.params, tokens, self._pool, tbl, lens, offs,
-                        store=store, rec=self._rec)
-                else:
-                    logits, _ = self.model.decode_step(
-                        self.params, tokens, self._cache, store=store,
-                        rec=self._rec)
-                nxt, ready = self._read_tokens(logits)
-                if self._paged:
-                    # the wave's host-side bookkeeping is the same either
-                    # way; overlap runs it while the card computes, before
-                    # the readback's wait. None of it writes the page pool.
-                    if self.ecfg.overlap_waves:
-                        th = time.perf_counter()
-                        self._wave_host_work(active)
-                        reg.observe("engine/overlap_saved_s",
-                                    time.perf_counter() - th,
-                                    obs.LATENCY_EDGES_S)
-                    ts = time.perf_counter()
-                    if ready is not None:
-                        ready.synchronize()     # the wave's only sync point
-                    stall = time.perf_counter() - ts
-                    if not self.ecfg.overlap_waves:
-                        self._wave_host_work(active)
-                    reg.observe("engine/decode_stall_s", stall,
-                                obs.LATENCY_EDGES_S)
-                elif ready is not None:
-                    ready.synchronize()
-                nxt = nxt.numpy()
-                dt = time.perf_counter() - td
-                reg.observe("engine/decode_step_latency_s", dt,
-                            obs.LATENCY_EDGES_S)
-                self.metrics["decode_step_s"].append(dt)
-                self._rec.flush(reg)
-                for req in list(active):
-                    tok = int(nxt[req.slot])
-                    slot_tokens[req.slot] = tok
-                    self._record_token(req, tok)
-                    reg.inc("engine/decoded_tokens")
-                self.metrics["decode_steps"] += 1
-                reg.inc("engine/decode_steps")
-                for hook in self.wave_hooks:
-                    hook()
+                with obs.span("engine.wave"):
+                    self._wave(slot_tokens)
                 waves += 1
         if self._paged:
             self._record_block_gauges()
@@ -530,6 +455,95 @@ class ServingEngine:
                       (self.metrics["tokens_generated"] - tok0) / wall
                       if wall > 0 else 0.0)
         return self.scheduler.finished
+
+    def _wave(self, slot_tokens: np.ndarray) -> None:
+        """One wave: admit and prefill into free slots, then one decode
+        step of every active slot, its tokens' readback and bookkeeping,
+        then the wave hooks. Each phase is an ``engine.*`` span."""
+        B = self.ecfg.max_slots
+        reg = self.registry
+        with obs.span("engine.schedule"):
+            admitted = self.scheduler.schedule()
+        for req in admitted:
+            tp = time.perf_counter()
+            with obs.span("engine.prefill", uid=req.uid, slot=req.slot,
+                          tokens=len(req.prompt)) as sp:
+                sp.attrs["queued_s"] = sp.start_s - req.submitted_s
+                first = (self._prefill_slot_paged(req) if self._paged
+                         else self._prefill_slot(req))
+            reg.observe("engine/prefill_latency_s",
+                        time.perf_counter() - tp, obs.LATENCY_EDGES_S)
+            slot_tokens[req.slot] = first
+            self._record_token(req, first)
+        active = self.scheduler.active()
+        if not active:
+            if not admitted and not self.scheduler.idle:
+                raise self._livelock()
+            return
+        store = self._get_store(self.scheduler.resident_corpus)
+        use_store = store is not None and self.cfg.moska.enabled
+        store = store if use_store else None
+        if self._paged:
+            self._prepare_wave_blocks(active)
+            self._note_hbm(self._pool.nbytes)
+        else:
+            self._note_hbm(_cache_nbytes(self._cache))
+        reg.observe("engine/wave_batch_density",
+                    len(active) / B, obs.FRACTION_EDGES)
+        reg.observe("engine/wave_active_slots", len(active),
+                    obs.COUNT_EDGES)
+        td = time.perf_counter()
+        with obs.span("engine.decode"):
+            tokens = torch.as_tensor(slot_tokens, device=self.device)
+            if self._paged:
+                tbl, lens, offs = (torch.as_tensor(a, device=self.device)
+                                   for a in self._tables.device_args())
+                logits, _ = self.model.decode_step_paged(
+                    self.params, tokens, self._pool, tbl, lens, offs,
+                    store=store, rec=self._rec)
+            else:
+                logits, _ = self.model.decode_step(
+                    self.params, tokens, self._cache, store=store,
+                    rec=self._rec)
+        with obs.span("engine.readback"):
+            nxt, ready = self._read_tokens(logits)
+            if self._paged:
+                # the wave's host-side bookkeeping is the same either
+                # way; overlap runs it while the card computes, before
+                # the readback's wait. None of it writes the page pool.
+                if self.ecfg.overlap_waves:
+                    th = time.perf_counter()
+                    self._wave_host_work(active)
+                    reg.observe("engine/overlap_saved_s",
+                                time.perf_counter() - th,
+                                obs.LATENCY_EDGES_S)
+                ts = time.perf_counter()
+                if ready is not None:
+                    ready.synchronize()     # the wave's only sync point
+                stall = time.perf_counter() - ts
+                if not self.ecfg.overlap_waves:
+                    self._wave_host_work(active)
+                reg.observe("engine/decode_stall_s", stall,
+                            obs.LATENCY_EDGES_S)
+            elif ready is not None:
+                ready.synchronize()
+            nxt = nxt.numpy()
+        dt = time.perf_counter() - td
+        with obs.span("engine.record"):
+            reg.observe("engine/decode_step_latency_s", dt,
+                        obs.LATENCY_EDGES_S)
+            self.metrics["decode_step_s"].append(dt)
+            self._rec.flush(reg)
+            for req in list(active):
+                tok = int(nxt[req.slot])
+                slot_tokens[req.slot] = tok
+                self._record_token(req, tok)
+                reg.inc("engine/decoded_tokens")
+            self.metrics["decode_steps"] += 1
+            reg.inc("engine/decode_steps")
+        with obs.span("engine.hooks"):
+            for hook in self.wave_hooks:
+                hook()
 
     def _read_tokens(self, logits: torch.Tensor
                      ) -> Tuple[torch.Tensor, Optional[torch.cuda.Event]]:

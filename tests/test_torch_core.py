@@ -209,17 +209,15 @@ def test_shared_attention_empty_chunks_and_records():
     qj, qt = both(randn(11, (3, 1, H, D)))
     rj, rt = _routings([[0, 2], [2, 0], [0, 2]], E)
     rec, reg = obs.DeviceRecorder(), obs.MetricsRegistry()
-    pt = tsa.shared_attention_batched(qt, kt, vt, rt, capacity=2,
-                                      layer_idx=3, rec=rec)
+    pt = tsa.shared_attention_batched(qt, kt, vt, rt, capacity=2, rec=rec)
     pj = jsa.shared_attention_batched(qj, kj, vj, rj, capacity=2)
     assert_close(pt.out, pj.out)
     assert_close(pt.lse, pj.lse)
-    assert len(rec) == 5
+    assert len(rec) == 3
     rec.flush(reg)
     assert len(rec) == 0
     assert reg.counter("moska/dispatched_queries").value == 4
     assert reg.counter("moska/dropped_queries").value == 2
-    assert reg.counter("moska/dropped_queries_by_layer/L3").value == 2
     util = reg.histogram("moska/dispatch_capacity_utilization",
                          obs.FRACTION_EDGES)
     assert util.count == 1 and abs(util.sum - 4 / 12) < 1e-6
