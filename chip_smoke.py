@@ -20,7 +20,12 @@ Phases, each printed as it runs; any failure exits non-zero:
             and ragged shapes a group with every route dropped). Both
             decode kernels also with a sliding window (``WINDOWS``: lengths
             below, at and past it, a window of one key), against their
-            plain versions and paged == slotted bit for bit.
+            plain versions and paged == slotted bit for bit. The prefill
+            attention kernel against its plain version
+            (``PREFILL_ATTN_CHECKS``: tinyllama's admission after the
+            corpus and a prefill chunk, granite's and mistral-large's
+            heads, whisper's encoder, a sliding window, rows with no valid
+            key), bf16 (2e-2).
   3. serve  ``repro_torch.launch.serve.serve``: tinyllama-1.1b at full width
             and depth, random weights from a seed, a 65,536-token shared
             corpus (32 chunks of 2,048; top-8 routing), 128 requests of 256
@@ -118,8 +123,12 @@ Phases, each printed as it runs; any failure exits non-zero:
             the dense ``lse_merge`` beside ``outs.sum(dim=0)`` (the same
             bytes read, an output of the same size written); the routed
             merge beside the gather chain it replaced, and the pair merge
-            beside stack + dense merge, each chain timed as one; and the
-            int8 entry at phase 3c's served prefill, qd (32, 8,192, 32, 64).
+            beside stack + dense merge, each chain timed as one; the
+            int8 entry at phase 3c's served prefill, qd (32, 8,192, 32, 64);
+            and the prefill attention kernel at 896 and 2,048 tokens (96
+            heads over 8, D 128), 896 (16 over 8, D 64) and a 32,768-token
+            registration, beside its bound, its plain version and SDPA on
+            K/V expanded to every head (a yardstick the port never calls).
   6. profile one decode step at the served shapes under torch.profiler:
             device time by kernel, and the device's idle share; then one
             paged decode step. Both must run the bf16 tensor-core shared
@@ -424,7 +433,33 @@ SOURCES = {
     "shared_chunk_attention_q8": (
         "src/repro_torch/kernels/csrc/shared_chunk_attn.cu",
         "src/repro/kernels/shared_chunk_attn.py:188"),
+    "flash_prefill_attention": (
+        "src/repro_torch/kernels/csrc/flash_prefill_attn.cu",
+        "none (src/repro/models/layers.py::flash_attention is jnp)"),
 }
+
+# phase 2's checks of the prefill kernel: (label, B, Sq, Sk, H, KH, D,
+# causal, q_offset, kv_offset, kv_len, window): tinyllama's admission
+# after the corpus and a prefill chunk against its context, granite's and
+# mistral-large's heads, whisper's encoder (non-causal), a sliding window,
+# and rows with no valid key (queries before every key)
+PREFILL_ATTN_CHECKS = (
+    ("admission", 1, PROMPT, PROMPT, 32, 4, 64, True, CORPUS, CORPUS, None,
+     0),
+    ("chunk", 1, 512, 1024, 32, 4, 64, True, CORPUS + 512, CORPUS, 1000, 0),
+    ("granite", 2, 896, 896, 16, 8, 64, True, 0, 0, None, 0),
+    ("mistral-large", 1, 896, 896, 96, 8, 128, True, 0, 0, None, 0),
+    ("whisper encoder", 2, 1500, 1500, 6, 6, 64, False, 0, 0, None, 0),
+    ("window", 2, 300, 300, 32, 8, 128, True, 0, 0, None, 100),
+    ("no valid key", 2, 70, 70, 8, 2, 64, True, 0, 20, None, 0),
+)
+# phase 5's rows of the prefill kernel: (label, Sq, H, KH, D), one causal
+# sequence; the 2,048-token row is the kernels' JSON line's
+PREFILL_ATTN_TIMES = (("mistral-large, 896 tokens", 896, 96, 8, 128),
+                      ("mistral-large, 2,048 tokens", 2048, 96, 8, 128),
+                      ("granite, 896 tokens", 896, 16, 8, 64),
+                      ("registration, 32,768 tokens", 32768, 96, 8, 128))
+PREFILL_ATTN_ROW = 1
 
 
 def plain_versions():
@@ -755,7 +790,47 @@ def phase_check(cfg, dev):
             for name, err in check_kernels(inputs, dtype, label).items():
                 if label != "ragged" and dtype == torch.bfloat16:
                     errs[name] = max(errs.get(name, 0.0), err)
+    errs["flash_prefill_attention"] = check_prefill_attention(dev)
     return errs
+
+
+def prefill_attention_inputs(dev, B, Sq, Sk, H, KH, D, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device=dev)
+                 .to(torch.bfloat16) for shape in
+                 ((B, Sq, H, D), (B, Sk, KH, D), (B, Sk, KH, D)))
+
+
+def check_prefill_attention(dev):
+    """The prefill kernel against its plain version at each of
+    ``PREFILL_ATTN_CHECKS``, bf16 (2e-2), out and lse; a row with no valid
+    key must hold lse -1e30 in both. Returns the largest error."""
+    from repro_torch.kernels import ops, ref
+    worst = 0.0
+    for label, B, Sq, Sk, H, KH, D, causal, qo, ko, n, w in \
+            PREFILL_ATTN_CHECKS:
+        q, k, v = prefill_attention_inputs(dev, B, Sq, Sk, H, KH, D)
+        args = (q, k, v, causal, qo, ko, n, w)
+        got = ops.flash_prefill_attention(*args)
+        torch.cuda.synchronize()
+        want = ref.flash_prefill_attention_ref(*args)
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(got, want))
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a.float(), b.float(), rtol=2e-2,
+                                       atol=2e-2)
+        none = int((want[1] == -1e30).sum())
+        check(bool((got[1] == -1e30).eq(want[1] == -1e30).all()),
+              ("prefill kernel: rows with no valid key", label))
+        say(f"[check] flash_prefill_attention {label:15s} bfloat16 "
+            f"max_abs_err={err:.3e} tol=0.02 ok (q {tuple(q.shape)}, k "
+            f"{tuple(k.shape)}, causal={causal}, q_offset={qo}, "
+            f"kv_offset={ko}, kv_len={n}, window={w}; rows with no valid "
+            f"key {none})")
+        worst = max(worst, err)
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return worst
 
 
 def check_kernels(inputs, dtype, label, tag="check"):
@@ -821,15 +896,18 @@ def check_window(inputs, dtype, label, window):
 
 
 def expected_launches(L, steps, routed, unique,
-                      shared="shared_chunk_attention"):
+                      shared="shared_chunk_attention", prefills=0):
     """Launch counts a run must show: per layer, every call with a routed
     shared partial (decode step, bucketed prefill, prefill chunk) launches
     router_scores and the shared kernel once and lse_merge twice (K-chunk
     merge, unique + shared merge); every decode step also launches the
-    unique decode kernel of its layout once."""
+    unique decode kernel of its layout once; each of the ``prefills``
+    prefill calls (bucketed prefill, prefill chunk, corpus registration)
+    launches the prefill attention kernel once."""
     want = dict.fromkeys(SOURCES, 0)
     want.update({"router_scores": L * routed, "lse_merge": 2 * L * routed,
-                 shared: L * routed, unique: L * steps})
+                 shared: L * routed, unique: L * steps,
+                 "flash_prefill_attention": L * prefills})
     return want
 
 
@@ -853,9 +931,10 @@ def phase_serve(cfg, argv=SERVE_ARGV, requests=REQUESTS,
     steps, prefills = summary["decode_steps"], summary["prefills"]
     # per layer: a decode step launches each kernel once and lse_merge twice
     # (K-chunk merge, unique + shared merge); a routed prefill launches all
-    # but the unique decode kernel
+    # but the unique decode kernel, and the prefill attention kernel, as
+    # the corpus registration does
     want = expected_launches(L, steps, routed=steps + prefills,
-                             unique=unique)
+                             unique=unique, prefills=prefills + 1)
     say(f"[{tag}] launches {json.dumps(counts)}")
     say(f"[{tag}] expected {json.dumps(want)}")
     check(summary["finished"] == requests, ("finished", summary["finished"]))
@@ -932,7 +1011,8 @@ def phase_paged(cfg, dev):
     steps = c["engine/decode_steps"]
     routed = (steps + c["engine/prefills"] - c["engine/chunked_prefills"]
               + c["engine/prefill_chunks"])
-    want = expected_launches(L, steps, routed, unique="paged_decode_attention")
+    want = expected_launches(L, steps, routed, unique="paged_decode_attention",
+                             prefills=routed - steps)
     say(f"[paged] launches {json.dumps(counts)}")
     say(f"[paged] expected {json.dumps(want)}")
     check(c["kvcache/prefix_hits"] >= REQUESTS // 2 and
@@ -1024,7 +1104,7 @@ def phase_tier(cfg, dev, params):
                                  for r in done}
                 want = expected_launches(
                     L, d["decode_steps"], d["decode_steps"] + d["prefills"],
-                    unique="paged_decode_attention")
+                    unique="paged_decode_attention", prefills=d["prefills"])
                 say(f"[tier] {name} pass {p}: {json.dumps(d)}")
                 check(len(done) == TIER_PROMPTS and
                       all(len(r.generated) == NEW_TOKENS for r in done),
@@ -1225,7 +1305,7 @@ def phase_q8(cfg, dev, params, store):
     counts = ops.launch_counts()
     want = expected_launches(L, NEW_TOKENS, routed=NEW_TOKENS + 1,
                              unique="decode_attention",
-                             shared="shared_chunk_attention_q8")
+                             shared="shared_chunk_attention_q8", prefills=1)
     say(f"[q8] launches {json.dumps(counts)}")
     say(f"[q8] expected {json.dumps(want)}")
     check(counts == want, ("q8 launch counts", counts, want))
@@ -1641,7 +1721,7 @@ def serve_width(cfg, dev):
         walls.append(time.perf_counter() - t0)
     counts = ops.launch_counts()
     want = expected_launches(cfg.num_layers, steps, routed=steps + 1,
-                             unique="decode_attention")
+                             unique="decode_attention", prefills=1)
     say(f"[widths] {cfg.name} ({cfg.num_layers} layers, {cfg.num_heads} "
         f"heads over {cfg.num_kv_heads}, D {cfg.head_dim}, d_model "
         f"{cfg.d_model}): launches {json.dumps(counts)}")
@@ -1870,7 +1950,13 @@ def family_audio(cfg, dev, errs):
     logits, _ = model.prefill(params, prompts, cache, frontend_embeds=frames)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
-    check(not any(ops.launch_counts().values()), "whisper prefill launches")
+    # the prefill attention kernel, once in each encoder layer and twice in
+    # each decoder layer (self and cross); nothing else
+    want = dict.fromkeys(SOURCES, 0)
+    want["flash_prefill_attention"] = (cfg.encoder.num_layers
+                                       + 2 * cfg.num_layers)
+    check(ops.launch_counts() == want,
+          ("whisper prefill launches", ops.launch_counts(), want))
     store = build_store(cache["cross_k"][:, 0], cache["cross_v"][:, 0],
                         cfg.moska.chunk_size)
     check(store.num_chunks == F_ // cfg.moska.chunk_size and
@@ -2145,7 +2231,44 @@ def phase_time(cfg, dev, counts, errs):
     time_prefill(cfg, dev)
     time_q8_served_prefill(cfg, dev)
     time_merge_entries(cfg, dev)
+    rows.append(time_prefill_attention(dev, counts, errs))
     return rows
+
+
+def time_prefill_attention(dev, counts, errs):
+    """The prefill kernel at each of ``PREFILL_ATTN_TIMES`` (one causal
+    sequence), beside its bound, its plain version and, as a yardstick
+    only (the port never calls it), SDPA on K/V expanded to every query
+    head beforehand; returns the kernels' JSON row of the 2,048-token
+    shape."""
+    from repro_torch.kernels import ops, ref
+    name = "flash_prefill_attention"
+    out = None
+    for i, (label, S, H, KH, D) in enumerate(PREFILL_ATTN_TIMES):
+        q, k, v = prefill_attention_inputs(dev, 1, S, S, H, KH, D, seed=2)
+        ms = _time_ms(lambda: ops.flash_prefill_attention(q, k, v))
+        plain_ms = _time_ms(lambda: ref.flash_prefill_attention_ref(q, k, v),
+                            n=2 if S > 4096 else 10)
+        q4, k4, v4 = (x.transpose(1, 2).repeat_interleave(H // x.shape[2],
+                                                          dim=1).contiguous()
+                      for x in (q, k, v))
+        sdpa_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True))
+        bound_ms, bound_by = _bound(name, (q, k, v))
+        say(f"[time] {name} {label}: ms={ms:.4f} bound_ms={bound_ms:.4f} "
+            f"({bound_by}, {100 * bound_ms / ms:.1f} % of it) plain_ms="
+            f"{plain_ms:.4f} SDPA_ms={sdpa_ms:.4f} (yardstick, K/V expanded "
+            f"to {H} heads) shapes={[tuple(a.shape) for a in (q, k, v)]}")
+        if i == PREFILL_ATTN_ROW:
+            src, replaces = SOURCES[name]
+            out = {"name": name, "route": "cuda", "source": src,
+                   "replaces": replaces, "launches": counts[name],
+                   "max_abs_err": errs[name], "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "library_ms": sdpa_ms}
+        del q, k, v, q4, k4, v4
+        torch.cuda.empty_cache()
+    return out
 
 
 def time_q8_served_prefill(cfg, dev):

@@ -48,6 +48,7 @@ SIGNATURES = {
     "moska_lse_merge_routed": [_p, _p, _p, _p, _p, ctypes.c_long,
                                _i, _i, _i, _i, _i, _p],
     "moska_router_scores": [_p, _p, _p, _i, _i, _i, _i, _i, _i, _p],
+    "moska_flash_prefill_attn": [_p, _p, _p, _p, _p, *[_i] * 13, _p],
 }
 
 

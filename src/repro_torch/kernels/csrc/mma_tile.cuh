@@ -4,9 +4,11 @@
 // ring of stages, so the copy of tile t + 1 overlaps the products of tile
 // t. Used by shared_chunk_attn.cu for bf16 queries (rows = dispatched
 // queries x group heads, keys = one shared chunk, bf16 or int8 with
-// scales).
+// scales) and by flash_prefill_attn.cu (rows = positions x group heads,
+// keys = the causal band of one sequence).
 //
-// A block is 4 warps over 64 query rows, 16 rows a warp. The warp keeps
+// A block is 4 warps over 64 M query rows, M atoms of 16 rows a warp (the
+// shared kernel's M is 1). The warp keeps
 // its Q fragments, its 16 x D output sum and its softmax state in
 // registers; S = Q K^T goes from the accumulator fragments straight into
 // the A fragments of P V, with no trip through shared memory. Every shared
@@ -17,10 +19,13 @@
 // StridedQ8KV below): issue(stage, t0, n) starts the copies of keys
 // [t0, t0 + 64), zero-filling rows past n; prepare(stage, scratch) is
 // called once the stage has landed and returns the bf16 tiles to read.
+// Which scores count is a mask policy (KeysBelow below; the prefill's
+// causal band in flash_prefill_attn.cu).
 //
 // Numerics: products of bf16 values are exact in the fp32 sums; scores,
 // the running max and the denominator stay fp32. The one extra rounding
-// against attn_tile.cuh is P to bf16 before P V, as in FlashAttention-2.
+// against attn_tile.cuh is P to bf16 before P V, as in FlashAttention-2;
+// a probability below 2^-126 is 0 (exp2_ftz).
 #pragma once
 
 #include "common.cuh"
@@ -28,7 +33,7 @@
 namespace moska {
 
 constexpr int kMmaThreads = 128;  // 4 warps
-constexpr int kMmaRows = 64;      // query rows per block: 16 per warp
+constexpr int kMmaRows = 64;      // query rows of one atom a warp
 constexpr int kMmaKeys = 64;      // keys per K/V stage
 
 // shared row of D bf16 values, padded by 8 values (16 bytes)
@@ -66,9 +71,12 @@ struct StridedBf16KV {
 
   __device__ __forceinline__ void issue(char* stage, int t0, int n) const {
     constexpr int kChunks = D / 8;  // 16-byte chunks of a row
+    static_assert(kMmaKeys * kChunks % kMmaThreads == 0, "whole rounds");
     auto* ks = reinterpret_cast<__nv_bfloat16*>(stage);
     auto* vs = ks + kMmaKeys * mma_ld<D>();
-    for (int i = threadIdx.x; i < kMmaKeys * kChunks; i += kMmaThreads) {
+#pragma unroll
+    for (int r = 0; r < kMmaKeys * kChunks / kMmaThreads; ++r) {
+      const int i = threadIdx.x + r * kMmaThreads;
       const int j = i / kChunks, c = i % kChunks;
       const bool in = t0 + j < n;
       const long o = (in ? (long)(t0 + j) * stride : 0) + c * 8;
@@ -148,67 +156,100 @@ struct StridedQ8KV {
   }
 };
 
-// Shared memory of one block: the Q tile, the ring of K/V stages, and the
-// source's scratch, in bytes.
-template <int D, typename Src>
+// Shared memory of one block of R query rows: the Q tile, the ring of K/V
+// stages, and the source's scratch, in bytes.
+template <int D, typename Src, int R = kMmaRows>
 __host__ __device__ constexpr int mma_smem_bytes() {
-  return mma_tile_bytes<D>() + mma_stages<D>() * Src::kStageBytes +
-         Src::kScratchBytes;
+  return R / kMmaRows * mma_tile_bytes<D>() +
+         mma_stages<D>() * Src::kStageBytes + Src::kScratchBytes;
 }
 
-// One warp's share of a block: 16 query rows (tile rows 16 w .. 16 w + 15)
-// against keys [0, n). Lane l holds rows g = l / 4 and g + 8 of its 16
-// and, of each 8-column block, columns 2 (l % 4) + 0,1. On return o holds
-// the unnormalised output of those entries (o[b] is column block b), m the
-// row max of the scaled scores in log2 units and l the row denominator,
-// both per row (0: row g, 1: row g + 8) and complete in every lane.
-template <int D>
-struct MmaRows {
-  float o[D / 8][4];
-  float m[2];
-  float l[2];
+// The mask of keys [0, n): every score of a key below n counts, for every
+// row. A mask policy answers full(t0): whether every score of keys
+// [t0, t0 + 64) counts for every row of the block (then none is looked
+// at), and (h, key, x): the score x of this lane's row h (2 a: row g of
+// the warp's 16-row atom a, 2 a + 1: row g + 8) against key `key`, or what
+// replaces it.
+struct KeysBelow {
+  int n;
+  __device__ __forceinline__ bool full(int t0) const {
+    return t0 + kMmaKeys <= n;
+  }
+  __device__ __forceinline__ float operator()(int, int key, float x) const {
+    return key < n ? x : kNegInf;
+  }
 };
 
-// Attend the block's 64 query rows, already copied into sq (padded, bf16,
-// unscaled; the caller has committed those copies as one cp.async group),
-// to keys [0, n) that `src` reads. scale_log2 = log2(e) / sqrt(D). Every
-// thread of the block must call it.
-template <int D, typename Src>
+// One warp's share of a block: M atoms of 16 query rows (atom a holds tile
+// rows 16 (M w + a) .. + 15) against the keys the block visits. Lane l
+// holds rows g = l / 4 and g + 8 of each atom and, of each 8-column block,
+// columns 2 (l % 4) + 0,1. On return o[a] holds the unnormalised output
+// of those entries of atom a (o[a][b] is column block b), m the row max of
+// the scaled scores in log2 units and l the row denominator, both per row
+// (m[a][0]: row g, m[a][1]: row g + 8) and complete in every lane.
+template <int D, int M = 1>
+struct MmaRows {
+  float o[M][D / 8][4];
+  float m[M][2];
+  float l[M][2];
+};
+
+// Attend the block's 64 M query rows, already copied into sq (padded,
+// bf16, unscaled; the caller has committed those copies as one cp.async
+// group), to keys [k0, n) that `src` reads, in tiles of 64 from k0 (the
+// last one's keys past n read as zeros), under `mask`. scale_log2 =
+// log2(e) / sqrt(D). Every thread of the block must call it. A score the
+// mask replaces by -1e30 still counts in a row that has no other (p = 1,
+// as in the plain versions); one replaced by -inf never counts. With one
+// atom a warp (M = 1) the Q fragments stay in registers; with two, each
+// K and V fragment feeds both atoms' products, which halves the shared
+// memory read a product, and the Q fragments are read again from sq for
+// every tile (registers hold the two atoms' outputs instead).
+template <int D, int M = 1, typename Src, typename Mask>
 __device__ __forceinline__ void attend_rows_mma(const __nv_bfloat16* sq,
                                                 char* ring, char* scratch,
-                                                const Src& src, int n,
+                                                const Src& src, int k0, int n,
+                                                const Mask& mask,
                                                 float scale_log2,
-                                                MmaRows<D>& acc) {
+                                                MmaRows<D, M>& acc) {
   constexpr int S = mma_stages<D>();
   constexpr int LD = mma_ld<D>();
+  constexpr bool kQInRegs = M == 1;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int t = lane & 3;  // column pair of the C fragments
-  const int nt = (n + kMmaKeys - 1) / kMmaKeys;
+  const int nt = n > k0 ? (n - k0 + kMmaKeys - 1) / kMmaKeys : 0;
 
   // prologue: tiles 0 .. S-2, one group each (empty groups past the end
   // keep the count uniform)
 #pragma unroll
   for (int s = 0; s < S - 1; ++s) {
-    if (s < nt) src.issue(ring + s * Src::kStageBytes, s * kMmaKeys, n);
+    if (s < nt)
+      src.issue(ring + s * Src::kStageBytes, k0 + s * kMmaKeys, n);
     cp_async_commit();
   }
   // the Q group is the oldest; S - 1 tile groups may stay in flight
   cp_async_wait<S - 1>();
   __syncthreads();
-  uint32_t qa[D / 16][4];
-  {
-    const __nv_bfloat16* qr = sq + (warp * 16 + (lane & 15)) * LD +
-                              (lane >> 4) * 8;
+  // lane's ldmatrix row of each atom's Q
+  const __nv_bfloat16* qr[M];
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) ldsm_x4(qa[kk], qr + kk * 16);
+  for (int a = 0; a < M; ++a)
+    qr[a] = sq + ((warp * M + a) * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
+  uint32_t qa[kQInRegs ? D / 16 : 1][4];
+  if constexpr (kQInRegs) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) ldsm_x4(qa[kk], qr[0] + kk * 16);
   }
 
 #pragma unroll
-  for (int b = 0; b < D / 8; ++b)
-    acc.o[b][0] = acc.o[b][1] = acc.o[b][2] = acc.o[b][3] = 0.f;
-  acc.m[0] = acc.m[1] = kNegInf;
-  acc.l[0] = acc.l[1] = 0.f;  // this lane's partial sums until the end
+  for (int a = 0; a < M; ++a) {
+#pragma unroll
+    for (int b = 0; b < D / 8; ++b)
+      acc.o[a][b][0] = acc.o[a][b][1] = acc.o[a][b][2] = acc.o[a][b][3] = 0.f;
+    acc.m[a][0] = acc.m[a][1] = kNegInf;
+    acc.l[a][0] = acc.l[a][1] = 0.f;  // this lane's partial sums until the end
+  }
 
   for (int it = 0; it < nt; ++it) {
     // tile it has landed (for every thread, after the barrier), and every
@@ -217,72 +258,129 @@ __device__ __forceinline__ void attend_rows_mma(const __nv_bfloat16* sq,
     __syncthreads();
     if (it + S - 1 < nt)
       src.issue(ring + ((it + S - 1) % S) * Src::kStageBytes,
-                (it + S - 1) * kMmaKeys, n);
+                k0 + (it + S - 1) * kMmaKeys, n);
     cp_async_commit();
     const MmaKV kv = src.prepare(ring + (it % S) * Src::kStageBytes, scratch);
-    const int t0 = it * kMmaKeys;
+    const int t0 = k0 + it * kMmaKeys;
 
     // S = Q K^T: 8 column blocks of 8 keys; one ldmatrix.x4 gives the B
     // fragments of two blocks at one 16-wide step of D
-    float s[8][4];
+    float s[M][8][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    for (int a = 0; a < M; ++a)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        s[a][j][0] = s[a][j][1] = s[a][j][2] = s[a][j][3] = 0.f;
     {
       const __nv_bfloat16* kr =
           kv.k + ((lane & 7) + ((lane >> 4) << 3)) * LD + ((lane >> 3) & 1) * 8;
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t qk[M][4];
+#pragma unroll
+        for (int a = 0; a < M; ++a) {
+          if constexpr (kQInRegs) {
+#pragma unroll
+            for (int r = 0; r < 4; ++r) qk[a][r] = qa[kk][r];
+          } else {
+            ldsm_x4(qk[a], qr[a] + kk * 16);
+          }
+        }
 #pragma unroll
         for (int jp = 0; jp < 4; ++jp) {
           uint32_t b[4];
           ldsm_x4(b, kr + jp * 16 * LD + kk * 16);
-          mma_bf16(s[2 * jp], qa[kk], b[0], b[1]);
-          mma_bf16(s[2 * jp + 1], qa[kk], b[2], b[3]);
+#pragma unroll
+          for (int a = 0; a < M; ++a) {
+            mma_bf16(s[a][2 * jp], qk[a], b[0], b[1]);
+            mma_bf16(s[a][2 * jp + 1], qk[a], b[2], b[3]);
+          }
         }
       }
     }
 
-    // scale (and the int8 store's k_scale) in fp32, mask keys past n, and
-    // the online softmax in log2 units; entry e of block j is row
-    // g + 8 (e / 2), key 8 j + 2 t + e % 2
-    float mx[2] = {kNegInf, kNegInf};
+    // the online softmax in log2 units; entry e of block j of atom a is
+    // row g + 8 (e / 2), key t0 + 8 j + 2 t + e % 2. A tile whose every
+    // score counts (and no int8 scale) takes the max of the raw scores and
+    // folds the scale into the exponent's FFMA; any other scales each
+    // score in fp32 (times the int8 store's k_scale), masks it where the
+    // tile needs it, and takes the max of those
+    const bool whole = mask.full(t0);
+    const bool fold = whole && !kv.k_scale;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int a = 0; a < M; ++a) {
+      if (!fold) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = 8 * j + 2 * t + (e & 1);
-        float x = s[j][e] * scale_log2;
-        if (kv.k_scale) x *= kv.k_scale[key];
-        x = (t0 + key < n) ? x : kNegInf;
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = 8 * j + 2 * t + (e & 1);
+            float x = s[a][j][e] * scale_log2;
+            if (kv.k_scale) x *= kv.k_scale[key];
+            s[a][j][e] = x;
+          }
+        }
+        if (!whole) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              s[a][j][e] = mask(2 * a + (e >> 1), t0 + 8 * j + 2 * t + (e & 1),
+                                s[a][j][e]);
+        }
       }
-    }
-    float corr[2];
+      float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(acc.m[r], mx[r]);
-      corr[r] = exp2f(acc.m[r] - m_new);
-      acc.m[r] = m_new;
-      acc.l[r] *= corr[r];
-    }
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+        for (int e = 0; e < 4; ++e)
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[a][j][e]);
+      float corr[2];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[j][e] - acc.m[e >> 1]);
-        acc.l[e >> 1] += p;
-        s[j][e] = p;
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        if (fold) mx[r] *= scale_log2;
+        const float m_new = fmaxf(acc.m[a][r], mx[r]);
+        corr[r] = exp2_ftz(acc.m[a][r] - m_new);
+        acc.m[a][r] = m_new;
+        acc.l[a][r] *= corr[r];
       }
-    }
+      // a row whose max held keeps corr = 1: skip the multiply when no
+      // row of the warp's atom moved (the result is the same)
+      const bool moved =
+          __any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f);
+      if (fold) {
 #pragma unroll
-    for (int b = 0; b < D / 8; ++b) {
-      acc.o[b][0] *= corr[0];
-      acc.o[b][1] *= corr[0];
-      acc.o[b][2] *= corr[1];
-      acc.o[b][3] *= corr[1];
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = exp2_ftz(
+                fmaf(s[a][j][e], scale_log2, -acc.m[a][e >> 1]));
+            acc.l[a][e >> 1] += p;
+            s[a][j][e] = p;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = exp2_ftz(s[a][j][e] - acc.m[a][e >> 1]);
+            acc.l[a][e >> 1] += p;
+            s[a][j][e] = p;
+          }
+        }
+      }
+      if (moved) {
+#pragma unroll
+        for (int b = 0; b < D / 8; ++b) {
+          acc.o[a][b][0] *= corr[0];
+          acc.o[a][b][1] *= corr[0];
+          acc.o[a][b][2] *= corr[1];
+          acc.o[a][b][3] *= corr[1];
+        }
+      }
     }
 
     // O += P V, 16 keys a step: P's A fragments are the score blocks
@@ -301,19 +399,25 @@ __device__ __forceinline__ void attend_rows_mma(const __nv_bfloat16* sq,
             vs[h][1] = kv.v_scale[16 * ks + 8 * h + 2 * t + 1];
           }
         }
-        const float(&p0)[4] = s[2 * ks];
-        const float(&p1)[4] = s[2 * ks + 1];
-        const uint32_t pa[4] = {
-            pack_bf16(p0[0] * vs[0][0], p0[1] * vs[0][1]),
-            pack_bf16(p0[2] * vs[0][0], p0[3] * vs[0][1]),
-            pack_bf16(p1[0] * vs[1][0], p1[1] * vs[1][1]),
-            pack_bf16(p1[2] * vs[1][0], p1[3] * vs[1][1])};
+        uint32_t pa[M][4];
+#pragma unroll
+        for (int a = 0; a < M; ++a) {
+          const float(&p0)[4] = s[a][2 * ks];
+          const float(&p1)[4] = s[a][2 * ks + 1];
+          pa[a][0] = pack_bf16(p0[0] * vs[0][0], p0[1] * vs[0][1]);
+          pa[a][1] = pack_bf16(p0[2] * vs[0][0], p0[3] * vs[0][1]);
+          pa[a][2] = pack_bf16(p1[0] * vs[1][0], p1[1] * vs[1][1]);
+          pa[a][3] = pack_bf16(p1[2] * vs[1][0], p1[3] * vs[1][1]);
+        }
 #pragma unroll
         for (int dp = 0; dp < D / 16; ++dp) {
           uint32_t b[4];
           ldsm_x4_t(b, vr + ks * 16 * LD + dp * 16);
-          mma_bf16(acc.o[2 * dp], pa, b[0], b[1]);
-          mma_bf16(acc.o[2 * dp + 1], pa, b[2], b[3]);
+#pragma unroll
+          for (int a = 0; a < M; ++a) {
+            mma_bf16(acc.o[a][2 * dp], pa[a], b[0], b[1]);
+            mma_bf16(acc.o[a][2 * dp + 1], pa[a], b[2], b[3]);
+          }
         }
       }
     }
@@ -321,9 +425,12 @@ __device__ __forceinline__ void attend_rows_mma(const __nv_bfloat16* sq,
   // no copy may be in flight when the block exits or reuses the ring
   cp_async_wait<0>();
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    acc.l[r] += __shfl_xor_sync(0xffffffffu, acc.l[r], 1);
-    acc.l[r] += __shfl_xor_sync(0xffffffffu, acc.l[r], 2);
+  for (int a = 0; a < M; ++a) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      acc.l[a][r] += __shfl_xor_sync(0xffffffffu, acc.l[a][r], 1);
+      acc.l[a][r] += __shfl_xor_sync(0xffffffffu, acc.l[a][r], 2);
+    }
   }
 }
 

@@ -158,8 +158,8 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
   char* scratch = ring + mma_stages<D>() * Src::kStageBytes;
   MmaRows<D> acc;
   attend_rows_mma<D>(sq, ring, scratch,
-                     chunks.template mma_seq<D>(e, kh, C, KH), C, scale_log2,
-                     acc);
+                     chunks.template mma_seq<D>(e, kh, C, KH), 0, C,
+                     KeysBelow{C}, scale_log2, acc);
 
   // epilogue: lane holds rows g and g + 8 of its warp's 16, columns
   // 8 b + 2 t + 0,1 of each column block b
@@ -172,14 +172,14 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
     const int row = row0 + r;
     const long o = row_offset(e, kh, row, cap, H, G);
     const bool valid = mask[row / G];
-    const float l = fmaxf(acc.l[h], 1e-37f);
+    const float l = fmaxf(acc.l[0][h], 1e-37f);
     const float inv = valid ? 1.f / l : 0.f;
     __nv_bfloat16* orow = out + o * D + 2 * t;
 #pragma unroll
     for (int b = 0; b < D / 8; ++b)
       *reinterpret_cast<uint32_t*>(orow + 8 * b) =
-          pack_bf16(acc.o[b][2 * h] * inv, acc.o[b][2 * h + 1] * inv);
-    if (t == 0) lse[o] = valid ? acc.m[h] * kLn2 + logf(l) : kNegInf;
+          pack_bf16(acc.o[0][b][2 * h] * inv, acc.o[0][b][2 * h + 1] * inv);
+    if (t == 0) lse[o] = valid ? acc.m[0][h] * kLn2 + logf(l) : kNegInf;
   }
 }
 

@@ -25,6 +25,7 @@ from repro_torch.kernels.build import library
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}   # csrc/common.cuh DType
 _HEAD_DIMS = (16, 32, 64, 128)
 _MAX_GROUP = 64        # query heads per kv head the decode kernel takes
+PREFILL_HEAD_DIMS = (64, 128)   # the prefill kernel's builds
 
 
 def _traced(name: str, args, *outs):
@@ -377,8 +378,60 @@ def router_scores(q: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def flash_prefill_attention(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, causal: bool = True,
+                            q_offset: int = 0, kv_offset: int = 0,
+                            kv_len=None, window: int = 0,
+                            block_q: int = ref.FLASH_BLOCK,
+                            block_k: int = ref.FLASH_BLOCK
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Causal (or not) attention of q (B, Sq, H, D) over k/v (B, Sk, KH,
+    D), bf16: query i at position ``q_offset + i``, key j at ``kv_offset +
+    j``, keys at or past ``kv_len`` (an int, or None for Sk) masked, a
+    sliding ``window`` if > 0; ``block_q``/``block_k``: the plain
+    version's blocks, which decide what a row with no valid key averages.
+    Returns (out (B, Sq, H, D) bf16, lse (B, Sq, H) fp32)."""
+    if isinstance(q, FakeTensor):
+        return _traced("flash_prefill_attention",
+                       (q, k, v, causal, q_offset, kv_offset, kv_len,
+                        window), torch.empty_like(q),
+                       q.new_empty(q.shape[:3], dtype=torch.float32))
+    if _on_cpu(q):
+        return ref.flash_prefill_attention_ref(q, k, v, causal, q_offset,
+                                               kv_offset, kv_len, window,
+                                               block_q, block_k)
+    name = "flash_prefill_attention"
+    _window(name, window)
+    B, Sq, H, D = q.shape
+    _, Sk, KH, _ = k.shape
+    if k.shape != (B, Sk, KH, D) or v.shape != k.shape or H % KH:
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)} v {tuple(v.shape)}")
+    if D not in PREFILL_HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {D} not in {PREFILL_HEAD_DIMS}")
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: q is {q.dtype}, expected bfloat16")
+    if block_q < 1 or block_k < 1:
+        raise ValueError(f"{name}: blocks {block_q}, {block_k}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _check(name, q.dtype, q.device, q=q, k=k, v=v)
+    _aligned16(name, q=q, k=k, v=v)
+    out = torch.empty_like(q)
+    lse = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
+    if out.numel() == 0 or Sk == 0:
+        raise ValueError(f"{name}: empty input")
+    _raise_on(name, library().moska_flash_prefill_attn(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse), B, Sq, Sk, H, KH,
+        D, int(causal), int(q_offset), int(kv_offset),
+        Sk if kv_len is None else int(kv_len), int(window), int(block_q),
+        int(block_k), _stream()))
+    flash_prefill_attention.launches += 1
+    return out, lse
+
+
 KERNELS = (shared_chunk_attention, decode_attention, lse_merge,
-           router_scores, paged_decode_attention, shared_chunk_attention_q8)
+           router_scores, paged_decode_attention, shared_chunk_attention_q8,
+           flash_prefill_attention)
 for _fn in KERNELS:
     _fn.launches = 0
 

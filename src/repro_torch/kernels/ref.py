@@ -15,6 +15,8 @@ import torch
 from repro_torch.kvcache.paged import gather_layer
 
 NEG_INF = -1e30
+#: the blocks of ``flash_prefill_attention_ref``'s loop, over queries and keys
+FLASH_BLOCK = 1024
 
 
 def shared_chunk_attention_ref(qd: torch.Tensor, k: torch.Tensor,
@@ -146,6 +148,76 @@ def lse_merge_routed_ref(od: torch.Tensor, lsed: torch.Tensor,
     lsed (R, Q, H), lin (G, K): ``lse_merge_ref`` of ``routed_partials``.
     Returns (out (G * Q, H, D) in od.dtype, lse (G * Q, H) fp32)."""
     return lse_merge_ref(*routed_partials(od, lsed, lin))
+
+
+def flash_prefill_attention_ref(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, causal: bool = True,
+                                q_offset: int = 0, kv_offset: int = 0,
+                                kv_len=None, window: int = 0,
+                                block_q: int = FLASH_BLOCK,
+                                block_k: int = FLASH_BLOCK
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Online-softmax attention blocked over queries and keys: the port's
+    ``layers.flash_attention`` for every input the kernel does not take.
+
+    q: (B, Sq, H, D); k/v: (B, Sk, KH, D). Same masks and arithmetic as
+    the reference (finite -1e30 masking, p cast to v.dtype before PV,
+    1e-37 clamps). The reference blocks only over keys; blocking over
+    queries as well keeps the live score block at (B, H, block_q,
+    block_k) fp32, so a 64K-token corpus prefill stays within a few GB.
+    Key blocks that lie wholly after a query block's last position are
+    skipped under causal masking: every row has already seen a valid key
+    in the first block, so they would add exactly zero. Returns (out
+    (B, Sq, H, D) in q.dtype, lse (B, Sq, H) fp32).
+    """
+    B, Sq, H, D = q.shape
+    _, Sk, KH, _ = k.shape
+    G = H // KH
+    scale = 1.0 / math.sqrt(D)
+    valid_len = Sk if kv_len is None else kv_len
+    dev = q.device
+    qg = q.reshape(B, Sq, KH, G, D)
+    outs, lses = [], []
+    for q0 in range(0, Sq, block_q):
+        qb = qg[:, q0:q0 + block_q]
+        nq = qb.shape[1]
+        q_pos = q_offset + q0 + torch.arange(nq, device=dev)
+        m = torch.full((B, KH, G, nq), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, KH, G, nq, D), dtype=torch.float32, device=dev)
+        for k0 in range(0, Sk, block_k):
+            if causal and kv_offset + k0 > q_offset + q0 + nq - 1:
+                break
+            kb = k[:, k0:k0 + block_k]
+            vb = v[:, k0:k0 + block_k]
+            nk = kb.shape[1]
+            k_idx = k0 + torch.arange(nk, device=dev)
+            k_pos = kv_offset + k_idx
+            s = torch.einsum("bqkgd,bskd->bkgqs", qb.float(),
+                             kb.float()) * scale
+            if causal:
+                mask = k_pos[None, :] <= q_pos[:, None]
+            else:
+                mask = torch.ones((nq, nk), dtype=torch.bool, device=dev)
+            if window:
+                mask &= k_pos[None, :] > (q_pos[:, None] - window)
+            mask &= (k_idx < valid_len)[None, :]
+            s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.einsum("bkgqs,bskd->bkgqd", p.to(vb.dtype).float(),
+                              vb.float())
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        l_safe = l.clamp_min(1e-37)
+        outs.append((acc / l_safe[..., None]).permute(0, 3, 1, 2, 4)
+                    .reshape(B, nq, H, D))
+        lses.append((m + torch.log(l_safe)).permute(0, 3, 1, 2)
+                    .reshape(B, nq, H))
+    return torch.cat(outs, dim=1).to(q.dtype), torch.cat(lses, dim=1)
 
 
 def router_scores_ref(q: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:

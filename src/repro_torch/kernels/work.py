@@ -4,10 +4,11 @@ written once), from its arguments' shapes.
 
 Operations are the products' multiply-adds, two to each, as the
 reference's counter counts dots and ``torch.utils.flop_counter`` counts
-the plain versions' matmuls: the shared and decode kernels' QK and PV,
-the router's dot of each kv head's folded queries with the chunk
-embeddings. The merges multiply no matrices: their operations are 0, and
-their bytes bound them.
+the plain versions' matmuls: the shared, decode and prefill kernels' QK
+and PV (the prefill's over its valid pairs alone), the router's dot of
+each kv head's folded queries with the chunk embeddings. The merges
+multiply no matrices: their operations are 0, and their bytes bound
+them.
 
 ``chip_smoke.py`` reads it for each kernel's bound (phase 5), and the dry
 run's counter (``launch/op_cost.py``) for every kernel call it traces, so
@@ -22,6 +23,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -102,12 +104,36 @@ def router_scores(q, emb) -> Tuple[float, float]:
     return 2.0 * G * E * KH * D, float(_nb(q) + _nb(emb) + G * E * 4)
 
 
+def flash_prefill_attention(q, k, v, causal: bool = True, q_offset: int = 0,
+                            kv_offset: int = 0, kv_len=None,
+                            window: int = 0) -> Tuple[float, float]:
+    """The valid (query, key) pairs' QK and PV, for every head; bytes: q,
+    the keys and values some row attends, the output and the lse. A row
+    with no valid key does no work (the kernel's average over its masked
+    keys is not counted). Counted from the shapes and offsets alone, in
+    numpy, so a dry run's fake tensors give it too."""
+    B, Sq, H, D = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    pos = q_offset + np.arange(Sq, dtype=np.int64)
+    hi = np.full(Sq, min(Sk, Sk if kv_len is None else kv_len), np.int64)
+    if causal:
+        hi = np.minimum(hi, pos - kv_offset + 1)
+    lo = (np.maximum(0, pos - window + 1 - kv_offset) if window
+          else np.zeros(Sq, np.int64))
+    valid = hi > lo
+    pairs = int((hi - lo)[valid].sum())
+    keys = int(hi[valid].max() - lo[valid].min()) if valid.any() else 0
+    byts = (2 * _nb(q) + 2 * B * keys * KH * D * k.element_size()
+            + B * Sq * H * 4)
+    return 4.0 * B * pairs * H * D, float(byts)
+
+
 #: every kernel entry of ``kernels/ops.py`` by name
 WORK: Dict[str, Callable[..., Tuple[float, float]]] = {
     f.__name__: f for f in (shared_chunk_attention, shared_chunk_attention_q8,
                             decode_attention, paged_decode_attention,
                             lse_merge, lse_merge_pair, lse_merge_routed,
-                            router_scores)}
+                            router_scores, flash_prefill_attention)}
 
 #: the counters that take each traced kernel call (``launch/op_cost.py``)
 _listeners: List[Callable[[str, float, float], None]] = []

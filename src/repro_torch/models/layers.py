@@ -4,26 +4,29 @@ Port of the reference ``models/layers.py``. Parameters are mappings
 (``nn.ParameterDict`` or plain dicts of tensors) with the reference names.
 Activations keep the parameter dtype with fp32 softmax/norm accumulation.
 ``decode_attention`` and ``merge_partial_attention`` go through the
-hand-written kernels (``repro_torch.kernels.ops``); ``flash_attention`` is
-plain PyTorch, as the reference's is jnp code.
+hand-written kernels (``repro_torch.kernels.ops``), and so does
+``flash_attention`` where its inputs allow (the reference's is jnp code).
 """
 from __future__ import annotations
 
 import functools
-import math
 from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils import checkpoint as ckpt
 
-from repro_torch.kernels import ops
+from repro_torch import obs
+from repro_torch.kernels import ops, ref
 from repro_torch.sharding.specs import lsc
 from repro_torch.sharding.tensor_parallel import split_heads
 
-DEFAULT_BLOCK_K = 1024
-DEFAULT_BLOCK_Q = 1024
-NEG_INF = -1e30
+DEFAULT_BLOCK_K = DEFAULT_BLOCK_Q = ref.FLASH_BLOCK
+NEG_INF = ref.NEG_INF
+#: registry counters of ``flash_attention``'s calls, by who computed them
+KERNEL_CALLS = "attn/prefill_kernel_calls"
+PLAIN_CALLS = "attn/prefill_plain_calls"
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -121,74 +124,54 @@ def qkv_project(x: torch.Tensor, p, num_heads: int, num_kv_heads: int,
             split_heads(v, num_kv_heads, head_dim))
 
 
+def _takes_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  kv_len) -> bool:
+    """Whether the ``flash_prefill_attention`` kernel takes these inputs:
+    CUDA tensors, q, k and v in bf16, a head dim it is built for, whole
+    groups of query heads, no DTensor, no autograd, an int kv_len or
+    none."""
+    ts = (q, k, v)
+    return (all(t.is_cuda and t.dtype == torch.bfloat16
+                and not isinstance(t, DTensor) for t in ts)
+            and q.shape[-1] in ops.PREFILL_HEAD_DIMS
+            and q.shape[2] % k.shape[2] == 0
+            and not (torch.is_grad_enabled()
+                     and any(t.requires_grad for t in ts))
+            and (kv_len is None or isinstance(kv_len, int)))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_offset: int = 0,
                     kv_offset: int = 0, kv_len=None, window: int = 0,
                     block_k: int = DEFAULT_BLOCK_K,
                     block_q: int = DEFAULT_BLOCK_Q,
                     return_lse: bool = False):
-    """Online-softmax attention blocked over queries and keys.
+    """Online-softmax attention of q (B, Sq, H, D) over k/v (B, Sk, KH, D):
+    query i at position ``q_offset + i``, key j at ``kv_offset + j``, keys
+    at or past ``kv_len`` masked, a sliding ``window`` if > 0. Same masks
+    and arithmetic as the reference (finite -1e30 masking, p cast to
+    v.dtype before PV, 1e-37 clamps); a row with no valid key averages
+    the keys of the ``block_k`` blocks the loop visits for its ``block_q``
+    block of queries.
 
-    q: (B, Sq, H, D); k/v: (B, Sk, KH, D). Same masks and arithmetic as
-    the reference (finite -1e30 masking, p cast to v.dtype before PV,
-    1e-37 clamps). The reference blocks only over keys; blocking over
-    queries as well keeps the live score block at (B, H, block_q,
-    block_k) fp32, so a 64K-token corpus prefill stays within a few GB.
-    Key blocks that lie wholly after a query block's last position are
-    skipped under causal masking: every row has already seen a valid key
-    in the first block, so they would add exactly zero.
+    One algorithm, adapted by what the inputs show. The
+    ``flash_prefill_attention`` kernel takes CUDA tensors with q, k and v
+    in bf16, D in ``ops.PREFILL_HEAD_DIMS``, H a multiple of KH, no
+    DTensor, no autograd (grad mode on with an input that requires grad)
+    and an int kv_len or none: the admission prefills, prefill chunks and
+    corpus registration. The blocked einsum
+    (``ref.flash_prefill_attention_ref``) takes everything else: the CPU,
+    fp32, the training step's autograd and other head dims. Each call adds
+    one to the registry's ``attn/prefill_kernel_calls`` or
+    ``attn/prefill_plain_calls``.
     """
-    B, Sq, H, D = q.shape
-    _, Sk, KH, _ = k.shape
-    G = H // KH
-    scale = 1.0 / math.sqrt(D)
-    valid_len = Sk if kv_len is None else kv_len
-    dev = q.device
-    qg = q.reshape(B, Sq, KH, G, D)
-    outs, lses = [], []
-    for q0 in range(0, Sq, block_q):
-        qb = qg[:, q0:q0 + block_q]
-        nq = qb.shape[1]
-        q_pos = q_offset + q0 + torch.arange(nq, device=dev)
-        m = torch.full((B, KH, G, nq), NEG_INF, dtype=torch.float32,
-                       device=dev)
-        l = torch.zeros_like(m)
-        acc = torch.zeros((B, KH, G, nq, D), dtype=torch.float32, device=dev)
-        for k0 in range(0, Sk, block_k):
-            if causal and kv_offset + k0 > q_offset + q0 + nq - 1:
-                break
-            kb = k[:, k0:k0 + block_k]
-            vb = v[:, k0:k0 + block_k]
-            nk = kb.shape[1]
-            k_idx = k0 + torch.arange(nk, device=dev)
-            k_pos = kv_offset + k_idx
-            s = torch.einsum("bqkgd,bskd->bkgqs", qb.float(),
-                             kb.float()) * scale
-            if causal:
-                mask = k_pos[None, :] <= q_pos[:, None]
-            else:
-                mask = torch.ones((nq, nk), dtype=torch.bool, device=dev)
-            if window:
-                mask &= k_pos[None, :] > (q_pos[:, None] - window)
-            mask &= (k_idx < valid_len)[None, :]
-            s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1)
-            pv = torch.einsum("bkgqs,bskd->bkgqd", p.to(vb.dtype).float(),
-                              vb.float())
-            acc = acc * corr[..., None] + pv
-            m = m_new
-        l_safe = l.clamp_min(1e-37)
-        outs.append((acc / l_safe[..., None]).permute(0, 3, 1, 2, 4)
-                    .reshape(B, nq, H, D))
-        lses.append((m + torch.log(l_safe)).permute(0, 3, 1, 2)
-                    .reshape(B, nq, H))
-    out = torch.cat(outs, dim=1).to(q.dtype)
-    if return_lse:
-        return out, torch.cat(lses, dim=1)
-    return out
+    kernel = _takes_kernel(q, k, v, kv_len)
+    obs.get_registry().inc(KERNEL_CALLS if kernel else PLAIN_CALLS)
+    fn = (ops.flash_prefill_attention if kernel
+          else ref.flash_prefill_attention_ref)
+    out, lse = fn(q, k, v, causal, q_offset, kv_offset, kv_len, window,
+                  block_q, block_k)
+    return (out, lse) if return_lse else out
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

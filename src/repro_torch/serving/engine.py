@@ -89,6 +89,7 @@ from repro_torch.kvcache.paged import (BlockPool, HostBlockPool,
                                        extract_blocks, grow_paged_kv_cache,
                                        insert_blocks, write_blocks)
 from repro_torch.kvcache.transfer import PrefetchEngine
+from repro_torch.models import layers as L
 from repro_torch.models.model import build_model
 
 #: smallest prefill bucket; "auto" buckets are powers of two from here up
@@ -469,8 +470,12 @@ class ServingEngine:
             with obs.span("engine.prefill", uid=req.uid, slot=req.slot,
                           tokens=len(req.prompt)) as sp:
                 sp.attrs["queued_s"] = sp.start_s - req.submitted_s
+                k0, p0 = _attn_calls(reg)
                 first = (self._prefill_slot_paged(req) if self._paged
                          else self._prefill_slot(req))
+                k1, p1 = _attn_calls(reg)
+                sp.attrs["attn_kernel_calls"] = k1 - k0
+                sp.attrs["attn_calls"] = k1 - k0 + p1 - p0
             reg.observe("engine/prefill_latency_s",
                         time.perf_counter() - tp, obs.LATENCY_EDGES_S)
             slot_tokens[req.slot] = first
@@ -959,6 +964,14 @@ class ServingEngine:
                                            "first": req.generated[0]}
         self._block_pool.free(tables.clear(slot))
         self.registry.inc("kvcache/slots_released")
+
+
+def _attn_calls(reg: obs.MetricsRegistry) -> Tuple[int, int]:
+    """``layers.flash_attention``'s calls so far, (by the kernel, by the
+    plain version): an admission's deltas go on its ``engine.prefill``
+    span."""
+    return (int(reg.counter(L.KERNEL_CALLS).value),
+            int(reg.counter(L.PLAIN_CALLS).value))
 
 
 def _nbytes(t: torch.Tensor) -> int:

@@ -485,6 +485,54 @@ def test_router_scores_kernel(cuda, dtype, G, H, KH, D, E):
     assert ops.router_scores.launches == n0 + 1
 
 
+# The prefill kernel's cases: B, Sq, Sk, H, KH, D, causal, q_offset,
+# kv_offset, kv_len (None: Sk), window, block_q, block_k (the plain
+# version's blocks: what a row with no valid key averages). G 2 (granite),
+# 12 (mistral-large), 8 and 1, at D 64 and 128; Sq a multiple of no tile;
+# a chunk against a longer context; sliding windows; rows with no valid
+# key (queries before every key, a kv_len of 0, a window past kv_len),
+# with the plain version's blocks smaller than the rows' span.
+PREFILL_CASES = [
+    (2, 200, 200, 16, 8, 64, True, 0, 0, None, 0, 1024, 1024),
+    (1, 300, 300, 96, 8, 128, True, 0, 0, None, 0, 1024, 1024),
+    (2, 130, 130, 32, 4, 128, True, 5, 5, None, 0, 1024, 1024),
+    (2, 100, 100, 8, 8, 64, False, 0, 0, None, 0, 1024, 1024),
+    (2, 33, 70, 12, 12, 128, False, 0, 0, 50, 0, 1024, 1024),
+    (1, 96, 400, 32, 4, 64, True, 300, 0, 396, 0, 1024, 1024),
+    (2, 150, 150, 16, 8, 128, True, 7, 7, None, 37, 1024, 1024),
+    (2, 70, 70, 8, 2, 64, True, 0, 20, None, 0, 1024, 1024),
+    (1, 90, 90, 24, 2, 128, True, 0, 10, None, 0, 32, 16),
+    (1, 40, 64, 8, 4, 64, True, 20, 0, 10, 8, 1024, 1024),
+    (2, 16, 32, 8, 2, 64, True, 0, 0, 0, 0, 1024, 1024),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KH,D,causal,qo,ko,kv_len,window,bq,bk",
+                         PREFILL_CASES)
+def test_flash_prefill_attention_kernel(cuda, B, Sq, Sk, H, KH, D, causal,
+                                        qo, ko, kv_len, window, bq, bk):
+    """The prefill kernel against the plain version on the same bf16 CUDA
+    tensors, out and lse within 2e-2; ``layers.flash_attention`` takes the
+    kernel for them."""
+    from repro_torch.models import layers
+    g = np.random.default_rng(5)
+    q = _randn(g, (B, Sq, H, D), torch.bfloat16, cuda)
+    k = _randn(g, (B, Sk, KH, D), torch.bfloat16, cuda)
+    v = _randn(g, (B, Sk, KH, D), torch.bfloat16, cuda)
+    args = (q, k, v, causal, qo, ko, kv_len, window, bq, bk)
+    n0 = ops.flash_prefill_attention.launches
+    got = ops.flash_prefill_attention(*args)
+    torch.cuda.synchronize()
+    assert ops.flash_prefill_attention.launches == n0 + 1
+    for a, b in zip(got, ref.flash_prefill_attention_ref(*args)):
+        _close(a, b, TOL[torch.bfloat16])
+    out = layers.flash_attention(q, k, v, causal=causal, q_offset=qo,
+                                 kv_offset=ko, kv_len=kv_len, window=window,
+                                 block_q=bq, block_k=bk)
+    assert ops.flash_prefill_attention.launches == n0 + 2
+    assert torch.equal(out, got[0])
+
+
 def test_dense_decode_step_card_matches_cpu(cuda):
     """Prefill + one MoSKA decode step of a reduced fp32 model with G = 4:
     the card (kernels) and the CPU (plain versions) give the same logits."""

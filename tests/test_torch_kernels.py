@@ -458,19 +458,25 @@ def test_merge_of_decode_splits_equals_joint():
 
 def test_every_kernel_has_source_plain_version_and_counter():
     """Each wrapper names a CUDA source whose note names the TPU kernel it
-    replaces and what bounds it; each has a plain version and a count."""
+    replaces (the prefill kernel, which replaces none: the reference
+    function it computes) and what bounds it; each has a plain version
+    and a count."""
     notes = {"shared_chunk_attention": "shared_chunk_attn",
              "decode_attention": "decode_attn",
              "lse_merge": "lse_merge",
              "router_scores": "router_score",
              "paged_decode_attention": "paged_decode_attn",
-             "shared_chunk_attention_q8": "shared_chunk_attn"}
+             "shared_chunk_attention_q8": "shared_chunk_attn",
+             "flash_prefill_attention": "flash_prefill_attn"}
+    computes = {"flash_prefill_attention":
+                "src/repro/models/layers.py::flash_attention"}
     csrc = ROOT / "src/repro_torch/kernels/csrc"
     assert sorted(fn.__name__ for fn in tops.KERNELS) == sorted(notes)
     for fn in tops.KERNELS:
         stem = notes[fn.__name__]
         text = (csrc / f"{stem}.cu").read_text()
-        assert f"src/repro/kernels/{stem}.py" in text
+        assert computes.get(fn.__name__,
+                            f"src/repro/kernels/{stem}.py") in text
         assert fn.__name__ in text            # the TPU function it replaces
         assert "What bounds it on the H100" in text
         assert isinstance(fn.launches, int)

@@ -3,8 +3,13 @@ on the CPU: the same numpy inputs through both, fp32 within 2e-5 and bf16
 within 2e-2."""
 import numpy as np
 import pytest
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro.models import layers as JL
+from repro_torch import obs
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import work
 from repro_torch.models import layers as TL
 from torch_parity import assert_close, both, randn
 
@@ -76,6 +81,109 @@ def test_flash_attention(dtype, Sq, Sk, H, KH, causal, qo, ko, kv_len,
     assert o1.dtype == qt.dtype and o1.shape == qt.shape
     assert_close(o1, o2, dtype)
     assert_close(l1, l2, dtype)
+
+
+# Who computes flash_attention, by what its inputs show: label, dtype of
+# q/k/v, head dim, device, inputs that require grad, grad mode, kv_len,
+# whether the kernel takes them
+KERNEL_RULE = [
+    ("bf16 on the card", torch.bfloat16, 128, "cuda", False, True, None,
+     True),
+    ("D 64, an int kv_len", torch.bfloat16, 64, "cuda", False, True, 12,
+     True),
+    ("grad inputs under no_grad", torch.bfloat16, 128, "cuda", True, False,
+     None, True),
+    ("fp32", torch.float32, 128, "cuda", False, True, None, False),
+    ("a head dim with no build", torch.bfloat16, 32, "cuda", False, True,
+     None, False),
+    ("autograd", torch.bfloat16, 128, "cuda", True, True, None, False),
+    ("the CPU", torch.bfloat16, 128, "cpu", False, True, None, False),
+    ("the CPU under autograd", torch.float32, 64, "cpu", True, True, None,
+     False),
+    ("a tensor kv_len", torch.bfloat16, 64, "cuda", False, True, "tensor",
+     False),
+]
+
+
+@pytest.mark.parametrize("label,dtype,D,device,grad,mode,kv_len,kernel",
+                         KERNEL_RULE, ids=[c[0] for c in KERNEL_RULE])
+def test_flash_attention_takes_the_kernel_by_what_its_inputs_show(
+        label, dtype, D, device, grad, mode, kv_len, kernel):
+    """Fake tensors, so no card is needed: the rule's answer, and where a
+    fake can run it (the kernel's entry reports its work and computes
+    nothing; the plain version runs on the CPU's fakes) the call, which
+    counts itself in the registry under who computed it."""
+    reg = obs.MetricsRegistry()
+    prev = obs.set_registry(reg)
+    try:
+        with FakeTensorMode(), torch.set_grad_enabled(mode):
+            q = torch.empty(2, 20, 8, D, dtype=dtype, device=device,
+                            requires_grad=grad)
+            k, v = (torch.empty(2, 20, 2, D, dtype=dtype, device=device,
+                                requires_grad=grad) for _ in range(2))
+            n = torch.tensor(12) if kv_len == "tensor" else kv_len
+            assert TL._takes_kernel(q, k, v, n) == kernel
+            if kernel or device == "cpu":
+                out, lse = TL.flash_attention(q, k, v, kv_len=n, q_offset=3,
+                                              kv_offset=3, return_lse=True)
+                assert out.shape == q.shape and out.dtype == dtype
+                assert lse.shape == q.shape[:3]
+                assert lse.dtype == torch.float32
+                assert reg.counter(TL.KERNEL_CALLS).value == int(kernel)
+                assert reg.counter(TL.PLAIN_CALLS).value == int(not kernel)
+    finally:
+        obs.set_registry(prev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Sk,H,KH,causal,qo,ko,kv_len,window,bk",
+                         FLASH_CASES)
+def test_flash_attention_on_the_cpu_is_the_blocked_einsum_bit_for_bit(
+        dtype, Sq, Sk, H, KH, causal, qo, ko, kv_len, window, bk):
+    """On the CPU, fp32 or bf16, with autograd, flash_attention is the
+    plain version (``kernels/ref.py``), outputs and gradients equal."""
+    D = 16
+    _, q = both(randn(5, (2, Sq, H, D)), str(dtype)[6:])
+    _, k = both(randn(6, (2, Sk, KH, D)), str(dtype)[6:])
+    _, v = both(randn(7, (2, Sk, KH, D)), str(dtype)[6:])
+    kw = dict(causal=causal, q_offset=qo, kv_offset=ko, kv_len=kv_len,
+              window=window)
+    got, want = [], []
+    for fn, sink in ((lambda *a: TL.flash_attention(
+            *a, block_k=bk, block_q=6, return_lse=True, **kw), got),
+                     (lambda *a: tref.flash_prefill_attention_ref(
+                         *a, block_q=6, block_k=bk, **kw), want)):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out, lse = fn(*leaves)
+        (out.float().sum() + lse.sum()).backward()
+        sink += [out, lse] + [t.grad for t in leaves]
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("Sq,Sk,H,KH,causal,qo,ko,kv_len,window,bk",
+                         FLASH_CASES + [(9, 9, 2, 1, True, 0, 4, None, 0, 4),
+                                        (6, 8, 2, 1, True, 0, 0, 0, 0, 4)])
+def test_prefill_kernel_work_counts_the_valid_pairs(Sq, Sk, H, KH, causal,
+                                                    qo, ko, kv_len, window,
+                                                    bk):
+    """``work.flash_prefill_attention``: 4 D H operations for each valid
+    (query, key) pair, as the plain version's mask counts them (rows with
+    no valid key do none)."""
+    B, D = 2, 16
+    q = torch.empty(B, Sq, H, D, dtype=torch.bfloat16)
+    k = torch.empty(B, Sk, KH, D, dtype=torch.bfloat16)
+    qp = qo + np.arange(Sq)[:, None]
+    kj = np.arange(Sk)[None, :]
+    mask = (kj < (Sk if kv_len is None else kv_len)) & np.ones((Sq, 1), bool)
+    if causal:
+        mask &= ko + kj <= qp
+    if window:
+        mask &= ko + kj > qp - window
+    flops, byts = work.flash_prefill_attention(q, k, k, causal, qo, ko,
+                                               kv_len, window)
+    assert flops == 4.0 * B * H * D * mask.sum()
+    assert byts >= 2 * q.numel() * 2 + B * Sq * H * 4
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -141,6 +141,24 @@ def test_prefill_spans_carry_the_request_and_its_queue_wait(model, layout):
         assert len(kids) <= len(waves)
 
 
+@pytest.mark.parametrize("layout", ["slotted", "paged"])
+def test_prefill_spans_count_their_attention_calls(model, layout):
+    """Each admission's span carries its ``flash_attention`` calls, one a
+    layer, all on the plain version here (the CPU); the registry's
+    counters hold them and the corpus registration's."""
+    _, cfg, _ = model
+    kw = dict(kv_layout="paged", block_size=16) if layout == "paged" else {}
+    _, reg, _ = _serve(model, **kw)
+    pre = [s for s in reg.spans if s.name == "engine.prefill"]
+    assert pre
+    for s in pre:
+        assert s.attrs["attn_calls"] == cfg.num_layers
+        assert s.attrs["attn_kernel_calls"] == 0
+    assert reg.counter("attn/prefill_kernel_calls").value == 0
+    assert reg.counter("attn/prefill_plain_calls").value == \
+        cfg.num_layers * (len(pre) + 1)
+
+
 def test_requests_keep_their_submit_and_admission_times(model):
     _, cfg, params = model
     eng = te.ServingEngine(cfg, params, te.EngineConfig(
@@ -192,14 +210,16 @@ def test_a_span_closes_on_an_exception_and_keeps_its_nesting():
 # -- the benchmark's readers of these spans -------------------------------
 
 NEW = ("queue_wait_ms", "decode_enqueue_ms", "wave_host_ms",
-       "decode_host_ms.moska", "decode_host_ms.moe")
+       "decode_host_ms.moska", "decode_host_ms.moe",
+       "prefill_attention_kernel_pct")
 
 
 @pytest.mark.parametrize("cell,metrics", [
     ("coupled-store", ("queue_wait_ms", "decode_enqueue_ms", "wave_host_ms",
-                       "decode_host_ms.moska")),
+                       "decode_host_ms.moska",
+                       "prefill_attention_kernel_pct")),
     ("moe-no-store", ("queue_wait_ms", "decode_enqueue_ms", "wave_host_ms",
-                      "decode_host_ms.moe")),
+                      "decode_host_ms.moe", "prefill_attention_kernel_pct")),
 ])
 def test_a_traced_tiny_cell_reads_every_new_metric(tmp_path, cell, metrics):
     if str(ROOT / "bench") not in sys.path:
@@ -221,3 +241,5 @@ def test_a_traced_tiny_cell_reads_every_new_metric(tmp_path, cell, metrics):
     for m in metrics:
         assert m in got and got[m]["value"] >= 0, (m, got)
     assert got["decode_enqueue_ms"]["value"] > 0
+    # the CPU takes the plain version for every prefill's attention
+    assert got["prefill_attention_kernel_pct"]["value"] == 0.0
