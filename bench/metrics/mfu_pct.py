@@ -1,7 +1,7 @@
 """Model FLOPs of every prefill and decode step whose token landed in the
 window (counted by the benchmark from the configuration and the steps'
-shapes, ``moska_bench/flops.py``) over the window's length times the
-card's bf16 peak, in %."""
+shapes, by the architecture's ``bench/archs/<arch>/layout.py``) over the
+window's length times the card's bf16 peak, in %."""
 from moska_bench import peaks
 
 

@@ -7,15 +7,20 @@ and in a batch-coupled step one flip moves the capacity position of every
 later slot that chose the same chunk or expert, so a recomputation that
 makes its own choices disagrees with a sound program on many tokens. For
 the one wave the judge checks, the engine's ``model.prefill`` (each
-admission) and ``model.decode_step`` run with ``repro_torch.core.router.
-route`` and ``repro_torch.models.moe.top_k`` (the names the model calls)
-wrapped to keep the ids they return, layer by layer.
+admission) and ``model.decode_step`` run with each function that the
+architecture's ``program.py`` names in ``CHOICES`` (kind -> module,
+attribute, the ids in what it returns) wrapped to keep the ids it returns,
+layer by layer.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+import importlib
+from typing import Callable, Dict, List, Tuple
 
 import torch
+
+#: kind -> (module, attribute, the ids in the function's result)
+Hooks = Dict[str, Tuple[str, str, Callable]]
 
 
 class Choices:
@@ -25,38 +30,34 @@ class Choices:
         self.calls: List[Dict[str, List[torch.Tensor]]] = []
 
 
-def _recording(choices: Choices, fn):
-    from repro_torch.core import router
-    from repro_torch.models import moe
-
+def _recording(choices: Choices, hooks: Hooks, fn):
     def call(*args, **kwargs):
-        got = {"route": [], "expert": []}
-        route0, topk0 = router.route, moe.top_k
+        got = {kind: [] for kind in hooks}
+        orig = {}
+        for kind, (module, attr, ids) in hooks.items():
+            mod = importlib.import_module(module)
+            orig[kind] = (mod, attr, getattr(mod, attr))
 
-        def route(*a, **k):
-            out = route0(*a, **k)
-            got["route"].append(out.chunk_ids.detach().clone())
-            return out
-
-        def topk(scores, k):
-            vals, ids = topk0(scores, k)
-            got["expert"].append(ids.detach().clone())
-            return vals, ids
-        router.route, moe.top_k = route, topk
+            def keep(*a, _f=orig[kind][2], _ids=ids, _got=got[kind], **k):
+                out = _f(*a, **k)
+                _got.append(_ids(out).detach().clone())
+                return out
+            setattr(mod, attr, keep)
         try:
             return fn(*args, **kwargs)
         finally:
-            router.route, moe.top_k = route0, topk0
+            for mod, attr, f in orig.values():
+                setattr(mod, attr, f)
             choices.calls.append(got)
     return call
 
 
-def record_next_wave(engine) -> Choices:
+def record_next_wave(engine, hooks: Hooks) -> Choices:
     """Keep the choices of the engine's model calls until ``stop``."""
     choices = Choices()
     model = engine.model
-    model.prefill = _recording(choices, model.prefill)
-    model.decode_step = _recording(choices, model.decode_step)
+    model.prefill = _recording(choices, hooks, model.prefill)
+    model.decode_step = _recording(choices, hooks, model.decode_step)
     return choices
 
 

@@ -1,5 +1,6 @@
 """How ``correct`` is decided: what the timed path produced, judged by the
-plain reference (``reference.py``) once the window has closed.
+configuration's plain reference (``bench/archs/<arch>/reference.py``) once
+the window has closed.
 
 The numbers (the cell's ``bench/limits/<cell>.json`` names those it
 compares; every number is printed):
@@ -30,10 +31,12 @@ compares; every number is printed):
                     other slot's choices touch.
 
 A cell is batch-coupled where a decode step's outputs depend on the other
-slots: an MoE FFN's expert capacity, or a chunk capacity below the batch.
+slots (the layout's ``batch_coupled``): an MoE FFN's expert capacity, or a
+chunk capacity below the batch (``store_coupled``).
 There the wave is recomputed from the program's own unique-KV rows (its
 state), following the chunk and expert choices the program made
-(``capture.py``) and judging them by their regret: a near-tied top-k
+(``capture.py``, at the program's ``CHOICES``) and judging them by their
+regret: a near-tied top-k
 choice flips between any two arithmetics, and under a capacity it moves
 every later slot's place, so a recomputation with its own choices would
 disagree with a sound program on many tokens. What that skips is checked
@@ -56,8 +59,6 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
-
-from moska_bench.reference import Reference, Store
 
 NUMBERS = ("served_gap", "served_gap_mean", "served_miss_pct", "wave_gap",
            "wave_gap_mean", "wave_miss_pct", "route_regret", "expert_regret",
@@ -85,13 +86,10 @@ def prefill_bucket(n: int, max_seq: int) -> int:
     return n
 
 
-def batch_coupled(model: dict, chunks: int) -> bool:
-    """Whether a decode step's outputs depend on the other slots: an MoE
-    FFN's expert capacity, or (with a store of ``chunks`` chunks) a chunk
-    capacity ``ceil(G*K/E*cf)`` that can fall below the G slots, which
-    happens exactly when K*cf < E."""
-    if model.get("moe"):
-        return True
+def store_coupled(model: dict, chunks: int) -> bool:
+    """Whether, with a store of ``chunks`` chunks, a decode step's chunk
+    capacity ``ceil(G*K/E*cf)`` can fall below its G slots, which happens
+    exactly when K*cf < E: then a slot's attention depends on the others."""
     ms = model["moska"]
     k = min(ms["top_k_chunks"], chunks)
     return chunks > 0 and k * ms["query_capacity_factor"] < chunks
@@ -225,13 +223,20 @@ def pick(requests: List[Served], n: int, seed: int) -> List[Served]:
     return [requests[i] for i in [longest] + rest[:n - 1]]
 
 
-def judge(model: dict, weights: Dict[str, torch.Tensor], max_seq: int,
-          corpus: Optional[np.ndarray], program_store, sample: List[Served],
-          wave: Optional[WaveState], coupled: bool,
+def judge(reference, model: dict, weights: Dict[str, torch.Tensor],
+          max_seq: int, corpus: Optional[np.ndarray], program_store,
+          sample: List[Served], wave: Optional[WaveState], coupled: bool,
           control: bool = False) -> Verdict:
-    """Every number, and with ``control`` the control's."""
-    ref = Reference(model, weights, "tf32")
-    low = Reference(model, weights, "fp8") if control else None
+    """Every number, and with ``control`` the control's.
+
+    ``reference``: the architecture's ``Reference`` class, built as
+    ``reference(model, weights, precision)`` ("tf32", or "fp8" for the
+    control). The judge calls its ``corpus(tokens)`` (a store of
+    per-layer ``k``, ``v``, ``emb`` and its ``tokens``), ``sequence``,
+    ``wave`` and ``first_kv``, and reads its ``margins`` (per kind of
+    choice, each position's nearest tie), ``regret`` and ``chosen``."""
+    ref = reference(model, weights, "tf32")
+    low = reference(model, weights, "fp8") if control else None
     v = Verdict()
     store = low_store = None
     start = 0
@@ -255,7 +260,7 @@ def judge(model: dict, weights: Dict[str, torch.Tensor], max_seq: int,
                     v.put("store_err_p90", row_p90(mine, theirs),
                           None if other is None else row_p90(other, theirs),
                           f"store_{name}_p90")
-    dev = weights["embed"].device
+    dev = next(iter(weights.values())).device
     for r in sample:
         p = len(r.prompt)
         bucket = prefill_bucket(p, max_seq)
@@ -278,8 +283,8 @@ def judge(model: dict, weights: Dict[str, torch.Tensor], max_seq: int,
     return v.finish()
 
 
-def _judge_history(v: Verdict, ref: Reference, low: Optional[Reference],
-                   wave: WaveState, start: int) -> None:
+def _judge_history(v: Verdict, ref, low, wave: WaveState, start: int
+                   ) -> None:
     """Layer 0's rows of every slot before the wave against the reference's
     own from the slot's tokens (and the control's against the reference's):
     the relative error over all of them, and its 90th percentile over rows.
@@ -323,9 +328,8 @@ def _judge_history(v: Verdict, ref: Reference, low: Optional[Reference],
               f"history_{name}_p90")
 
 
-def _judge_wave(v: Verdict, ref: Reference, low: Optional[Reference],
-                wave: WaveState, store: Optional[Store],
-                low_store: Optional[Store], start: int, max_seq: int) -> None:
+def _judge_wave(v: Verdict, ref, low, wave: WaveState, store, low_store,
+                start: int, max_seq: int) -> None:
     """The checked wave, following the program's chunk and expert choices
     (judged by ``route_regret``, ``expert_regret``); the control makes its
     own, and the reference follows those to judge its tokens and rows."""

@@ -21,7 +21,6 @@ import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List
 
-from moska_bench import flops
 from moska_bench.stats import RequestLog, Window
 from moska_bench.traffic import Mix, Traffic
 
@@ -41,12 +40,15 @@ class WaveRecord:
 
 class ClosedLoop:
     def __init__(self, engine, traffic: Traffic, mix: Mix, model: dict,
-                 chunks: int):
+                 chunks: int, layout):
         self.eng = engine
         self.traffic = traffic
         self.mix = mix
         self.model = model
         self.chunks = chunks
+        #: the architecture's layout: its ``prefill`` and ``decode`` count
+        #: each token's model FLOPs
+        self.layout = layout
         self.corpus_id = CORPUS_ID if mix.shared else None
         self.logs: Dict[int, RequestLog] = {}
         self.requests: Dict[int, object] = {}
@@ -97,10 +99,11 @@ class ClosedLoop:
             for j in range(len(log.token_s), len(r.generated)):
                 log.token_s.append(t)
                 n_tok += 1
-                fl += (flops.prefill(self.model, log.prompt_len, self.chunks)
+                fl += (self.layout.prefill(self.model, log.prompt_len,
+                                           self.chunks)
                        if j == 0 else
-                       flops.decode(self.model, log.prompt_len + j,
-                                    self.chunks))
+                       self.layout.decode(self.model, log.prompt_len + j,
+                                          self.chunks))
         for r in ended:
             self.finished.append(r.uid)
             self.submit(t)

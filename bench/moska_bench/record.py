@@ -8,8 +8,10 @@ read returns None and the metric is left out of the result.
 from __future__ import annotations
 
 import importlib.util
+import sys
 from dataclasses import dataclass
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, Dict, List, Optional, Tuple
 
 from moska_bench.stats import RequestLog, Window
@@ -38,12 +40,21 @@ class RunRecord:
         return s / n if n else None
 
 
+def load_module(path: Path, prefix: str) -> ModuleType:
+    """The Python file ``path``, loaded by its path under a name of its
+    own (in ``sys.modules``, as ``dataclasses`` needs): the harness finds
+    metric readers, architectures and counted kernels by file."""
+    name = prefix + "".join(c if c.isalnum() else "_" for c in str(
+        Path(path).resolve().with_suffix("")))
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def reader(metrics_dir: Path, name: str) -> Callable[[RunRecord], object]:
     path = Path(metrics_dir) / f"{name}.py"
     if not path.exists():
         raise FileNotFoundError(f"no reader for metric {name!r} ({path})")
-    spec = importlib.util.spec_from_file_location(
-        "bench_metric_" + name.replace(".", "_").replace("-", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return load_module(path, "bench_metric_").read

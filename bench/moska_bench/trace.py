@@ -13,22 +13,23 @@ waves it is opened around and reads the raw trace once it closes:
   its middle.
 
 ``spans`` wraps the engine's model and scheduler calls in
-``record_function`` ranges (traced runs only). ``KernelCounts`` wraps
-``ops.shared_chunk_attention`` and ``ops.decode_attention`` (the model
-reaches both as module attributes) and, while on, keeps each call's
+``record_function`` ranges (traced runs only). ``KernelCounts`` wraps each
+kernel of ``ops`` that a file of ``bench/counted/`` names (the model
+reaches them as module attributes) and, while on, keeps each call's
 shape-determined work from the frozen ``work.py`` and its data-dependent
-counts on the device: dispatched (chunk, slot) pairs and chunks with a
-query, or cached tokens attended.
+counts on the device.
 """
 from __future__ import annotations
 
 import contextlib
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from moska_bench import peaks, work
+from moska_bench import peaks
+from moska_bench.record import load_module
 
 SPAN = "bench."
 WINDOW = "bench.profiled_window"
@@ -36,6 +37,8 @@ WINDOW = "bench.profiled_window"
 #: timeline they are annotations, not work
 PROGRAM_RANGES = ("moe_ffn",)
 TOP = 10
+#: the counted kernels, a file each
+COUNTED = Path(__file__).resolve().parent.parent / "counted"
 
 
 def _merge(iv: List[Tuple[int, int]]) -> List[Tuple[int, int]]:
@@ -182,61 +185,49 @@ class _Calls:
 class KernelCounts:
     """While ``on``, each call's work: ``fixed`` (operations, bytes) plus
     the work per unit of each data-dependent count, with the counts kept
-    on the device until ``bound_s`` reads them."""
+    on the device until ``bound_s`` reads them.
 
-    def __init__(self, ops):
+    One wrapper for each file ``<op>.py`` of ``counted`` (default
+    ``bench/counted``), which declares ``OP``, the attribute of ``ops`` it
+    wraps; ``work(*args, **kwargs)``, a call's fixed (operations, bytes)
+    and the (operations, bytes) of one unit of each count, from the frozen
+    ``work.py``; and ``counts(*args, **kwargs)``, the counts as one tensor
+    on the call's device. ``calls`` and ``bound_s`` go by the file's name.
+    """
+
+    def __init__(self, ops, counted: Path = COUNTED):
         self.ops = ops
         self.on = False
-        self.calls: Dict[str, _Calls] = {"shared_chunk_attention": _Calls(),
-                                         "decode_attention": _Calls()}
-        self._orig = {}
+        self.kernels = {p.stem: load_module(p, "bench_counted_")
+                        for p in sorted(Path(counted).glob("*.py"))}
+        self.calls: Dict[str, _Calls] = {n: _Calls() for n in self.kernels}
+        self._orig: List[Tuple[str, object]] = []
 
     def install(self) -> None:
         """Put the counting wrappers in ``ops``' namespace. The kernels'
         wrappers count their own launches on the function the module name
         points to, so each stand-in carries the count and hands it back."""
-        for name, body in (("shared_chunk_attention", self._shared),
-                           ("decode_attention", self._decode)):
-            orig = getattr(self.ops, name)
-            self._orig[name] = orig
+        for name, k in self.kernels.items():
+            orig = getattr(self.ops, k.OP)
+            self._orig.append((k.OP, orig))
 
-            def stand_in(*args, _body=body, **kwargs):
-                return _body(*args, **kwargs)
+            def stand_in(*args, _f=orig, _k=k, _c=self.calls[name],
+                         **kwargs):
+                out = _f(*args, **kwargs)
+                if self.on:
+                    fixed, per = _k.work(*args, **kwargs)
+                    _c.fixed.append(fixed)
+                    _c.per.append(per)
+                    _c.counts.append(_k.counts(*args, **kwargs))
+                return out
             stand_in.launches = orig.launches
-            setattr(self.ops, name, stand_in)
+            setattr(self.ops, k.OP, stand_in)
 
     def uninstall(self) -> None:
-        for name, fn in self._orig.items():
-            fn.launches = getattr(self.ops, name).launches
-            setattr(self.ops, name, fn)
-
-    def _shared(self, qd, k, v, qmask):
-        out = self._orig["shared_chunk_attention"](qd, k, v, qmask)
-        if self.on:
-            f = work.shared_chunk_attention
-            f0 = f(qd, k, v, qmask, valid=0, active=0)
-            fv = f(qd, k, v, qmask, valid=1, active=0)
-            fa = f(qd, k, v, qmask, valid=0, active=1)
-            c = self.calls["shared_chunk_attention"]
-            c.fixed.append(f0)
-            c.per.append((tuple(a - b for a, b in zip(fv, f0)),
-                          tuple(a - b for a, b in zip(fa, f0))))
-            c.counts.append(torch.stack([qmask.sum(),
-                                         qmask.any(dim=1).sum()]))
-        return out
-
-    def _decode(self, q, k, v, kv_len, window=0):
-        out = self._orig["decode_attention"](q, k, v, kv_len, window)
-        if self.on:
-            f = work.decode_attention
-            f0 = f(q, k, v, kv_len, window, tokens=0)
-            f1 = f(q, k, v, kv_len, window, tokens=1)
-            lim = k.shape[1] if not window else min(window, k.shape[1])
-            c = self.calls["decode_attention"]
-            c.fixed.append(f0)
-            c.per.append((tuple(a - b for a, b in zip(f1, f0)),))
-            c.counts.append(kv_len.long().clamp(max=lim).sum()[None])
-        return out
+        for op, fn in reversed(self._orig):
+            fn.launches = getattr(self.ops, op).launches
+            setattr(self.ops, op, fn)
+        self._orig.clear()
 
     def bound_s(self, name: str) -> Optional[float]:
         """Sum over the recorded calls of each call's least time on the

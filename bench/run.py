@@ -8,8 +8,11 @@ Run from the root of a checkout:
 A cell is an entry of ``workloads`` in ``BENCHMARK.json``: a configuration
 (``bench/configs/<config>.json``) under a traffic mix
 (``bench/traffic/<traffic>.json``), judged against the limits in
-``bench/limits/<cell>.json``. The run makes the weights, the corpus and
-every prompt from the seed on the device, builds
+``bench/limits/<cell>.json``. The configuration's ``reference`` names its
+architecture's directory (``bench/archs/<arch>/``: the weights' layout and
+FLOPs, the program's build, the plain reference; ``moska_bench/arch.py``).
+The run makes the weights, the corpus and every prompt from the seed on
+the device, builds
 ``repro_torch.serving.engine.ServingEngine`` (slotted layout, no early
 stop), registers the corpus, fills the batch with pre-aged requests, runs
 the warm waves, then drives the closed loop (``moska_bench/loop.py``) for
@@ -71,6 +74,8 @@ class Cell:
     limits_file: Path
     end_to_end: List[dict]
     per_layer: List[dict]
+    #: the checkout whose files the configuration names (its architecture)
+    root: Path = ROOT
 
     def metrics(self, trace: bool) -> List[dict]:
         return self.per_layer if trace else self.end_to_end
@@ -98,7 +103,7 @@ def load_cell(root: Path, name: str) -> Cell:
     bench = root / "bench"
     return Cell(name, int(w["chips"]), root / configs[w["config"]]["file"],
                 bench / "traffic" / f"{w['traffic']}.json",
-                bench / "limits" / f"{name}.json", e2e, per)
+                bench / "limits" / f"{name}.json", e2e, per, root)
 
 
 def banned_modules(names=None) -> List[str]:
@@ -130,11 +135,11 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     """One run; returns the result object (the JSON line's content)."""
     import torch
     from moska_bench import check
+    from moska_bench.arch import load as load_arch
     from moska_bench.loop import CORPUS_ID, ClosedLoop
     from moska_bench.record import RunRecord, reader
     from moska_bench.traffic import generate, load_mix
-    from moska_bench.weights import (DTYPES, load_spec, make_weights,
-                                     program_config, program_params)
+    from moska_bench.weights import DTYPES, load_spec, make_weights
     from repro_torch import obs
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import EngineConfig, ServingEngine
@@ -143,7 +148,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     cuda = dev.type == "cuda"
     spec = load_spec(cell.config_file)
     model = spec["model"]
-    cfg = program_config(spec)
+    arch = load_arch(spec, cell.root)
+    cfg = arch.program.program_config(spec)
     mix = load_mix(cell.traffic_file)
     limits = json.loads(cell.limits_file.read_text())
     obs.reset_registry()
@@ -155,8 +161,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
         say(f"[setup] {what} at {time.perf_counter() - t_start:.3f} s")
 
     mark("imports")
-    weights = make_weights(spec, seed, dev)
-    params = program_params(cfg, weights)
+    weights = make_weights(spec, arch.layout, seed, dev)
+    params = arch.program.program_params(cfg, weights)
     mark("weights")
     traffic = generate(mix, model["vocab_size"], seed + TRAFFIC_SEED,
                        POOL_BLOCKS * mix.clients, dev)
@@ -171,9 +177,10 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     chunks = (eng.register_corpus(CORPUS_ID, traffic.corpus)
               if mix.shared else 0)
     mark("corpus registered")
-    loop = ClosedLoop(eng, traffic, mix, model, chunks)
-    coupled = check.batch_coupled(model, chunks)
-    plan = Plan(loop, mix, seconds, trace, coupled, reg, ops, cuda)
+    loop = ClosedLoop(eng, traffic, mix, model, chunks, arch.layout)
+    coupled = arch.layout.batch_coupled(model, chunks)
+    plan = Plan(loop, mix, seconds, trace, coupled, reg, ops, cuda,
+                arch.program.CHOICES)
     loop.drive(plan)
     window, traced, counts = plan.window, plan.traced, plan.counts
     register = [s.duration_s for s in reg.spans
@@ -206,7 +213,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     if cuda:
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    verdict = check.judge(model, weights,
+    verdict = check.judge(arch.reference.Reference, model, weights,
                           mix.max_seq, traffic.corpus if mix.shared else None,
                           program_store, sample, wave, coupled, control)
     say(f"[check] reference {time.perf_counter() - t_ref:.1f} s; window "
@@ -247,10 +254,10 @@ class Plan:
     HISTS = ("engine/prefill_latency_s", "engine/wave_active_slots")
 
     def __init__(self, loop, mix, seconds: float, trace: bool,
-                 coupled: bool, reg, ops, cuda: bool):
+                 coupled: bool, reg, ops, cuda: bool, choices):
         self.loop, self.mix, self.seconds = loop, mix, seconds
         self.trace, self.coupled, self.reg, self.ops = trace, coupled, reg, ops
-        self.cuda = cuda
+        self.cuda, self.choices = cuda, choices
         self.phase, self.n = "warm", 0
         self.window = self.traced = self.counts = self.wave = None
         self.peak, self.hist, self.steps = 0, {}, []
@@ -314,7 +321,8 @@ class Plan:
         if not self.coupled:
             return False
         self._before = self.loop.occupancy()
-        self._choices = capture.record_next_wave(self.loop.eng)
+        self._choices = capture.record_next_wave(self.loop.eng,
+                                                 self.choices)
         self.phase = "check"
         return True
 

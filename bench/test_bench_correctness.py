@@ -20,6 +20,7 @@ sys.path[:0] = [str(BENCH), str(ROOT / "src")]
 
 import run  # noqa: E402
 from moska_bench import check  # noqa: E402
+from moska_bench.arch import load as load_arch  # noqa: E402
 
 LIMITS = {"served_gap": 1e-3, "wave_gap": 1e-3, "store_err": 1e-4,
           "cache_err": 1e-4}
@@ -28,7 +29,8 @@ LIMITS = {"served_gap": 1e-3, "wave_gap": 1e-3, "store_err": 1e-4,
 def _limits(spec: dict, corpus: int) -> dict:
     """The numbers a tiny cell computes, each under ``LIMITS``."""
     chunks = corpus // spec["model"]["moska"]["chunk_size"]
-    coupled = check.batch_coupled(spec["model"], chunks)
+    coupled = load_arch(spec, ROOT).layout.batch_coupled(spec["model"],
+                                                         chunks)
     keys = ["served_gap"] + (["wave_gap"] if coupled else []) + (
         ["store_err"] if corpus else []) + (["cache_err"] if coupled else [])
     return {k: LIMITS[k] for k in keys}

@@ -10,8 +10,12 @@ ROOT = BENCH.parent
 sys.path[:0] = [str(BENCH), str(ROOT / "src")]
 
 BANNED = {"jax", "jaxlib", "flax", "repro"}
-#: the reference and what it judges with: plain PyTorch and NumPy only
-REFERENCE = ("moska_bench/reference.py", "moska_bench/check.py")
+#: every architecture's reference and layout, and what the judge judges
+#: with: plain PyTorch and NumPy only
+REFERENCE = tuple(sorted(
+    str(p.relative_to(BENCH)) for p in
+    [*BENCH.glob("archs/*/reference.py"), *BENCH.glob("archs/*/layout.py")]
+)) + ("moska_bench/reference.py", "moska_bench/check.py")
 
 
 def _imports(path: Path):
@@ -45,6 +49,7 @@ def test_top_level_names_are_compared_whole():
 
 
 def test_the_reference_imports_nothing_of_the_program():
+    assert "archs/gqa_swiglu_moe/reference.py" in REFERENCE
     for rel in REFERENCE:
         tops = {m.split(".")[0] for m in _imports(BENCH / rel)}
         assert tops <= {"__future__", "contextlib", "math", "dataclasses",
@@ -55,11 +60,16 @@ def test_the_reference_imports_nothing_of_the_program():
 
 
 def test_the_reference_loads_nothing_of_the_program_when_run():
+    """Each architecture's reference and layout, loaded as a run loads
+    them, with the judge."""
     code = ("import sys; sys.path[:0] = [%r];"
-            "import moska_bench.check, moska_bench.reference;"
+            "import moska_bench.check;"
+            "from moska_bench.record import load_module;"
+            "[load_module(%r + '/' + f, 'x') for f in %r];"
             "bad = sorted({m.split('.')[0] for m in sys.modules}"
             " & {'repro_torch', 'repro', 'jax', 'jaxlib', 'flax'});"
-            "print(bad); sys.exit(1 if bad else 0)") % str(BENCH)
+            "print(bad); sys.exit(1 if bad else 0)") % (
+                str(BENCH), str(BENCH), REFERENCE)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
@@ -70,10 +80,15 @@ def test_a_run_loads_no_jax(tmp_path):
     code = ("import sys; sys.path[:0] = [%r, %r];"
             "import run; run._paths();"
             "import repro_torch.serving.engine, moska_bench.loop,"
-            " moska_bench.trace, moska_bench.record, moska_bench.weights;"
+            " moska_bench.trace, moska_bench.record, moska_bench.weights,"
+            " moska_bench.arch, json;"
+            "[moska_bench.arch.load(json.load(open(c)), %r)"
+            " for c in %r];"
+            "moska_bench.trace.KernelCounts(None);"
             "print(run.banned_modules());"
             "sys.exit(1 if run.banned_modules() else 0)") % (
-                str(BENCH), str(ROOT / "src"))
+                str(BENCH), str(ROOT / "src"), str(ROOT),
+                [str(c) for c in sorted(BENCH.glob("configs/*.json"))])
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300, cwd=tmp_path)
     assert out.returncode == 0, out.stdout + out.stderr

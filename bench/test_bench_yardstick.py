@@ -5,6 +5,7 @@ import math
 import re
 import shutil
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -16,7 +17,7 @@ ROOT = BENCH.parent
 sys.path[:0] = [str(BENCH), str(ROOT / "src")]
 
 import run  # noqa: E402
-from moska_bench import stats, traffic, work  # noqa: E402
+from moska_bench import peaks, stats, traffic, work  # noqa: E402
 from moska_bench.record import RunRecord, reader  # noqa: E402
 from moska_bench.trace import busy_and_gaps, innermost  # noqa: E402
 
@@ -180,8 +181,15 @@ def test_frozen_work_counts_match_hand_counts():
     assert by == 2 * B * H * D * 2 + 2 * 70 * KH * D * 2 + B * 4 + B * H * 4
 
 
+def _layout():
+    from moska_bench.arch import load
+    spec = json.loads((BENCH / "configs" /
+                       "mistral-large-123b-l8.json").read_text())
+    return load(spec, ROOT).layout
+
+
 def test_model_flops_count_projections_ffn_and_attention():
-    from moska_bench import flops
+    flops = _layout()
     m = dict(num_layers=2, d_model=8, num_heads=2, num_kv_heads=1,
              head_dim=4, d_ff=16, vocab_size=10, moe=None,
              moska=dict(chunk_size=32, top_k_chunks=2))
@@ -254,7 +262,8 @@ def test_a_new_traffic_file_is_picked_up_with_no_code_change(tmp_path):
     spec["model"]["moska"].update(chunk_size=32, top_k_chunks=2)
     for d in ("configs", "traffic", "limits"):
         (tmp_path / "bench" / d).mkdir(parents=True)
-    shutil.copytree(BENCH / "metrics", tmp_path / "bench" / "metrics")
+    for d in ("metrics", "archs"):
+        shutil.copytree(BENCH / d, tmp_path / "bench" / d)
     (tmp_path / "bench/configs/tiny-dense.json").write_text(
         json.dumps(spec))
     mix = dict(clients=4, max_seq=64, corpus_tokens=128,
@@ -282,3 +291,117 @@ def test_a_new_traffic_file_is_picked_up_with_no_code_change(tmp_path):
     assert res["correct"] is True
     assert {"tokens_per_s", "setup_s"} <= set(res["metrics"])
     assert list(res)[-1] == "checks"
+
+
+def _new_arch_cell(root: Path, arch: str, edit=None) -> "run.Cell":
+    """A cell whose architecture, configuration, mix and limits are all new
+    files in a copy of the benchmark at ``root``: the architecture a copy
+    of the present one under the name ``arch``, its reference edited by
+    ``edit``."""
+    b = _benchmark()
+    for d in ("metrics", "archs"):
+        shutil.copytree(BENCH / d, root / "bench" / d)
+    shutil.copytree(BENCH / "archs" / "gqa_swiglu_moe",
+                    root / "bench" / "archs" / arch)
+    ref = root / "bench" / "archs" / arch / "reference.py"
+    if edit is not None:
+        ref.write_text(edit(ref.read_text()))
+    for d in ("configs", "traffic", "limits"):
+        (root / "bench" / d).mkdir(parents=True)
+    spec = json.loads((BENCH / "configs" /
+                       "mistral-large-123b-l8.json").read_text())
+    spec["name"] = "tiny-arch"
+    spec["reference"] = f"bench/archs/{arch}/reference.py"
+    spec["model"].update(dtype="float32", num_layers=2, d_model=64,
+                         num_heads=2, num_kv_heads=1, head_dim=32, d_ff=64,
+                         vocab_size=128)
+    spec["model"]["moska"].update(chunk_size=32, top_k_chunks=2)
+    (root / "bench/configs/tiny-arch.json").write_text(json.dumps(spec))
+    mix = dict(clients=4, max_seq=64, corpus_tokens=128,
+               prompt_tokens=[4, 24], output_tokens=[4, 24], warm_waves=1,
+               profile_waves=1, check_requests=2, why="a test's own mix")
+    (root / "bench/traffic/arch-test.json").write_text(json.dumps(mix))
+    (root / "bench/limits/tiny-arch.arch-test.json").write_text(
+        json.dumps({"served_gap": 1e-3, "store_err": 1e-4}))
+    b["configs"].append({"name": "tiny-arch", "source": "test",
+                         "file": "bench/configs/tiny-arch.json",
+                         "reduced": [], "why": "test"})
+    b["workloads"].append({"name": "tiny-arch.arch-test",
+                           "config": "tiny-arch", "traffic": "arch-test",
+                           "chips": 1, "why": "test"})
+    (root / "BENCHMARK.json").write_text(json.dumps(b))
+    return run.load_cell(root, "tiny-arch.arch-test")
+
+
+def _no_rope(src: str) -> str:
+    a = "return self._rope(q, pos), self._rope(k, pos), v"
+    assert a in src
+    return src.replace(a, "return q, k, v")
+
+
+@pytest.mark.parametrize("edit,correct", [(None, True), (_no_rope, False)])
+def test_a_new_architecture_is_picked_up_with_no_code_change(tmp_path, edit,
+                                                             correct):
+    """A cell added by files alone, its architecture among them, runs end
+    to end on the CPU and is judged by its own reference: a copy of the
+    present block is correct, a copy whose reference leaves out RoPE is
+    not."""
+    cell = _new_arch_cell(tmp_path, "gqa_copy", edit)
+    assert cell.root == tmp_path
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        res = run.run_cell(cell, 2 ** 31 + 13, 0.3, False, device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    assert res["correct"] is correct, res["checks"]
+    assert {"tokens_per_s", "setup_s"} <= set(res["metrics"])
+
+
+@pytest.mark.parametrize("reference", [None, "bench/archs/none/reference.py",
+                                       "bench/archs/gqa_swiglu_moe/x.py"])
+def test_a_configuration_without_its_architecture_fails_by_name(reference):
+    from moska_bench.arch import load
+    spec = {"name": "no-arch", "model": {}}
+    if reference is not None:
+        spec["reference"] = reference
+    with pytest.raises((KeyError, FileNotFoundError), match="no-arch"):
+        load(spec, ROOT)
+
+
+def test_a_counted_kernel_file_is_installed_counted_and_uninstalled(
+        tmp_path):
+    """``KernelCounts`` wraps what a file of its directory names, counts
+    its calls while on, and hands the kernel's launch count back."""
+    from moska_bench.trace import KernelCounts
+    (tmp_path / "scaled_copy.py").write_text(
+        "import torch\n"
+        "OP = 'scaled_copy'\n"
+        "def work(x, n=1):\n"
+        "    return (2.0 * x.numel(), 8.0 * x.numel()), ((0.0, 4.0),)\n"
+        "def counts(x, n=1):\n"
+        "    return torch.tensor([n])\n")
+
+    def scaled_copy(x, n=1):
+        ops.scaled_copy.launches += 1   # as ``ops``' kernels count
+        return x * n
+    scaled_copy.launches = 2
+    ops = types.SimpleNamespace(scaled_copy=scaled_copy)
+    kc = KernelCounts(ops, tmp_path)
+    assert set(kc.calls) == {"scaled_copy"}
+    kc.install()
+    assert ops.scaled_copy is not scaled_copy
+    x = torch.ones(10)
+    ops.scaled_copy(x)                  # off: not counted
+    kc.on = True
+    assert torch.equal(ops.scaled_copy(x, n=3), 3 * x)
+    ops.scaled_copy(x, 5)
+    kc.on = False
+    kc.uninstall()
+    assert ops.scaled_copy is scaled_copy
+    assert scaled_copy.launches == 2 + 3      # handed back
+    c = kc.calls["scaled_copy"]
+    assert c.fixed == [(20.0, 80.0)] * 2 and len(c.per) == 2
+    assert [int(t) for t in c.counts] == [3, 5]
+    assert kc.bound_s("scaled_copy") == pytest.approx(
+        (80 + 12) / peaks.HBM_BYTES_S + (80 + 20) / peaks.HBM_BYTES_S)
