@@ -25,7 +25,11 @@ Phases, each printed as it runs; any failure exits non-zero:
             (``PREFILL_ATTN_CHECKS``: tinyllama's admission after the
             corpus and a prefill chunk, granite's and mistral-large's
             heads, whisper's encoder, a sliding window, rows with no valid
-            key), bf16 (2e-2).
+            key), bf16 (2e-2). The shared tail kernel against its plain
+            version at trinity-mini's heads and tail (``TAIL_*``: 256 and
+            512 rows, H 32 over KH 4, D 128, 2,047 keys, first keys over
+            0-2,100), bf16 (2e-2); a row that sees no key holds 0 and
+            -inf.
   3. serve  ``repro_torch.launch.serve.serve``: tinyllama-1.1b at full width
             and depth, random weights from a seed, a 65,536-token shared
             corpus (32 chunks of 2,048; top-8 routing), 128 requests of 256
@@ -128,7 +132,10 @@ Phases, each printed as it runs; any failure exits non-zero:
             and the prefill attention kernel at 896 and 2,048 tokens (96
             heads over 8, D 128), 896 (16 over 8, D 64) and a 32,768-token
             registration, beside its bound, its plain version and SDPA on
-            K/V expanded to every head (a yardstick the port never calls).
+            K/V expanded to every head (a yardstick the port never calls);
+            the shared tail kernel at phase 2's two shapes beside its
+            bound (the visible pairs), its plain version and masked SDPA
+            (a yardstick).
   6. profile one decode step at the served shapes under torch.profiler:
             device time by kernel, and the device's idle share; then one
             paged decode step. Both must run the bf16 tensor-core shared
@@ -245,7 +252,19 @@ Phases, each printed as it runs; any failure exits non-zero:
             (decode_32k, 16x16) on fake CUDA and on fake CPU tensors: the
             two equal.
 
-Phases 3m, 3w, 3f, 7, 8, 9, 10 and 11 run last, after phase 6, so that
+  3t. trinity trinity-mini at full width and depth (32 layers, 24 of them
+            sliding, 128 experts top-8 + a shared expert, 26.1 B
+            parameters, seeded bf16 weights) through ``ServingEngine``:
+            its 32,768-token document registered as a per-layer store,
+            then 64 prompts of 256 tokens, 16 new each, on 64 slots, with
+            the counts zeroed after the registration: every admission
+            prefill and decode step launches the tail kernel once in each
+            sliding layer (24 x (prefills + steps)) and the routed kernels
+            once in each full layer, launches exact; the engine's tail
+            counters count the same calls. Run last: its weights take 52
+            GB of the card.
+
+Phases 3m, 3w, 3f, 7, 8, 9, 10, 11 and 3t run last, after phase 6, so that
 phases 1-6 run as they ran before them (cuBLAS picks GEMM kernels by what
 the process ran earlier, and phase 6 counts kernels exactly). Each phase
 prints its seconds. It then prints the kernels' JSON line (each
@@ -436,6 +455,9 @@ SOURCES = {
     "flash_prefill_attention": (
         "src/repro_torch/kernels/csrc/flash_prefill_attn.cu",
         "none (src/repro/models/layers.py::flash_attention is jnp)"),
+    "shared_tail_attention": (
+        "src/repro_torch/kernels/csrc/shared_chunk_attn.cu",
+        "none (the reference has no sliding-window layer over a store)"),
 }
 
 # phase 2's checks of the prefill kernel: (label, B, Sq, Sk, H, KH, D,
@@ -460,6 +482,19 @@ PREFILL_ATTN_TIMES = (("mistral-large, 896 tokens", 896, 96, 8, 128),
                       ("granite, 896 tokens", 896, 16, 8, 64),
                       ("registration, 32,768 tokens", 32768, 96, 8, 128))
 PREFILL_ATTN_ROW = 1
+
+
+# the shared tail kernel at trinity-mini's heads and tail (H 32 over KH 4,
+# D 128, the window's 2,047 keys): the cell's decode step of 256 rows and a
+# prefill's 512, each row's first visible key drawn over 0-2,100 (past the
+# tail's end a row sees nothing)
+TAIL_HEADS, TAIL_KV_HEADS, TAIL_DIM, TAIL_KEYS = 32, 4, 128, 2047
+TAIL_ROWS = (("decode", 256), ("prefill", 512))
+TAIL_FIRST_MAX = 2100
+# phase 3t: trinity-mini at full width and depth, bf16, over the cell's
+# 32,768-token document: 64 prompts of 256 tokens, 16 new each, 64 slots
+TRINITY_ARCH, TRINITY_CORPUS = "trinity-mini", 32768
+TRINITY_REQUESTS, TRINITY_NEW = 64, 16
 
 
 def plain_versions():
@@ -791,6 +826,7 @@ def phase_check(cfg, dev):
                 if label != "ragged" and dtype == torch.bfloat16:
                     errs[name] = max(errs.get(name, 0.0), err)
     errs["flash_prefill_attention"] = check_prefill_attention(dev)
+    errs["shared_tail_attention"] = check_shared_tail(dev)
     return errs
 
 
@@ -830,6 +866,50 @@ def check_prefill_attention(dev):
         worst = max(worst, err)
         del q, k, v, got, want
     torch.cuda.empty_cache()
+    return worst
+
+
+def tail_inputs(dev, rows, seed=0):
+    """``shared_tail_attention``'s inputs at ``TAIL_*``: ``rows`` queries,
+    one tail, first keys drawn over 0 .. ``TAIL_FIRST_MAX``, rows 0, 1 and
+    2 at the tail's first key, its last and past its end."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((rows, TAIL_HEADS, TAIL_DIM), generator=g, device=dev)
+    k, v = (torch.randn((TAIL_KEYS, TAIL_KV_HEADS, TAIL_DIM), generator=g,
+                        device=dev) for _ in range(2))
+    first = torch.randint(0, TAIL_FIRST_MAX + 1, (rows,), generator=g,
+                          device=dev, dtype=torch.int32)
+    first[:3] = torch.tensor([0, TAIL_KEYS - 1, TAIL_KEYS], device=dev)
+    return (q.to(torch.bfloat16), k.to(torch.bfloat16), v.to(torch.bfloat16),
+            first)
+
+
+def check_shared_tail(dev):
+    """The tail kernel against its plain version at each of ``TAIL_ROWS``,
+    bf16 (2e-2), out and lse; a row that sees no key must hold out 0 and
+    lse -inf in both. Returns the largest error over the rows that see a
+    key."""
+    from repro_torch.kernels import ops, ref
+    worst = 0.0
+    for label, rows in TAIL_ROWS:
+        args = tail_inputs(dev, rows)
+        got = ops.shared_tail_attention(*args)
+        torch.cuda.synchronize()
+        want = ref.shared_tail_attention_ref(*args)
+        blind = args[3] >= TAIL_KEYS
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a.float(), b.float(), rtol=2e-2,
+                                       atol=2e-2)
+        check(bool((got[0][blind] == 0).all()) and
+              bool(torch.isneginf(got[1][blind]).all()),
+              ("tail kernel: rows that see no key", label))
+        err = max(float((a[~blind].float() - b[~blind].float()).abs().max())
+                  for a, b in zip(got, want))
+        say(f"[check] shared_tail_attention    {label:7s} bfloat16 "
+            f"max_abs_err={err:.3e} tol=0.02 ok (q {tuple(args[0].shape)}, "
+            f"k {tuple(args[1].shape)}, first 0..{TAIL_FIRST_MAX}; rows that "
+            f"see no key {int(blind.sum())})")
+        worst = max(worst, err)
     return worst
 
 
@@ -1762,6 +1842,93 @@ def agree_arch(cfg, dev, B, corpus_len, tag):
                 dev, tag=tag)
 
 
+def phase_trinity(dev):
+    """Phase 3t: trinity-mini at full width and depth through
+    ``ServingEngine``: its 32,768-token document registered (a
+    ``LayeredStore``: 16 chunks in each full layer, the last 2,047 keys in
+    each sliding one), then 64 prompts of 256 tokens, 16 new each, on 64
+    slots. With the counts zeroed after the registration, every admission
+    prefill and decode step must launch the tail kernel once in each of
+    the 24 sliding layers and the routed kernels once in each of the 8
+    full layers, and the engine's tail counters must count each of those
+    calls. Returns the run's launch counts."""
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import CorpusSpec, synthesize_corpus
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(TRINITY_ARCH)
+    L = cfg.num_layers
+    tails = sum(1 for i in range(L) if cfg.window(i))
+    full = L - tails
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0),
+                                   dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    corpus = synthesize_corpus(CorpusSpec("doc", TRINITY_CORPUS,
+                                          cfg.vocab_size, seed=0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, PROMPT).tolist()
+               for _ in range(TRINITY_REQUESTS)]
+    reg = obs.MetricsRegistry()
+    prev = obs.set_registry(reg)
+    try:
+        eng = ServingEngine(cfg, params, EngineConfig(
+            max_slots=TRINITY_REQUESTS, max_seq=512,
+            cache_dtype=torch.bfloat16))
+        t0 = time.perf_counter()
+        eng.register_corpus("doc", corpus)
+        reg_s = time.perf_counter() - t0
+        for prompt in prompts:
+            eng.submit(prompt, TRINITY_NEW, corpus_id="doc")
+        ops.reset_launches()
+        done = eng.run()
+        counts = ops.launch_counts()
+        walls = list(eng.metrics["decode_step_s"])
+    finally:
+        obs.set_registry(prev)
+    steps = int(reg.counter("engine/decode_steps").value)
+    prefills = int(reg.counter("engine/prefills").value)
+    calls = steps + prefills
+    want = dict.fromkeys(SOURCES, 0)
+    want.update({"shared_tail_attention": tails * calls,
+                 "router_scores": full * calls,
+                 "shared_chunk_attention": full * calls,
+                 "lse_merge": (2 * full + tails) * calls,
+                 "decode_attention": L * steps,
+                 "flash_prefill_attention": L * prefills})
+    tail = {k: int(reg.counter(f"moska/tail_{k}").value)
+            for k in ("calls", "query_rows", "rows", "keys")}
+    say(f"[trinity] {cfg.name} ({L} layers, {tails} sliding, {full} full; "
+        f"{cfg.num_heads} heads over {cfg.num_kv_heads}, D {cfg.head_dim}, "
+        f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k} + shared): "
+        f"{prefills} prefills, {steps} decode steps")
+    say(f"[trinity] launches {json.dumps(counts)}")
+    say(f"[trinity] expected {json.dumps(want)}")
+    say(f"[trinity] tail counters {json.dumps(tail)}")
+    check(len(done) == TRINITY_REQUESTS and
+          all(len(r.generated) == TRINITY_NEW for r in done),
+          ("trinity: unfinished requests", len(done)))
+    check(counts == want, ("trinity launch counts", counts, want))
+    check(tail["calls"] == tails * calls and tail["rows"] > 0 and
+          tail["keys"] >= tail["rows"], ("trinity tail counters", tail,
+                                         tails, calls))
+    say(f"[trinity] weights {init_s:.2f} s; corpus {TRINITY_CORPUS} tokens "
+        f"registered in {reg_s:.2f} s; decode step p50 "
+        f"{np.median(walls):.4f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev)} B")
+    del eng, params, done
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def phase_families(dev, errs):
     """Phase 3f: the SSM, hybrid and enc-dec families at full width and
     depth, bf16 with seeded random weights. mamba2-130m: 128 requests of
@@ -2129,6 +2296,9 @@ def _bound(name, args):
         paged = name == "paged_decode_attention"
         cap = args[3].shape[1] * k.shape[1] if paged else k.shape[1]
         counts = dict(tokens=int(lens.clamp(max=cap).sum()))
+    elif name == "shared_tail_attention":
+        T, first = args[1].shape[0], args[3]
+        counts = dict(keys=int((T - first.long()).clamp(0, T).sum()))
     ops_, byts = work.WORK[name](*args, **counts)
     t_bytes = byts / HBM_BYTES_PER_S * 1e3
     t_ops = ops_ / BF16_FLOP_PER_S * 1e3
@@ -2149,6 +2319,15 @@ def _library_call(name, args):
         k4, v4 = (x.transpose(1, 2).contiguous() for x in (k, v))
         mask = (torch.arange(k.shape[1], device=q.device)[None]
                 < lens[:, None])[:, None, None]
+        return lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                      attn_mask=mask,
+                                                      enable_gqa=True)
+    if name == "shared_tail_attention":
+        q, k, v, first = args
+        q4 = q.transpose(0, 1)[None].contiguous()
+        k4, v4 = (x.transpose(0, 1)[None].contiguous() for x in (k, v))
+        mask = (torch.arange(k.shape[0], device=q.device)[None]
+                >= first.long()[:, None])[None, None]
         return lambda: F.scaled_dot_product_attention(q4, k4, v4,
                                                       attn_mask=mask,
                                                       enable_gqa=True)
@@ -2232,7 +2411,38 @@ def phase_time(cfg, dev, counts, errs):
     time_q8_served_prefill(cfg, dev)
     time_merge_entries(cfg, dev)
     rows.append(time_prefill_attention(dev, counts, errs))
+    rows.append(time_shared_tail(dev, counts, errs))
     return rows
+
+
+def time_shared_tail(dev, counts, errs):
+    """The tail kernel at each of ``TAIL_ROWS``, beside its bound (the
+    visible pairs these first keys give), its plain version and, as a
+    yardstick, SDPA under the same mask (rows that see no key give NaN
+    there); returns the kernels' JSON row of the decode step's shape."""
+    from repro_torch.kernels import ops, ref
+    name = "shared_tail_attention"
+    row = None
+    for label, n in TAIL_ROWS:
+        args = tail_inputs(dev, n, seed=2)
+        ms = _time_ms(lambda: ops.shared_tail_attention(*args))
+        plain_ms = _time_ms(lambda: ref.shared_tail_attention_ref(*args),
+                            n=10)
+        lib_ms = _time_ms(_library_call(name, args))
+        bound_ms, bound_by = _bound(name, args)
+        say(f"[time] {name:24s} {label} ({n} rows) ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (SDPA, "
+            f"masked) bound_ms={bound_ms:.4f} ({bound_by}), "
+            f"{100 * bound_ms / ms:.1f} % of bound "
+            f"shapes={[tuple(a.shape) for a in args]}")
+        if row is None:
+            src, replaces = SOURCES[name]
+            row = {"name": name, "route": "cuda", "source": src,
+                   "replaces": replaces, "launches": counts[name],
+                   "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": lib_ms}
+    return row
 
 
 def time_prefill_attention(dev, counts, errs):
@@ -3721,6 +3931,7 @@ def main() -> int:
     run("9 launch", phase_launch, cfg, dev)
     launches.update(run("10 ep", phase_ep, dev, errs))
     launches.update(run("11 tp families", phase_tp_state, dev, errs))
+    launches.update(run("3t trinity", phase_trinity, dev))
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["max_abs_err"] = errs[row["name"]]

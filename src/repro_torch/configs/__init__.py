@@ -1,7 +1,8 @@
 """Config registry: ``get_config(arch_id)`` / ``list_archs()``.
 
 A copy of the reference package's registry: its 11 architectures, every
-family. Arch ids use the dashed names (e.g. ``tinyllama-1.1b``).
+family, plus the port's own (``PORT_ARCHS``). Arch ids use the dashed
+names (e.g. ``tinyllama-1.1b``).
 """
 from __future__ import annotations
 
@@ -9,8 +10,9 @@ import importlib
 from typing import Dict, List
 
 from repro_torch.configs.base import (  # noqa: F401 (public re-exports)
-    AUDIO, DENSE, FAMILIES, HYBRID, MOE, SSM, VLM, EncoderConfig,
-    HybridConfig, MoEConfig, ModelConfig, MoSKAConfig, SSMConfig,
+    AUDIO, DENSE, FAMILIES, HYBRID, MOE, SSM, VLM, AfmoeConfig,
+    AfmoeMoEConfig, EncoderConfig, HybridConfig, MoEConfig, ModelConfig,
+    MoSKAConfig, SSMConfig,
 )
 
 _ARCH_MODULES: Dict[str, str] = {
@@ -30,13 +32,18 @@ _ARCH_MODULES: Dict[str, str] = {
 
 ASSIGNED_ARCHS: List[str] = [k for k in _ARCH_MODULES if k != "moska-llama3.1-8b"]
 
+#: the port's own configurations, which the reference package has not:
+#: ``get_config`` takes them, ``list_archs`` keeps to the reference's
+PORT_ARCHS: Dict[str, str] = {
+    "trinity-mini": "trinity_mini",
+}
+
 
 def get_config(arch: str) -> ModelConfig:
-    if arch not in _ARCH_MODULES:
-        raise KeyError(
-            f"unknown arch {arch!r}; available: {sorted(_ARCH_MODULES)}")
-    mod = importlib.import_module(
-        f"repro_torch.configs.{_ARCH_MODULES[arch]}")
+    mods = {**_ARCH_MODULES, **PORT_ARCHS}
+    if arch not in mods:
+        raise KeyError(f"unknown arch {arch!r}; available: {sorted(mods)}")
+    mod = importlib.import_module(f"repro_torch.configs.{mods[arch]}")
     return mod.CONFIG
 
 

@@ -37,10 +37,33 @@ class MoEConfig:
     dense_residual: bool = False
     router_jitter: float = 0.0
     aux_loss_weight: float = 0.01
+    # the afmoe router's settings (fields of ``AfmoeMoEConfig``); here the
+    # values every other MoE has, as class constants, so that this class's
+    # fields stay the reference's
+    score_func = "softmax"
+    route_norm = True
+    route_scale = 1.0
+    shared_expert_width = 0
 
     @property
     def enabled(self) -> bool:
         return self.num_experts > 0
+
+
+@dataclass(frozen=True)
+class AfmoeMoEConfig(MoEConfig):
+    """The afmoe MoE: a softmax or a sigmoid router, the latter choosing
+    the top_k by score plus a per-expert selection bias (the layer's
+    ``expert_bias`` leaf) and weighting them by the unbiased scores; the
+    chosen weights divided by their sum under ``route_norm`` (the softmax
+    path always renormalises), times ``route_scale``; and a SwiGLU shared
+    expert of ``shared_expert_width`` that every token takes beside its
+    top_k (0: none)."""
+
+    score_func: str = "softmax"
+    route_norm: bool = True
+    route_scale: float = 1.0
+    shared_expert_width: int = 0
 
 
 @dataclass(frozen=True)
@@ -143,6 +166,17 @@ class ModelConfig:
     # §Perf knobs: flash-attention KV block (train/prefill) + remat policy
     attn_block_k: int = 1024
     remat_policy: str = "nothing"   # nothing | dots | none
+    # the afmoe layers' settings (fields of ``AfmoeConfig``); here the
+    # values every other config has, as class constants, so that this
+    # class's fields stay the reference's
+    layer_windows = ()
+    nope_full_layers = False
+    qk_norm = False
+    attn_gate = False
+    sandwich_norm = False
+    num_dense_layers = 0
+    dense_d_ff = 0
+    embed_scale = 1.0
 
     # ------------------------------------------------------------------
     def __post_init__(self):
@@ -155,6 +189,49 @@ class ModelConfig:
                 raise ValueError(
                     f"{self.name}: num_heads {self.num_heads} not divisible by "
                     f"kv heads {self.num_kv_heads}")
+        if self.layer_windows and len(self.layer_windows) != self.num_layers:
+            raise ValueError(
+                f"{self.name}: {len(self.layer_windows)} layer windows for "
+                f"{self.num_layers} layers")
+        if self.moe.score_func not in ("softmax", "sigmoid"):
+            raise ValueError(f"{self.name}: score_func "
+                             f"{self.moe.score_func!r}: softmax | sigmoid")
+
+    # ------------------------------------------------------------------
+    def window(self, i: int) -> int:
+        """Layer i's sliding window (0: full causal attention)."""
+        return self.layer_windows[i] if self.layer_windows else self.attn_window
+
+    def rope_at(self, i: int) -> bool:
+        """Whether layer i rotates its queries and keys."""
+        return not (self.nope_full_layers and self.window(i) == 0)
+
+    def moe_at(self, i: int) -> bool:
+        """Whether layer i's FFN is the MoE (the leading dense layers' is
+        not)."""
+        return self.moe.enabled and i >= self.num_dense_layers
+
+    def ffn_width(self, i: int) -> int:
+        """Layer i's dense SwiGLU width."""
+        if i < self.num_dense_layers and self.dense_d_ff:
+            return self.dense_d_ff
+        return self.d_ff
+
+    @property
+    def afmoe_features(self) -> Tuple[str, ...]:
+        """The afmoe features this config turns on, by field name: the
+        paths that do not take them (training, meshes) name them when they
+        refuse."""
+        on = [n for n in ("layer_windows", "nope_full_layers", "qk_norm",
+                          "attn_gate", "sandwich_norm", "num_dense_layers")
+              if getattr(self, n)]
+        if self.embed_scale != 1.0:
+            on.append("embed_scale")
+        if self.moe.score_func != "softmax":
+            on.append("moe.score_func")
+        if self.moe.shared_expert_width:
+            on.append("moe.shared_expert_width")
+        return tuple(on)
 
     # ------------------------------------------------------------------
     @property
@@ -205,6 +282,8 @@ class ModelConfig:
             total += L * per
             return total
         attn = d * (H * hd) + 2 * d * (KH * hd) + (H * hd) * d
+        if self.afmoe_features:
+            return total + sum(self._afmoe_layer_params(i) for i in range(L))
         ffn_dense = 3 * d * f  # gate, up, down (SwiGLU)
         per_layer = attn + 2 * d  # + norms
         if self.moe.enabled:
@@ -233,13 +312,32 @@ class ModelConfig:
             total += self.num_layers * e_attn  # decoder cross-attention
         return total
 
+    def _afmoe_layer_params(self, i: int) -> int:
+        """Layer i of an afmoe config: attention (with its gate and q/k
+        norms), its norms, and a dense SwiGLU or the MoE (router, its bias,
+        experts, shared expert)."""
+        d, hd = self.d_model, self.head_dim
+        hq, hkv = self.num_heads * hd, self.num_kv_heads * hd
+        n = 2 * d * hq + 2 * d * hkv + 2 * d
+        n += d * hq if self.attn_gate else 0
+        n += 2 * hd if self.qk_norm else 0
+        n += 2 * d if self.sandwich_norm else 0
+        if not self.moe_at(i):
+            return n + 3 * d * self.ffn_width(i)
+        E = self.moe.num_experts
+        n += E * 3 * d * self.d_ff + d * E
+        n += E if self.moe.score_func == "sigmoid" else 0
+        n += 3 * d * self.moe.shared_expert_width
+        return n + (3 * d * self.d_ff if self.moe.dense_residual else 0)
+
     def active_param_count(self) -> int:
         """Active params per token (MoE activates top_k of num_experts)."""
         if not self.moe.enabled:
             return self.param_count()
         d, f, L = self.d_model, self.d_ff, self.num_layers
         expert = 3 * d * f
-        inactive = (self.moe.num_experts - self.moe.top_k) * expert * L
+        moe_layers = sum(self.moe_at(i) for i in range(L))
+        inactive = (self.moe.num_experts - self.moe.top_k) * expert * moe_layers
         return self.param_count() - inactive
 
     # ------------------------------------------------------------------
@@ -267,9 +365,18 @@ class ModelConfig:
                 max_shared_tokens=4096),
         )
         if self.moe.enabled:
-            kw["moe"] = dataclasses.replace(
-                self.moe, num_experts=min(self.moe.num_experts, 4),
-                top_k=min(self.moe.top_k, 2))
+            moe = dict(num_experts=min(self.moe.num_experts, 4),
+                       top_k=min(self.moe.top_k, 2))
+            if self.moe.shared_expert_width:
+                moe["shared_expert_width"] = min(
+                    self.moe.shared_expert_width, 512)
+            kw["moe"] = dataclasses.replace(self.moe, **moe)
+        if self.layer_windows:
+            kw["layer_windows"] = tuple(min(w, 64)
+                                        for w in self.layer_windows[:layers])
+        if self.num_dense_layers:
+            kw["num_dense_layers"] = min(self.num_dense_layers, layers - 1)
+            kw["dense_d_ff"] = min(self.dense_d_ff, 512)
         if self.ssm.enabled:
             kw["ssm"] = dataclasses.replace(
                 self.ssm, state_dim=32, head_dim=32, chunk_size=32)
@@ -281,6 +388,24 @@ class ModelConfig:
                 frontend_seq=min(self.encoder.frontend_seq or 64, 64),
                 frontend_dim=d)
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class AfmoeConfig(ModelConfig):
+    """A model of afmoe layers (arcee-ai's Trinity): per-layer sliding
+    windows, NoPE on the full layers, q and k norms, an output gate,
+    sandwich norms, dense leading layers and an embedding scale. Its MoE
+    is an ``AfmoeMoEConfig``."""
+
+    # per layer, 0 => full causal attention; () => every layer attn_window
+    layer_windows: Tuple[int, ...] = ()
+    nope_full_layers: bool = False  # no RoPE on full-attention layers
+    qk_norm: bool = False           # RMSNorm over head_dim of each q and k head
+    attn_gate: bool = False         # o * sigmoid(h Wg) before the output proj
+    sandwich_norm: bool = False     # RMSNorm of the attention's and FFN's outputs
+    num_dense_layers: int = 0       # leading layers with a dense SwiGLU (MoE after)
+    dense_d_ff: int = 0             # their width (0 => d_ff)
+    embed_scale: float = 1.0        # token embeddings times this (muP: sqrt(d))
 
 
 # ---------------------------------------------------------------------------

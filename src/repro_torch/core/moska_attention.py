@@ -7,7 +7,9 @@ page pool, blocked flash attention at prefill); the shared path is the
 routed, batched GEMM (``shared_attention_batched``); the two partials are
 merged exactly through their LSEs (the ``lse_merge`` kernel).
 ``moska_decode_merge`` is the shared half of a decode step, so each cache
-layout computes its own unique partial and hands it over.
+layout computes its own unique partial and hands it over. A sliding-window
+layer never routes: ``shared_tail_merge`` merges its unique partial with
+one call over the document's tail, which every row shares.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from repro_torch import obs
 from repro_torch.configs.base import MoSKAConfig
 from repro_torch.core import router as router_lib
 from repro_torch.core import shared_attention as sa
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
 
@@ -65,6 +68,54 @@ def moska_decode_merge(
     with obs.profiled_span("layer.merge"):
         out, _ = L.merge_partial_attention([o_u, part.out[:, 0]],
                                            [lse_u, part.lse[:, 0]])
+    return out
+
+
+#: the profiler range around a sliding-window layer's tail call and merge
+TAIL_RANGE = "layer.shared_tail"
+
+
+def record_tail(rec: Optional[obs.DeviceRecorder], first: torch.Tensor,
+                tail: int, calls: int) -> None:
+    """The counts of ``calls`` tail calls of one model call, which share
+    their rows, their first keys and a tail of ``tail`` keys (every sliding
+    layer of the model), queued once as device tensors (no sync): rows
+    with at least one visible tail key (``moska/tail_rows``) and visible
+    (row, key) pairs (``moska/tail_keys``); on the host the calls, their
+    rows and the tail keys they read (``moska/tail_calls``,
+    ``moska/tail_query_rows``, ``moska/tail_kv_rows``). Each counter sums
+    over the calls."""
+    if rec is None or not calls:
+        return
+    seen = (tail - first.long()).clamp(0, tail)
+    rec.inc("moska/tail_rows", (seen > 0).sum() * calls)
+    rec.inc("moska/tail_keys", seen.sum() * calls)
+    rec.inc("moska/tail_calls", calls)
+    rec.inc("moska/tail_query_rows", first.numel() * calls)
+    rec.inc("moska/tail_kv_rows", tail * calls)
+
+
+def shared_tail_merge(
+    q: torch.Tensor,                      # (N, H, D) every row's query
+    o_u: torch.Tensor,                    # (N, H, D) unique partial
+    lse_u: torch.Tensor,                  # (N, H) fp32
+    k_tail: torch.Tensor,                 # (T, KH, D) the shared tail
+    v_tail: torch.Tensor,
+    first: torch.Tensor,                  # (N,) int32
+) -> torch.Tensor:
+    """A sliding-window layer's attention over a shared document: its
+    window reaches back only into the document's last keys, the tail
+    (``SharedTail``), which every row shares. Row n (at unique offset t
+    after the document, window W, tail of W - 1 keys) sees tail keys t ..
+    W - 2: ``first[n] = t``, none once t >= W - 1. One
+    ``shared_tail_attention`` call over every row, merged with the
+    windowed unique partial ``(o_u, lse_u)``. Returns (N, H, D). The model
+    call counts its layers' calls once (``record_tail``)."""
+    with obs.profiled_span(TAIL_RANGE):
+        o_t, lse_t = ops.shared_tail_attention(
+            q.contiguous(), k_tail.contiguous(), v_tail.contiguous(),
+            first.to(torch.int32).contiguous())
+        out, _ = L.merge_partial_attention([o_u, o_t], [lse_u, lse_t])
     return out
 
 

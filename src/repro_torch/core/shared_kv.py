@@ -4,10 +4,17 @@ Port of the reference ``core/shared_kv.py``. Layout (stacked over layers;
 the decoder loop takes one slice per layer):
     k, v : (L, n_chunks, chunk_size, kv_heads, head_dim)   post-RoPE keys
     emb  : (L, n_chunks, kv_heads, head_dim)               router embeddings
+
+A model whose layers differ in their window (afmoe's sliding-window and
+full layers) keeps a ``LayeredStore``: per layer, a full layer's chunks as
+above, and a sliding layer's one "chunk" of the document's last
+``window - 1`` keys, the only ones its window can reach, with its mean
+key. The layer lists index as the stacked tensors do (``k[i]``, ``v[i]``,
+``emb[i]``).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -122,3 +129,61 @@ def build_store(k: torch.Tensor, v: torch.Tensor, chunk_size: int,
     kq, ks = _quantize(kc)
     vq, vs = _quantize(vc)
     return SharedKVStore(kq, vq, emb, pos, ks, vs)
+
+
+class LayeredStore:
+    """A store whose layers differ: per layer i, ``k[i]``/``v[i]`` (E_i,
+    C_i, KH, D) and ``emb[i]`` (E_i, KH, D); a full layer's E_i chunks of
+    ``chunk_size``, a sliding layer's one of its tail (``is_tail``)."""
+
+    def __init__(self, k: List[torch.Tensor], v: List[torch.Tensor],
+                 emb: List[torch.Tensor], chunk_positions: torch.Tensor,
+                 windows: Sequence[int], total_tokens: int):
+        self.k, self.v, self.emb = k, v, emb
+        self.chunk_positions = chunk_positions
+        self.windows = tuple(windows)
+        self.total_tokens = total_tokens
+
+    def is_tail(self, i: int) -> bool:
+        return self.windows[i] > 0
+
+    @property
+    def num_layers(self) -> int:
+        return len(self.k)
+
+    @property
+    def num_chunks(self) -> int:
+        return self.chunk_positions.shape[0]
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (*self.k, *self.v, *self.emb))
+
+
+def build_layered_store(k: torch.Tensor, v: torch.Tensor, chunk_size: int,
+                        windows: Sequence[int],
+                        start_position: int = 0) -> LayeredStore:
+    """Chunk a (L, S, KH, D) corpus KV layer by layer: a full layer
+    (window 0) into its S / chunk_size chunks, a sliding layer of window W
+    into its last min(W - 1, S) positions. Each piece is a copy, so the
+    corpus KV it came from can be freed."""
+    L, S, KH, D = k.shape
+    if S % chunk_size:
+        raise ValueError(f"corpus length {S} not a multiple of chunk_size "
+                         f"{chunk_size}")
+    ks, vs, embs = [], [], []
+    for i, w in enumerate(windows):
+        if w:
+            n = min(w - 1, S)
+            kc = k[i, S - n:].clone()[None]
+            vc = v[i, S - n:].clone()[None]
+        else:
+            kc = k[i].reshape(S // chunk_size, chunk_size, KH, D).clone()
+            vc = v[i].reshape(S // chunk_size, chunk_size, KH, D).clone()
+        ks.append(kc)
+        vs.append(vc)
+        embs.append(chunk_embeddings(kc))
+    pos = start_position + torch.arange(S // chunk_size, dtype=torch.int32,
+                                        device=k.device) * chunk_size
+    return LayeredStore(ks, vs, embs, pos, windows, S)

@@ -38,6 +38,7 @@ SIGNATURES = {
                                 _i, _i, _i, _i, _i, _i, _i, _p],
     "moska_shared_chunk_attn_q8": [_p, _p, _p, _p, _p, _p, _p, _p,
                                    _i, _i, _i, _i, _i, _i, _i, _p],
+    "moska_shared_tail_attn": [_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p],
     "moska_decode_attn": [_p, _p, _p, _p, _p, _p,
                           _i, _i, _i, _i, _i, _i, _i, _p],
     "moska_paged_decode_attn": [_p, _p, _p, _p, _p, _p, _p,

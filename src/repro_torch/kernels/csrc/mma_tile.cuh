@@ -4,7 +4,8 @@
 // ring of stages, so the copy of tile t + 1 overlaps the products of tile
 // t. Used by shared_chunk_attn.cu for bf16 queries (rows = dispatched
 // queries x group heads, keys = one shared chunk, bf16 or int8 with
-// scales) and by flash_prefill_attn.cu (rows = positions x group heads,
+// scales; or rows = every query x group heads, keys = the shared tail a
+// sliding-window layer sees) and by flash_prefill_attn.cu (rows = positions x group heads,
 // keys = the causal band of one sequence).
 //
 // A block is 4 warps over 64 M query rows, M atoms of 16 rows a warp (the
@@ -19,8 +20,8 @@
 // StridedQ8KV below): issue(stage, t0, n) starts the copies of keys
 // [t0, t0 + 64), zero-filling rows past n; prepare(stage, scratch) is
 // called once the stage has landed and returns the bf16 tiles to read.
-// Which scores count is a mask policy (KeysBelow below; the prefill's
-// causal band in flash_prefill_attn.cu).
+// Which scores count is a mask policy (KeysBelow and KeysFrom below; the
+// prefill's causal band in flash_prefill_attn.cu).
 //
 // Numerics: products of bf16 values are exact in the fp32 sums; scores,
 // the running max and the denominator stay fp32. The one extra rounding
@@ -177,6 +178,21 @@ struct KeysBelow {
   }
   __device__ __forceinline__ float operator()(int, int key, float x) const {
     return key < n ? x : kNegInf;
+  }
+};
+
+// The mask of keys [lo, n) of each row (the shared tail's, where row h of
+// the lane sees keys from its own first key on): a key of the row's range
+// counts; any other never counts (-inf), so a row that sees no key keeps
+// m = -1e30 and l = 0. Keys [full_lo, n) count for every row of the block.
+struct KeysFrom {
+  int lo[2];
+  int full_lo, n;
+  __device__ __forceinline__ bool full(int t0) const {
+    return t0 >= full_lo && t0 + kMmaKeys <= n;
+  }
+  __device__ __forceinline__ float operator()(int h, int key, float x) const {
+    return key >= lo[h] && key < n ? x : __int_as_float((int)0xff800000);
   }
 };
 

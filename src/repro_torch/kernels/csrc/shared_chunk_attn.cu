@@ -39,6 +39,21 @@
 //    digits), so fp32 stays exact there; the int8 entry dequantizes
 //    k_int8 * k_scale in fp32 as each tile is staged (attn_tile.cuh::Q8KV).
 //
+// shared_tail_attention (a third entry; it replaces no TPU kernel: the
+// reference has no sliding-window layer over a store, and the port's
+// plain version is kernels/ref.py::shared_tail_attention_ref): a
+// sliding-window layer of a model served over a shared document sees only
+// the document's last W - 1 keys, the tail, and every query of a decode
+// step or of a prefill sees some suffix of it: row n keys first[n] ..
+// T - 1. So all rows share one tail, read once per (row tile, kv head),
+// in one tensor-core call (shared_tail_mma_kernel, the same loop under
+// the KeysFrom mask of mma_tile.cuh). A block visits the keys from the
+// smallest first of its rows; a block none of whose rows sees a key
+// writes out 0 and lse -inf and exits. What bounds it at the served
+// shapes (256 or up to 512 rows, H 32 over KH 4, D 128, T 2,047, every
+// row seeing 1,024 keys or more): operations, as for the prefill kernel:
+// a 64-row tile does 64 x 4 x D operations for each 4 D bytes of K/V.
+//
 // Dispatch fills each chunk's slots from position 0, so the valid rows
 // are a prefix; a tile with no valid row writes the masked result (16
 // bytes a store in the bf16 kernel) and exits, so only routed work is
@@ -183,6 +198,105 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
   }
 }
 
+// The shared tail: q (N, H, D) against one tail k, v (T, KH, D), row n
+// seeing keys first[n] .. T - 1 (see the note at the top). One block per
+// (64-row tile of (row, group head), kv head), 4 warps of 16 rows.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+    shared_tail_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           const int* __restrict__ first,
+                           __nv_bfloat16* __restrict__ out,
+                           float* __restrict__ lse, int N, int H, int KH,
+                           int T, float scale_log2) {
+  constexpr int LD = mma_ld<D>();
+  constexpr int kChunks = D / 8;  // 16-byte chunks of a row
+  extern __shared__ __align__(16) char mma_smem[];
+  __shared__ int s_lo, s_hi;
+  const float kInf = __int_as_float((int)0x7f800000);
+  const int G = H / KH;
+  const int kh = blockIdx.y;
+  const int row0 = blockIdx.x * kMmaRows;
+  const int rows = min(kMmaRows, N * G - row0);
+  const int tid = threadIdx.x;
+  const int p_first = row0 / G;
+  const int p_last = (row0 + rows - 1) / G;
+  auto lo_of = [&](int p) { return min(max(first[p], 0), T); };
+
+  // the keys the block visits: from the smallest first of its rows; keys
+  // from the largest on count for every row
+  if (tid == 0) {
+    s_lo = T;
+    s_hi = 0;
+  }
+  __syncthreads();
+  for (int p = p_first + tid; p <= p_last; p += kMmaThreads) {
+    const int lo = lo_of(p);
+    atomicMin(&s_lo, lo);
+    atomicMax(&s_hi, lo);
+  }
+  __syncthreads();
+  const int k0 = s_lo;
+  if (k0 >= T) {
+    // no row sees a key: out 0, lse -inf, 16 bytes a store
+    for (int i = tid; i < rows * kChunks; i += kMmaThreads) {
+      const long o = row_offset(0, kh, row0 + i / kChunks, N, H, G);
+      *reinterpret_cast<uint4*>(out + o * D + (i % kChunks) * 8) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+    for (int r = tid; r < rows; r += kMmaThreads)
+      lse[row_offset(0, kh, row0 + r, N, H, G)] = -kInf;
+    return;
+  }
+
+  // Q tile: rows past `rows` are zero (their scores are computed and
+  // never stored)
+  auto* sq = reinterpret_cast<__nv_bfloat16*>(mma_smem);
+  for (int i = tid; i < kMmaRows * kChunks; i += kMmaThreads) {
+    const int r = i / kChunks, c = i % kChunks;
+    const bool in = r < rows;
+    const long o = row_offset(0, kh, row0 + (in ? r : 0), N, H, G);
+    cp_async16(sq + r * LD + c * 8, q + o * D + c * 8, in ? 16 : 0);
+  }
+  cp_async_commit();
+
+  const int lane = tid & 31;
+  KeysFrom mask;
+  mask.full_lo = s_hi;
+  mask.n = T;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = (tid >> 5) * 16 + (lane >> 2) + 8 * h;
+    mask.lo[h] = lo_of(min((row0 + r) / G, p_last));
+  }
+  char* ring = mma_smem + mma_tile_bytes<D>();
+  const StridedBf16KV<D> src{k + (long)kh * D, v + (long)kh * D,
+                             (long)KH * D};
+  MmaRows<D> acc;
+  attend_rows_mma<D>(sq, ring, nullptr, src, k0, T, mask, scale_log2, acc);
+
+  // epilogue: lane holds rows g and g + 8 of its warp's 16, columns
+  // 8 b + 2 t + 0,1 of each column block b
+  const int t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = (tid >> 5) * 16 + (lane >> 2) + 8 * h;
+    if (r >= rows) continue;
+    const int row = row0 + r;
+    const long o = row_offset(0, kh, row, N, H, G);
+    const bool seen = lo_of(row / G) < T;
+    const float l = fmaxf(acc.l[0][h], 1e-37f);
+    const float inv = seen ? 1.f / l : 0.f;
+    __nv_bfloat16* orow = out + o * D + 2 * t;
+#pragma unroll
+    for (int b = 0; b < D / 8; ++b)
+      *reinterpret_cast<uint32_t*>(orow + 8 * b) =
+          pack_bf16(acc.o[0][b][2 * h] * inv, acc.o[0][b][2 * h + 1] * inv);
+    if (t == 0) lse[o] = seen ? acc.m[0][h] * kLn2 + logf(l) : -kInf;
+  }
+}
+
 template <typename T, int D, typename Chunks>
 __global__ void __launch_bounds__(kThreads)
     shared_chunk_attn_kernel(const T* __restrict__ qd, const Chunks chunks,
@@ -318,8 +432,47 @@ cudaError_t dispatch_mma(int D, const void* qd, const Chunks& chunks,
   }
 }
 
+template <int D>
+cudaError_t launch_tail(const void* q, const void* k, const void* v,
+                        const void* first, void* out, void* lse, int N,
+                        int H, int KH, int T, cudaStream_t stream) {
+  constexpr int smem = mma_smem_bytes<D, StridedBf16KV<D>>();
+  auto kern = shared_tail_mma_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const long rows = (long)N * (H / KH);
+  dim3 grid((unsigned)((rows + kMmaRows - 1) / kMmaRows), KH);
+  kern<<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(first),
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), N, H, KH,
+      T, kLog2e / sqrtf((float)D));
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace moska
+
+// q (N, H, D) bf16; k, v (T, KH, D) bf16; first (N,) int32; out (N, H, D)
+// bf16; lse (N, H) fp32 (-inf for a row that sees no key).
+extern "C" int moska_shared_tail_attn(const void* q, const void* k,
+                                      const void* v, const void* first,
+                                      void* out, void* lse, int N, int H,
+                                      int KH, int D, int T, void* stream) {
+  using namespace moska;
+  if (H % KH || N < 1 || T < 1) return cudaErrorInvalidValue;
+  if (!aligned(q, 16) || !aligned(k, 16) || !aligned(v, 16) ||
+      !aligned(out, 16))
+    return cudaErrorMisalignedAddress;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64: return launch_tail<64>(q, k, v, first, out, lse, N, H, KH, T, st);
+    case 128: return launch_tail<128>(q, k, v, first, out, lse, N, H, KH, T, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
 
 // qd (E, cap, H, D); k, v (E, C, KH, D); qmask (E, cap) bytes;
 // out (E, cap, H, D) in the input dtype; lse (E, cap, H) fp32.

@@ -169,6 +169,43 @@ def shared_chunk_attention_q8(qd: torch.Tensor, k: torch.Tensor,
     return out, lse
 
 
+def shared_tail_attention(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, first: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every row against one shared tail of keys: q (N, H, D) bf16; k/v
+    (T, KH, D) bf16; first (N,) int32, row n's first visible key (keys
+    first[n] .. T - 1 count). Returns (out (N, H, D) bf16, lse (N, H)
+    fp32); a row that sees no key gets out 0 and lse -inf."""
+    if isinstance(q, FakeTensor):
+        return _traced("shared_tail_attention", (q, k, v, first),
+                       torch.empty_like(q), q.new_empty(
+                           q.shape[:2], dtype=torch.float32))
+    if _on_cpu(q):
+        return ref.shared_tail_attention_ref(q, k, v, first)
+    name = "shared_tail_attention"
+    N, H, D = q.shape
+    T, KH = k.shape[0], k.shape[1]
+    if k.shape != (T, KH, D) or v.shape != k.shape or H % KH:
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)} v {tuple(v.shape)}")
+    if first.shape != (N,):
+        raise ValueError(f"{name}: first {tuple(first.shape)} != {(N,)}")
+    if D not in PREFILL_HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {D} not in {PREFILL_HEAD_DIMS}")
+    _check(name, torch.bfloat16, q.device, q=q, k=k, v=v)
+    _check(name, torch.int32, q.device, first=first)
+    if N == 0 or T == 0:
+        raise ValueError(f"{name}: empty input")
+    _aligned16(name, q=q, k=k, v=v)
+    out = torch.empty_like(q)
+    lse = torch.empty((N, H), dtype=torch.float32, device=q.device)
+    _raise_on(name, library().moska_shared_tail_attn(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(first), _ptr(out), _ptr(lse),
+        N, H, KH, D, T, _stream()))
+    shared_tail_attention.launches += 1
+    return out, lse
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_len: torch.Tensor, window: int = 0
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -431,7 +468,7 @@ def flash_prefill_attention(q: torch.Tensor, k: torch.Tensor,
 
 KERNELS = (shared_chunk_attention, decode_attention, lse_merge,
            router_scores, paged_decode_attention, shared_chunk_attention_q8,
-           flash_prefill_attention)
+           flash_prefill_attention, shared_tail_attention)
 for _fn in KERNELS:
     _fn.launches = 0
 

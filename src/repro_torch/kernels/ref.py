@@ -47,6 +47,35 @@ def shared_chunk_attention_ref(qd: torch.Tensor, k: torch.Tensor,
     return out.reshape(E, cap, H, D).to(qd.dtype), lse.reshape(E, cap, H)
 
 
+def shared_tail_attention_ref(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, first: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every row's attention over one shared tail of keys: q (N, H, D)
+    against k/v (T, KH, D), row n seeing keys ``first[n]`` .. T - 1 (a
+    sliding-window layer's view of the end of a shared document).
+    Returns (out (N, H, D) in q.dtype, lse (N, H) fp32); a row that sees
+    no key gets out 0 and lse -inf."""
+    N, H, D = q.shape
+    T, KH = k.shape[0], k.shape[1]
+    G = H // KH
+    scale = 1.0 / math.sqrt(D)
+    qg = q.reshape(N, KH, G, D).float()
+    s = torch.einsum("nkgd,tkd->nkgt", qg, k.float()) * scale
+    seen = (torch.arange(T, device=q.device)[None]
+            >= first.to(q.device).long()[:, None])                # (N, T)
+    s = s.masked_fill(~seen[:, None, None], -math.inf)
+    m = s.amax(dim=-1)
+    any_ = seen.any(dim=1)[:, None, None]
+    p = torch.exp(s - torch.where(any_, m, torch.zeros_like(m))[..., None])
+    l = p.sum(dim=-1)
+    o = torch.einsum("nkgt,tkd->nkgd", p, v.float())
+    o = o / l.clamp_min(1e-37)[..., None]
+    lse = torch.where(any_, m + torch.log(l.clamp_min(1e-37)),
+                      torch.full_like(m, -math.inf))
+    o = torch.where(any_[..., None], o, torch.zeros_like(o))
+    return o.reshape(N, H, D).to(q.dtype), lse.reshape(N, H)
+
+
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          kv_len: torch.Tensor, window: int = 0
                          ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -14,7 +14,8 @@ them.
 run's counter (``launch/op_cost.py``) for every kernel call it traces, so
 the two count the same work whatever implements the kernel. Where the
 work depends on the data (the dispatched queries of the shared kernels,
-the cached tokens of the decode kernels), the caller that has the data
+the visible tail keys of the tail kernel, the cached tokens of the decode
+kernels), the caller that has the data
 passes its counts; without them (a dry run's fake tensors have no values)
 the count is bounded by capacity: every dispatch slot valid, every chunk
 with a query, every request's cache full.
@@ -52,6 +53,19 @@ def shared_chunk_attention(qd, k, v, qmask, k_scale=None, v_scale=None, *,
 def shared_chunk_attention_q8(qd, k, v, k_scale, v_scale, qmask, **counts):
     return shared_chunk_attention(qd, k, v, qmask, k_scale, v_scale,
                                   **counts)
+
+
+def shared_tail_attention(q, k, v, first, *, keys: Optional[int] = None
+                          ) -> Tuple[float, float]:
+    """``keys``: the visible (row, key) pairs, summed over the rows
+    (capacity: every row sees the whole tail). The tail's K and V are read
+    once; each row's q, out, lse and first are moved once."""
+    N, H, D = q.shape
+    T, KH = k.shape[0], k.shape[1]
+    keys = N * T if keys is None else keys
+    byts = (2 * T * KH * D * k.element_size() + 2 * _nb(q) + N * H * 4
+            + _nb(first))
+    return 4.0 * keys * H * D, float(byts)
 
 
 def decode_attention(q, k, v, kv_len, window: int = 0, *,
@@ -131,7 +145,7 @@ def flash_prefill_attention(q, k, v, causal: bool = True, q_offset: int = 0,
 #: every kernel entry of ``kernels/ops.py`` by name
 WORK: Dict[str, Callable[..., Tuple[float, float]]] = {
     f.__name__: f for f in (shared_chunk_attention, shared_chunk_attention_q8,
-                            decode_attention, paged_decode_attention,
+                            shared_tail_attention, decode_attention, paged_decode_attention,
                             lse_merge, lse_merge_pair, lse_merge_routed,
                             router_scores, flash_prefill_attention)}
 

@@ -33,8 +33,9 @@ it was.
 """
 from __future__ import annotations
 
+import collections
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -47,7 +48,7 @@ from repro_torch.core import moska_attention as MA
 from repro_torch.core import router as router_lib
 from repro_torch.core import disagg
 from repro_torch.core import shared_attention as sa
-from repro_torch.core.shared_kv import SharedKVStore
+from repro_torch.core.shared_kv import LayeredStore, SharedKVStore
 from repro_torch.kernels import ops
 from repro_torch.kvcache.cache import KVCache, append_token, write_prefix
 from repro_torch.kvcache.paged import (PagedKVCache, append_index,
@@ -69,10 +70,17 @@ def _param(shape, dtype, device) -> nn.Parameter:
 
 
 class DenseLayer(nn.Module):
-    """One decoder layer's parameters, under the reference's names."""
+    """Layer ``index``'s parameters, under the reference's names. An afmoe
+    layer (Trinity) adds the attention's output gate ``attn["wg"]``, the
+    q and k norms ``qk_norm["q"/"k"]`` (over head_dim), the sandwich
+    norms ``post_norm["attn"/"mlp"]`` (ln1 and ln2 stay the input and
+    pre-FFN norms), and in the MoE the float32 ``expert_bias`` (E,) and the
+    shared expert ``sh_gate``/``sh_up`` (d, fs), ``sh_down`` (fs, d); its
+    leading ``num_dense_layers`` take a dense SwiGLU of ``dense_d_ff``."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, index: int = 0):
         super().__init__()
+        self.index = index
         dt = torch_dtype(cfg.dtype)
         d, f = cfg.d_model, cfg.d_ff
         hq, hkv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
@@ -86,15 +94,34 @@ class DenseLayer(nn.Module):
             attn.update(bq=_param((hq,), dt, device),
                         bk=_param((hkv,), dt, device),
                         bv=_param((hkv,), dt, device))
+        if cfg.attn_gate:
+            attn["wg"] = _param((d, hq), dt, device)
         self.attn = nn.ParameterDict(attn)
-        if cfg.moe.enabled:
+        if cfg.qk_norm:
+            D = cfg.head_dim
+            self.qk_norm = nn.ParameterDict({"q": _param((D,), dt, device),
+                                             "k": _param((D,), dt, device)})
+        if cfg.sandwich_norm:
+            self.post_norm = nn.ParameterDict({
+                "attn": _param((d,), dt, device),
+                "mlp": _param((d,), dt, device)})
+        moe = cfg.moe_at(index)
+        if moe:
             E = cfg.moe.num_experts
-            self.moe = nn.ParameterDict({
-                "router": _param((d, E), torch.float32, device),
-                "e_gate": _param((E, d, f), dt, device),
-                "e_up": _param((E, d, f), dt, device),
-                "e_down": _param((E, f, d), dt, device)})
-        if not cfg.moe.enabled or cfg.moe.dense_residual:
+            leaves = {"router": _param((d, E), torch.float32, device),
+                      "e_gate": _param((E, d, f), dt, device),
+                      "e_up": _param((E, d, f), dt, device),
+                      "e_down": _param((E, f, d), dt, device)}
+            if cfg.moe.score_func == "sigmoid":
+                leaves["expert_bias"] = _param((E,), torch.float32, device)
+            fs = cfg.moe.shared_expert_width
+            if fs:
+                leaves.update(sh_gate=_param((d, fs), dt, device),
+                              sh_up=_param((d, fs), dt, device),
+                              sh_down=_param((fs, d), dt, device))
+            self.moe = nn.ParameterDict(leaves)
+        if not moe or cfg.moe.dense_residual:
+            f = cfg.ffn_width(index)
             self.mlp = nn.ParameterDict({"w_gate": _param((d, f), dt, device),
                                          "w_up": _param((d, f), dt, device),
                                          "w_down": _param((f, d), dt, device)})
@@ -108,8 +135,8 @@ class DenseLM(nn.Module):
         dt = torch_dtype(cfg.dtype)
         V, d = cfg.vocab_size, cfg.d_model
         self.embed = nn.ParameterDict({"embed": _param((V, d), dt, device)})
-        self.layers = nn.ModuleList(DenseLayer(cfg, device)
-                                    for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(DenseLayer(cfg, device, i)
+                                    for i in range(cfg.num_layers))
         self.final_norm = nn.ParameterDict({"scale": _param((d,), dt, device)})
         self.unembed = (None if cfg.tie_embeddings else nn.ParameterDict(
             {"unembed": _param((V, d), dt, device)}))
@@ -140,14 +167,19 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         for name, p in lp.attn.items():
             if name.startswith("b"):
                 p.zero_()
-            else:
+            else:                        # an afmoe gate "wg" comes last
                 normal_(p, 1 / math.sqrt(d))
-        if cfg.moe.enabled:
+        for norms in ("qk_norm", "post_norm"):
+            if hasattr(lp, norms):
+                for p in getattr(lp, norms).values():
+                    p.zero_()
+        if hasattr(lp, "moe"):
             moe_lib.moe_init(lp.moe, generator, d, f)
         if hasattr(lp, "mlp"):
+            fw = lp.mlp["w_down"].shape[0]
             normal_(lp.mlp["w_gate"], 1 / math.sqrt(d))
             normal_(lp.mlp["w_up"], 1 / math.sqrt(d))
-            normal_(lp.mlp["w_down"], 1 / math.sqrt(f))
+            normal_(lp.mlp["w_down"], 1 / math.sqrt(fw))
     model.final_norm["scale"].zero_()
     if model.unembed is not None:
         normal_(model.unembed["unembed"], 1 / math.sqrt(d))
@@ -177,6 +209,24 @@ def _qkv_rope(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
     q, k, v = L.qkv_project(h, tp.gather_weights(lp.attn), cfg.num_heads,
                             cfg.num_kv_heads, cfg.head_dim)
     return _rope(cfg, q, positions), _rope(cfg, k, positions), v
+
+
+def _qkv_gate(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
+              positions: torch.Tensor):
+    """``_qkv_rope`` for layer ``lp.index``: q (B, S, H, D), k, v (B, S, KH,
+    D) and the attention's output gate sigmoid(h Wg) (B, S, H * D) (None
+    without one). An afmoe layer norms each q and k head over D first,
+    and a full-attention layer of a NoPE config leaves them unrotated."""
+    h = _act(L.rms_norm(x, lp.ln1["scale"], cfg.rms_eps))
+    q, k, v = L.qkv_project(h, tp.gather_weights(lp.attn), cfg.num_heads,
+                            cfg.num_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = L.rms_norm(q, lp.qk_norm["q"], cfg.rms_eps)
+        k = L.rms_norm(k, lp.qk_norm["k"], cfg.rms_eps)
+    if cfg.rope_at(lp.index):
+        q, k = _rope(cfg, q, positions), _rope(cfg, k, positions)
+    gate = torch.sigmoid(h @ lp.attn["wg"]) if cfg.attn_gate else None
+    return q, k, v, gate
 
 
 def _act(x: torch.Tensor, seq: str = "seq") -> torch.Tensor:
@@ -209,6 +259,14 @@ def _causal_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
                          grad_placements=(None, grad, grad))
 
 
+def _unmeshed_only(cfg: ModelConfig) -> None:
+    """The meshed layers take none of the afmoe features."""
+    if cfg.afmoe_features:
+        raise NotImplementedError(
+            f"{cfg.name} under a mesh: the meshed layers do not take "
+            f"{', '.join(cfg.afmoe_features)}")
+
+
 def _merge_heads(o: torch.Tensor) -> torch.Tensor:
     """(..., H, D) -> (..., H * D). On a mesh the merge runs on the local
     tensor: the output projection's backward hands it a gradient split
@@ -231,8 +289,9 @@ def _ffn(cfg: ModelConfig, lp: DenseLayer, x: torch.Tensor,
     """x: (..., d) -> the FFN's output: SwiGLU, or the MoE FFN over every
     row handed in as one batch of tokens (its capacity counts them all),
     plus Arctic's dense residual. Serving drops the MoE aux loss, so it is
-    not computed."""
-    if not cfg.moe.enabled:
+    not computed. An afmoe config's leading dense layers take the
+    SwiGLU."""
+    if not cfg.moe_at(lp.index):
         with obs.profiled_span("layer.ffn"):
             return L.swiglu_mlp(x, tp.gather_weights(lp.mlp))
     with obs.profiled_span(MOE_RANGE):
@@ -247,13 +306,30 @@ def _ffn(cfg: ModelConfig, lp: DenseLayer, x: torch.Tensor,
 
 def _attn_out_mlp(cfg: ModelConfig, x: torch.Tensor, o: torch.Tensor,
                   lp: DenseLayer,
-                  rec: Optional[obs.DeviceRecorder] = None) -> torch.Tensor:
+                  rec: Optional[obs.DeviceRecorder] = None,
+                  gate: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Residual output projection of the attention o ((B, S, H, D) or
-    (B, H, D)), then the residual FFN block."""
+    (B, H, D)), then the residual FFN block. An afmoe layer multiplies o
+    by its ``gate`` (``_qkv_gate``) before the projection and norms the
+    projection's and the FFN's outputs before each residual add."""
     wo = tp.gather_weight(lp.attn["wo"])
-    x = x + _act(o.reshape(*o.shape[:-2], -1) @ wo)
+    o = o.reshape(*o.shape[:-2], -1)
+    if gate is not None:
+        o = o * gate.reshape(o.shape)
+    # the projection's output dies at its add, before the FFN's peak
+    x = x + _act(_sandwich(cfg, lp, "attn", o @ wo))
+    del o
     h2 = L.rms_norm(x, lp.ln2["scale"], cfg.rms_eps)
-    return x + _act(_ffn(cfg, lp, h2, rec))
+    return x + _act(_sandwich(cfg, lp, "mlp", _ffn(cfg, lp, h2, rec)))
+
+
+def _sandwich(cfg: ModelConfig, lp: DenseLayer, which: str,
+              t: torch.Tensor) -> torch.Tensor:
+    """An afmoe layer's RMSNorm of a block's output ("attn" or "mlp")
+    before its residual add; t itself without sandwich norms."""
+    if not cfg.sandwich_norm:
+        return t
+    return L.rms_norm(t, lp.post_norm[which], cfg.rms_eps)
 
 
 class SharedLayer(NamedTuple):
@@ -270,11 +346,43 @@ class SharedLayer(NamedTuple):
                                     self.v_scale)
 
 
-def _shared_layer(store: SharedKVStore, i: int) -> SharedLayer:
+class SharedTail(NamedTuple):
+    """A sliding-window layer's view of a shared document: its last keys
+    and values (T, KH, D), post-RoPE, which every query of the layer
+    attends from its own first visible key on
+    (``core/moska_attention.py::shared_tail_merge``); it never routes."""
+    k: torch.Tensor
+    v: torch.Tensor
+
+
+def _shared_layer(store, i: int):
+    """Layer i's part of a store: its chunks (``SharedLayer``), or, in a
+    ``LayeredStore``'s sliding-window layer, its tail (``SharedTail``)."""
+    if isinstance(store, LayeredStore):
+        if store.is_tail(i):
+            return SharedTail(store.k[i][0], store.v[i][0])
+        return SharedLayer(store.k[i], store.v[i], store.emb[i], None, None)
     if store.quantized:
         return SharedLayer(store.k[i], store.v[i], store.emb[i],
                            store.k_scale[i], store.v_scale[i])
     return SharedLayer(store.k[i], store.v[i], store.emb[i], None, None)
+
+
+def _count_tail(rec: Optional[obs.DeviceRecorder], store,
+                first: Callable[[], torch.Tensor]) -> None:
+    """The tail calls of one model call, counted once: every sliding layer
+    of a ``LayeredStore`` calls ``shared_tail_attention`` with the same
+    rows and first keys (``first()``, as the layers compute them), so the
+    layers of one tail length share one ``MA.record_tail``."""
+    if rec is None or not isinstance(store, LayeredStore):
+        return
+    tails = collections.Counter(store.k[i].shape[1]
+                                for i in range(store.num_layers)
+                                if store.is_tail(i))
+    if tails:
+        rows = first()
+        for tail, calls in tails.items():
+            MA.record_tail(rec, rows, tail, calls)
 
 
 def _pooled_queries(q: torch.Tensor, n_valid: Optional[int],
@@ -314,35 +422,50 @@ def _layer_prefill(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
     so routing (and every real row's output) matches the exact-length
     prefill; pad rows compute values the caller discards.
     """
-    q, k, v = _qkv_rope(cfg, x, lp, positions)
+    q, k, v, gate = _qkv_gate(cfg, x, lp, positions)
     q = lsc(q, "batch", "seq", "heads", None)
+    win = cfg.window(lp.index)
     if tp.is_meshed(q):
         if shared is not None:
             raise NotImplementedError("a routed prefill (with a store) "
                                       "under a mesh")
+        _unmeshed_only(cfg)
         # a projection whose d_model dim the rules split over model (the
         # expert_resident variant) leaves k and v partial sums
         k = lsc(k, "batch", "seq", "kv_heads", None)
         v = lsc(v, "batch", "seq", "kv_heads", None)
         tp.write_prefix_meshed(kc, vc, k, v)
         o = _causal_attention(cfg, q, k, v, causal=True, q_offset=q_offset,
-                              kv_offset=q_offset, window=cfg.attn_window)
+                              kv_offset=q_offset, window=win)
         return _attn_out_mlp(cfg, x, o, lp, rec)
     write_prefix(kc, vc, k, v)
 
-    if shared is not None:
+    if isinstance(shared, SharedTail):
+        with obs.profiled_span("layer.unique_attention"):
+            o_u, lse_u = L.flash_attention(q, k, v, causal=True,
+                                           q_offset=q_offset,
+                                           kv_offset=q_offset, window=win,
+                                           return_lse=True)
+        B, S = q.shape[:2]
+        first = torch.arange(S, dtype=torch.int32,
+                             device=q.device).repeat(B)
+        o = MA.shared_tail_merge(q.reshape(B * S, *q.shape[2:]),
+                                 o_u.reshape(B * S, *q.shape[2:]),
+                                 lse_u.reshape(B * S, -1), shared.k,
+                                 shared.v, first).view(q.shape)
+    elif shared is not None:
         rb = min(128, q.shape[1])
         with obs.profiled_span("layer.route"):
             routing = router_lib.route(_pooled_queries(q, true_len, rb),
                                        shared.emb, cfg.moska.top_k_chunks)
         o = MA.moska_prefill_attention(
             q, k, v, shared.context(routing), cfg.moska, q_offset=q_offset,
-            window=cfg.attn_window, route_block=rb, rec=rec)
+            window=win, route_block=rb, rec=rec)
     else:
         with obs.profiled_span("layer.unique_attention"):
             o = L.flash_attention(q, k, v, causal=True, q_offset=q_offset,
-                                  kv_offset=q_offset, window=cfg.attn_window)
-    return _attn_out_mlp(cfg, x, o, lp, rec)
+                                  kv_offset=q_offset, window=win)
+    return _attn_out_mlp(cfg, x, o, lp, rec, gate)
 
 
 def _layer_decode(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
@@ -353,19 +476,26 @@ def _layer_decode(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
     """Decode layer: one token per request. x: (B, d); positions: (B,)
     absolute position of the new token; the new K/V are appended to the
     layer's cache slices in place."""
-    q, k, v = (t[:, 0] for t in _qkv_rope(cfg, x[:, None], lp,
-                                          positions[:, None]))
+    q, k, v, gate = (None if t is None else t[:, 0] for t in _qkv_gate(
+        cfg, x[:, None], lp, positions[:, None]))
     q = lsc(q, "batch", "heads", None)
+    win = cfg.window(lp.index)
     if tp.is_meshed(q):
+        _unmeshed_only(cfg)
         o = disagg.meshed_decode_attention(
-            q, k, v, kc, vc, lengths, shared, cfg.moska,
-            window=cfg.attn_window)
+            q, k, v, kc, vc, lengths, shared, cfg.moska, window=win)
         return _attn_out_mlp(cfg, x, o, lp, rec)
     append_token(kc, vc, k, v, lengths)
-    o = MA.moska_decode_attention(q, kc, vc, lengths + 1,
-                                  _decode_context(cfg, q, shared), cfg.moska,
-                                  window=cfg.attn_window, rec=rec)
-    return _attn_out_mlp(cfg, x, o, lp, rec)
+    if isinstance(shared, SharedTail):
+        with obs.profiled_span("layer.unique_attention"):
+            o_u, lse_u = L.decode_attention(q, kc, vc, lengths + 1,
+                                            window=win, return_lse=True)
+        o = MA.shared_tail_merge(q, o_u, lse_u, shared.k, shared.v, lengths)
+    else:
+        o = MA.moska_decode_attention(q, kc, vc, lengths + 1,
+                                      _decode_context(cfg, q, shared),
+                                      cfg.moska, window=win, rec=rec)
+    return _attn_out_mlp(cfg, x, o, lp, rec, gate)
 
 
 def _layer_decode_paged(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
@@ -383,18 +513,22 @@ def _layer_decode_paged(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
     the table (no gathered copy) and its partial is merged with the routed
     shared partial, as the slotted layer merges the ``decode_attention``
     partial."""
-    q, k, v = (t[:, 0] for t in _qkv_rope(cfg, x[:, None], lp,
-                                          positions[:, None]))
+    q, k, v, gate = (None if t is None else t[:, 0] for t in _qkv_gate(
+        cfg, x[:, None], lp, positions[:, None]))
     q = lsc(q, "batch", "heads", None)
     append_layer(kp, k, index)
     append_layer(vp, v, index)
     with obs.profiled_span("layer.unique_attention"):
         o_u, lse_u = ops.paged_decode_attention(q, kp, vp, table,
                                                 lengths + 1,
-                                                window=cfg.attn_window)
-    o = MA.moska_decode_merge(q, o_u, lse_u, _decode_context(cfg, q, shared),
-                              cfg.moska, rec=rec)
-    return _attn_out_mlp(cfg, x, o, lp, rec)
+                                                window=cfg.window(lp.index))
+    if isinstance(shared, SharedTail):
+        o = MA.shared_tail_merge(q, o_u, lse_u, shared.k, shared.v, lengths)
+    else:
+        o = MA.moska_decode_merge(q, o_u, lse_u,
+                                  _decode_context(cfg, q, shared), cfg.moska,
+                                  rec=rec)
+    return _attn_out_mlp(cfg, x, o, lp, rec, gate)
 
 
 def _layer_prefill_chunk(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
@@ -410,7 +544,7 @@ def _layer_prefill_chunk(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
     the chunk's fresh keys are written at ``base`` (in place) and causal
     attention runs over the whole view with ``kv_len = base + chunk_len``.
     """
-    q, k, v = _qkv_rope(cfg, x, lp, positions)
+    q, k, v, gate = _qkv_gate(cfg, x, lp, positions)
     q = lsc(q, "batch", "seq", "heads", None)
     B, C, H, D = q.shape
     # the reference's dynamic_update_slice clamps the start into the view
@@ -418,11 +552,22 @@ def _layer_prefill_chunk(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
     kc[:, b0:b0 + C] = k.to(kc.dtype)
     vc[:, b0:b0 + C] = v.to(vc.dtype)
     attn = dict(causal=True, q_offset=start_pos + base, kv_offset=start_pos,
-                kv_len=base + chunk_len, window=cfg.attn_window)
+                kv_len=base + chunk_len, window=cfg.window(lp.index))
     if shared is None:
         with obs.profiled_span("layer.unique_attention"):
             o = L.flash_attention(q, kc, vc, **attn)
-        return _attn_out_mlp(cfg, x, o, lp, rec)
+        return _attn_out_mlp(cfg, x, o, lp, rec, gate)
+    if isinstance(shared, SharedTail):
+        with obs.profiled_span("layer.unique_attention"):
+            o_u, lse_u = L.flash_attention(q, kc, vc, return_lse=True,
+                                           **attn)
+        first = (base + torch.arange(C, dtype=torch.int32,
+                                     device=q.device)).repeat(B)
+        o = MA.shared_tail_merge(q.reshape(B * C, H, D),
+                                 o_u.reshape(B * C, H, D),
+                                 lse_u.reshape(B * C, H), shared.k, shared.v,
+                                 first).view(B, C, H, D)
+        return _attn_out_mlp(cfg, x, o, lp, rec, gate)
     rb = min(128, C)
     with obs.profiled_span("layer.route"):
         routing = router_lib.route(_pooled_queries(q, chunk_len, rb),
@@ -436,7 +581,7 @@ def _layer_prefill_chunk(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
     with obs.profiled_span("layer.merge"):
         o, _ = L.merge_partial_attention([o_u, part.out.reshape(B, C, H, D)],
                                          [lse_u, part.lse.reshape(B, C, H)])
-    return _attn_out_mlp(cfg, x, o, lp, rec)
+    return _attn_out_mlp(cfg, x, o, lp, rec, gate)
 
 
 def _layer_train(cfg: ModelConfig, x: torch.Tensor, lp: DenseLayer,
@@ -491,12 +636,20 @@ def _embed(params: DenseLM, tokens: torch.Tensor) -> torch.Tensor:
     return _act(F.embedding(tokens, tp.gather_weight(table)))
 
 
+def _embed_scaled(cfg: ModelConfig, params: DenseLM,
+                  tokens: torch.Tensor) -> torch.Tensor:
+    """``_embed`` times the config's ``embed_scale`` (in the table's dtype;
+    no multiply at 1)."""
+    x = _embed(params, tokens)
+    return x * cfg.embed_scale if cfg.embed_scale != 1.0 else x
+
+
 def embed_inputs(cfg: ModelConfig, params: DenseLM, tokens: torch.Tensor,
                  frontend_embeds: Optional[torch.Tensor] = None
                  ) -> torch.Tensor:
     """Token embeddings (B, S, d), with the frontend's (B, P, d) patch
     embeddings in front when given: (B, P + S, d)."""
-    x = _embed(params, tokens)
+    x = _embed_scaled(cfg, params, tokens)
     if frontend_embeds is not None:
         x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
     return _act(x)
@@ -528,6 +681,8 @@ def prefill(cfg: ModelConfig, params: DenseLM, tokens: torch.Tensor,
         with obs.profiled_span("layer"):
             x = _layer_prefill(cfg, x, lp, positions, cache.k[i], cache.v[i],
                                sh, start_pos, true_len=true_len, rec=rec)
+    _count_tail(rec, store if use_store else None, lambda: torch.arange(
+        S, dtype=torch.int32, device=x.device).repeat(B))
     n_valid = S if true_len is None else int(true_len)
     logits = _logits(cfg, params, x[:, n_valid - 1])
     cache.length.fill_(n_valid)
@@ -543,7 +698,7 @@ def decode_step(cfg: ModelConfig, params: DenseLM, tokens: torch.Tensor,
                 ) -> Tuple[torch.Tensor, KVCache]:
     """One decode step. tokens: (B,). Returns (logits (B, V) fp32, cache)
     with the new token's K/V appended and the lengths advanced, in place."""
-    x = _embed(params, tokens)                             # (B, d)
+    x = _embed_scaled(cfg, params, tokens)                 # (B, d)
     if positions is None:
         positions = cache.positions                        # absolute (RoPE)
     use_store = store is not None and cfg.moska.enabled
@@ -552,6 +707,7 @@ def decode_step(cfg: ModelConfig, params: DenseLM, tokens: torch.Tensor,
         with obs.profiled_span("layer"):
             x = _layer_decode(cfg, x, lp, positions, cache.k[i], cache.v[i],
                               cache.length, sh, rec=rec)
+    _count_tail(rec, store if use_store else None, lambda: cache.length)
     logits = _logits(cfg, params, x)
     cache.length.add_(1)
     return logits, cache
@@ -572,7 +728,7 @@ def decode_step_paged(cfg: ModelConfig, params: DenseLM,
     copy of the host-side ``SlotTables`` length/offset vectors. Returns
     (logits (B, V) fp32, pool). The caller advances lengths (``tick``).
     """
-    x = _embed(params, tokens)                             # (B, d)
+    x = _embed_scaled(cfg, params, tokens)                 # (B, d)
     positions = offsets + lengths                          # absolute (RoPE)
     index = append_index(table, lengths, pool.block_size)
     use_store = store is not None and cfg.moska.enabled
@@ -582,6 +738,7 @@ def decode_step_paged(cfg: ModelConfig, params: DenseLM,
             x = _layer_decode_paged(cfg, x, lp, positions, pool.k[i],
                                     pool.v[i], table, lengths, index, sh,
                                     rec=rec)
+    _count_tail(rec, store if use_store else None, lambda: lengths)
     return _logits(cfg, params, x), pool
 
 
@@ -601,7 +758,7 @@ def prefill_chunk(cfg: ModelConfig, params: DenseLM, tokens: torch.Tensor,
     token, cache). Numerically equivalent to the single-shot prefill
     (allclose), not bitwise (other contraction shapes).
     """
-    x = _embed(params, tokens)
+    x = _embed_scaled(cfg, params, tokens)
     B, C, _ = x.shape
     base = int(cache.length[0])
     chunk_len = C if chunk_len is None else int(chunk_len)
@@ -613,6 +770,8 @@ def prefill_chunk(cfg: ModelConfig, params: DenseLM, tokens: torch.Tensor,
             x = _layer_prefill_chunk(cfg, x, lp, positions, cache.k[i],
                                      cache.v[i], base, chunk_len, sh,
                                      start_pos, rec=rec)
+    _count_tail(rec, store if use_store else None, lambda: (
+        base + torch.arange(C, dtype=torch.int32, device=x.device)).repeat(B))
     logits = _logits(cfg, params, x[:, chunk_len - 1])
     cache.length.add_(chunk_len)
     cache.offset.fill_(start_pos)
@@ -629,6 +788,10 @@ def forward_hidden(cfg: ModelConfig, params: DenseLM, x: torch.Tensor,
     """Run the layer stack (the training path), each layer under
     ``cfg.remat_policy`` when ``remat``. Returns (final-normed hidden,
     the layers' summed MoE aux loss)."""
+    if cfg.afmoe_features:
+        raise NotImplementedError(
+            f"{cfg.name}: training is not ported for the afmoe layers "
+            f"({', '.join(cfg.afmoe_features)}); the serving path takes them")
     body = L.remat(_layer_train, cfg.remat_policy if remat else "none")
     auxs = []
     for lp in params.layers:

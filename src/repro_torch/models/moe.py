@@ -93,14 +93,21 @@ from repro_torch.sharding import tensor_parallel as tp
 def moe_init(p, generator: torch.Generator, d_model: int, d_ff: int
              ) -> None:
     """Draw ``p``'s leaves (``router`` fp32 (d, E), ``e_gate``/``e_up``
-    (E, d, f), ``e_down`` (E, f, d)) with the reference's scales: normal
-    times 1/sqrt(fan_in)."""
+    (E, d, f), ``e_down`` (E, f, d); a shared expert's ``sh_*``) with the
+    reference's scales: normal times 1/sqrt(fan_in); a sigmoid router's
+    ``expert_bias`` starts at 0."""
     s_in, s_out = 1.0 / math.sqrt(d_model), 1.0 / math.sqrt(d_ff)
-    for name, std in (("router", s_in), ("e_gate", s_in), ("e_up", s_in),
-                      ("e_down", s_out)):
+    draws = [("router", s_in), ("e_gate", s_in), ("e_up", s_in),
+             ("e_down", s_out)]
+    if "sh_down" in p:                     # the shared expert, after
+        draws += [("sh_gate", s_in), ("sh_up", s_in),
+                  ("sh_down", 1.0 / math.sqrt(p["sh_down"].shape[0]))]
+    for name, std in draws:
         t = p[name]
         t.copy_(torch.randn(t.shape, generator=generator, device=t.device,
                             dtype=torch.float32) * std)
+    if "expert_bias" in p:
+        p["expert_bias"].zero_()
 
 
 def moe_capacity(num_tokens: int, cfg: MoEConfig) -> int:
@@ -117,7 +124,9 @@ def moe_ffn(x: torch.Tensor, p, cfg: MoEConfig,
     None with ``with_aux=False``: serving drops it, and eager PyTorch would
     launch its kernels all the same).
 
-    The router scores ``x.float()`` in fp32; a kept slot's token is
+    The router scores ``x.float()`` in fp32 (a softmax, or the afmoe
+    sigmoid with its selection bias: ``_sigmoid_route``, plus the shared
+    expert's SwiGLU over every row at the end); a kept slot's token is
     written into its expert's batch (E, capacity, d), a dropped one into a
     trash row whose expert output reads as 0. The gate-weighted sum over
     the K choices runs in x's dtype. ``rec`` counts the kept slots on the
@@ -134,9 +143,12 @@ def moe_ffn(x: torch.Tensor, p, cfg: MoEConfig,
         capacity = moe_capacity(T_all, cfg)
     capacity = min(capacity, T_all * K)
 
-    probs = torch.softmax(x.float() @ p["router"], dim=-1)        # (T, E)
-    gates, ids = top_k(probs, K)                                  # (T, K)
-    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    if cfg.score_func == "sigmoid":
+        probs, gates, ids = _sigmoid_route(x, p, cfg)
+    else:
+        probs = torch.softmax(x.float() @ p["router"], dim=-1)    # (T, E)
+        gates, ids = top_k(probs, K)                              # (T, K)
+        gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
 
     aux = None
     if with_aux:
@@ -169,7 +181,32 @@ def moe_ffn(x: torch.Tensor, p, cfg: MoEConfig,
 
     y_slots = ye[flat, row]                                       # (T*K, d)
     y = (y_slots.view(T, K, d) * gates[..., None].to(x.dtype)).sum(dim=1)
+    if cfg.shared_expert_width:
+        y = y + _shared_expert(x, p)
     return y.to(x.dtype), aux
+
+
+def _sigmoid_route(x: torch.Tensor, p, cfg: MoEConfig):
+    """The afmoe router: s = sigmoid(x W_r) in fp32; the top k experts by
+    s + ``expert_bias`` (the bias picks, it does not weigh); the weights
+    are the chosen s, divided by their sum (+1e-20) under ``route_norm``,
+    times ``route_scale``. Returns (s (T, E), weights (T, K), ids (T, K))."""
+    with obs.profiled_span("moe.route"):
+        scores = torch.sigmoid(x.float() @ p["router"])           # (T, E)
+        _, ids = top_k(scores + p["expert_bias"], cfg.top_k)
+        gates = scores.gather(-1, ids)
+        if cfg.route_norm:
+            gates = gates / (gates.sum(-1, keepdim=True) + 1e-20)
+        if cfg.route_scale != 1.0:
+            gates = gates * cfg.route_scale
+    return scores, gates, ids
+
+
+def _shared_expert(x: torch.Tensor, p) -> torch.Tensor:
+    """The shared expert's SwiGLU over every row, in x's dtype."""
+    with obs.profiled_span("moe.shared_expert"):
+        h = F.silu(x @ p["sh_gate"]) * (x @ p["sh_up"])
+        return h @ p["sh_down"]
 
 
 _ROW_AXES = ("pod", "data")
@@ -185,6 +222,9 @@ def _moe_ffn_meshed(x, p, cfg: MoEConfig, capacity: Optional[int],
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     if dp.data_group() is not None:
         raise NotImplementedError("a meshed MoE layer under data_parallel")
+    if cfg.score_func != "softmax" or cfg.shared_expert_width:
+        raise NotImplementedError("a meshed MoE layer with a sigmoid router "
+                                  "or a shared expert")
     mesh = x.device_mesh
     names = mesh.mesh_dim_names
     big = {a for a, n in zip(names, mesh.shape) if n > 1}

@@ -267,9 +267,12 @@ class DeviceRecorder:
                 edges: Sequence[Number] = DEFAULT_EDGES) -> None:
         self._pending.append(("observe", name, tuple(edges), value))
 
-    def flush(self, reg: Optional[MetricsRegistry] = None) -> None:
+    def flush(self, reg: Optional[MetricsRegistry] = None
+              ) -> Dict[str, float]:
+        """Apply the queued records to ``reg`` (default: the active
+        registry); returns the counters' totals of this flush by name."""
         if not self._pending:
-            return
+            return {}
         import torch
         reg = reg if reg is not None else get_registry()
         pending, self._pending = self._pending, []
@@ -278,8 +281,11 @@ class DeviceRecorder:
                     if dev else ())
         vals = [next(host) if isinstance(v, torch.Tensor) else v
                 for _, _, _, v in pending]
+        totals: Dict[str, float] = {}
         for (kind, name, edges, _), v in zip(pending, vals):
             if kind == "inc":
                 reg.inc(name, v)
+                totals[name] = totals.get(name, 0.0) + v
             else:
                 reg.observe(name, v, edges)
+        return totals

@@ -80,7 +80,8 @@ import torch
 from repro_torch import obs
 from repro_torch.configs.base import AUDIO, HYBRID, SSM, ModelConfig
 from repro_torch.core.scheduler import Request, Scheduler, SchedulerConfig
-from repro_torch.core.shared_kv import SharedKVStore, build_store
+from repro_torch.core.shared_kv import (SharedKVStore, build_layered_store,
+                                       build_store)
 from repro_torch.kvcache.block_table import (SlotTables, blocks_for,
                                              validate_block_size)
 from repro_torch.kvcache.cache import KVCache, write_slot_prefix
@@ -335,7 +336,11 @@ class ServingEngine:
                                           self.device)
             tok = torch.as_tensor(toks, device=self.device)[None].long()
             self.model.prefill(self.params, tok, cache)
-            store = build_store(cache.k[:, 0], cache.v[:, 0], C)
+            if self.cfg.layer_windows:
+                store = build_layered_store(cache.k[:, 0], cache.v[:, 0], C,
+                                            self.cfg.layer_windows)
+            else:
+                store = build_store(cache.k[:, 0], cache.v[:, 0], C)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             return store
@@ -538,7 +543,7 @@ class ServingEngine:
             reg.observe("engine/decode_step_latency_s", dt,
                         obs.LATENCY_EDGES_S)
             self.metrics["decode_step_s"].append(dt)
-            self._rec.flush(reg)
+            self._flush()
             for req in list(active):
                 tok = int(nxt[req.slot])
                 slot_tokens[req.slot] = tok
@@ -592,8 +597,19 @@ class ServingEngine:
             rec=self._rec)
         return int(logits[0].argmax()), slot_cache         # device sync
 
+    def _flush(self) -> None:
+        """Apply the model's device records to the registry. The span open
+        here (an admission's ``engine.prefill``, a wave's
+        ``engine.record``) keeps the counters' totals of that model call
+        by name, among its attributes (the tail kernel's roofline reads
+        them)."""
+        totals = self._rec.flush(self.registry)
+        sp = obs.current_span()
+        if sp is not None and totals:
+            sp.attrs.update(totals)
+
     def _count_prefill(self, true_len: int) -> None:
-        self._rec.flush(self.registry)
+        self._flush()
         self.metrics["prefills"] += 1
         self.registry.inc("engine/prefills")
         self.registry.inc("engine/prefill_tokens", true_len)

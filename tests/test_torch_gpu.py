@@ -533,6 +533,83 @@ def test_flash_prefill_attention_kernel(cuda, B, Sq, Sk, H, KH, D, causal,
     assert torch.equal(out, got[0])
 
 
+# Shapes of the shared-tail kernel: (N, H, KH, D, T, first): trinity-mini's
+# decode step (256 rows) and an admission prefill's 512 rows against the
+# 2,047-key tail, with first spread over 0-2,100 (rows past the tail see
+# nothing); small shapes at D 64 and 128 with T not a multiple of the
+# 64-key tile; a call where no row sees a key; every row seeing the whole
+# tail.
+TAIL_CASES = [
+    (256, 32, 4, 128, 2047, "spread"),
+    (512, 32, 4, 128, 2047, "spread"),
+    (7, 8, 2, 64, 100, "spread"),
+    (33, 16, 8, 128, 130, "spread"),
+    (16, 8, 2, 64, 70, "none"),
+    (64, 32, 4, 128, 2047, "all"),
+]
+
+
+def _tail_first(kind, N, T, gen):
+    if kind == "none":
+        return torch.full((N,), T + 5, dtype=torch.int32)
+    if kind == "all":
+        return torch.zeros(N, dtype=torch.int32)
+    hi = 2100 if T == 2047 else T + 10
+    return torch.from_numpy(gen.integers(0, hi, N).astype(np.int32))
+
+
+@pytest.mark.parametrize("N,H,KH,D,T,kind", TAIL_CASES)
+def test_shared_tail_attention_kernel(cuda, N, H, KH, D, T, kind):
+    """The tail kernel against its plain version on the same bf16 CUDA
+    tensors: out and lse within 2e-2, lse -inf and out 0 exactly where a
+    row sees no key."""
+    g = np.random.default_rng(9)
+    q = _randn(g, (N, H, D), torch.bfloat16, cuda)
+    k = _randn(g, (T, KH, D), torch.bfloat16, cuda)
+    v = _randn(g, (T, KH, D), torch.bfloat16, cuda)
+    first = _tail_first(kind, N, T, g).to(cuda)
+    n0 = ops.shared_tail_attention.launches
+    out, lse = ops.shared_tail_attention(q, k, v, first)
+    torch.cuda.synchronize()
+    assert ops.shared_tail_attention.launches == n0 + 1
+    want_o, want_l = ref.shared_tail_attention_ref(q, k, v, first)
+    blind = (first >= T)
+    assert torch.equal(torch.isinf(lse), blind[:, None].expand_as(lse))
+    assert bool((out[blind] == 0).all())
+    _close(out, want_o, TOL[torch.bfloat16])
+    _close(lse, want_l, TOL[torch.bfloat16])
+
+
+def test_shared_tail_attention_kernel_time(cuda):
+    """Times the tail kernel at trinity-mini's decode step (256 rows, 32
+    over 4 heads of 128, a 2,047-key tail, first spread over 0-1,023 as the
+    served cell's) and at a 512-row prefill, beside its bound (operations
+    at the bf16 peak or bytes at the HBM peak, ``kernels/work.py``)."""
+    from repro_torch.kernels import work
+    g = np.random.default_rng(3)
+    for N, hi in ((256, 1024), (512, 512)):
+        q = _randn(g, (N, 32, 128), torch.bfloat16, cuda)
+        k = _randn(g, (2047, 4, 128), torch.bfloat16, cuda)
+        v = _randn(g, (2047, 4, 128), torch.bfloat16, cuda)
+        first = torch.from_numpy(g.integers(0, hi, N).astype(np.int32)).to(
+            cuda)
+        for _ in range(3):
+            ops.shared_tail_attention(q, k, v, first)
+        a, b = torch.cuda.Event(True), torch.cuda.Event(True)
+        a.record()
+        for _ in range(50):
+            ops.shared_tail_attention(q, k, v, first)
+        b.record()
+        torch.cuda.synchronize()
+        ms = a.elapsed_time(b) / 50
+        keys = int((2047 - first.long()).clamp(min=0).sum())
+        fl, by = work.shared_tail_attention(q, k, v, first, keys=keys)
+        bound = max(fl / 989e12, by / 3.35e12) * 1e3
+        print(f"[tail] N={N} ms={ms:.4f} bound_ms={bound:.4f} "
+              f"({100 * bound / ms:.1f} % of it)")
+        assert 0 < bound <= ms * 1.05
+
+
 def test_dense_decode_step_card_matches_cpu(cuda):
     """Prefill + one MoSKA decode step of a reduced fp32 model with G = 4:
     the card (kernels) and the CPU (plain versions) give the same logits."""

@@ -456,10 +456,41 @@ def test_merge_of_decode_splits_equals_joint():
     assert_close(om, oj)
 
 
+@pytest.mark.parametrize("N,H,KH,D,T", [(9, 4, 2, 16, 21), (5, 8, 8, 32, 64),
+                                         (3, 6, 2, 16, 1)])
+def test_shared_tail_attention_plain_version_is_a_masked_softmax(N, H, KH,
+                                                                 D, T):
+    """Each row's softmax over tail keys first[n] .. T - 1 alone, row by
+    row; a row that sees none gets out 0 and lse -inf; the CPU launches
+    nothing."""
+    g = torch.Generator().manual_seed(N)
+    q = torch.randn(N, H, D, generator=g)
+    k = torch.randn(T, KH, D, generator=g)
+    v = torch.randn(T, KH, D, generator=g)
+    first = torch.randint(0, T + 3, (N,), generator=g, dtype=torch.int32)
+    first[0], first[-1] = 0, T          # the whole tail, and none of it
+    out, lse = tops.shared_tail_attention(q, k, v, first)
+    G = H // KH
+    for n in range(N):
+        a = int(first[n])
+        if a >= T:
+            assert torch.isinf(lse[n]).all() and (lse[n] < 0).all()
+            assert (out[n] == 0).all()
+            continue
+        kk = k[a:].repeat_interleave(G, dim=1)
+        vv = v[a:].repeat_interleave(G, dim=1)
+        s = torch.einsum("hd,thd->ht", q[n], kk) / D ** 0.5
+        torch.testing.assert_close(lse[n], torch.logsumexp(s, -1),
+                                   rtol=2e-5, atol=2e-5)
+        torch.testing.assert_close(
+            out[n], torch.einsum("ht,thd->hd", s.softmax(-1), vv),
+            rtol=2e-5, atol=2e-5)
+
+
 def test_every_kernel_has_source_plain_version_and_counter():
     """Each wrapper names a CUDA source whose note names the TPU kernel it
-    replaces (the prefill kernel, which replaces none: the reference
-    function it computes) and what bounds it; each has a plain version
+    replaces (the prefill and tail kernels, which replace none: the
+    function they compute) and what bounds it; each has a plain version
     and a count."""
     notes = {"shared_chunk_attention": "shared_chunk_attn",
              "decode_attention": "decode_attn",
@@ -467,9 +498,12 @@ def test_every_kernel_has_source_plain_version_and_counter():
              "router_scores": "router_score",
              "paged_decode_attention": "paged_decode_attn",
              "shared_chunk_attention_q8": "shared_chunk_attn",
-             "flash_prefill_attention": "flash_prefill_attn"}
+             "flash_prefill_attention": "flash_prefill_attn",
+             "shared_tail_attention": "shared_chunk_attn"}
     computes = {"flash_prefill_attention":
-                "src/repro/models/layers.py::flash_attention"}
+                "src/repro/models/layers.py::flash_attention",
+                "shared_tail_attention":
+                "kernels/ref.py::shared_tail_attention_ref"}
     csrc = ROOT / "src/repro_torch/kernels/csrc"
     assert sorted(fn.__name__ for fn in tops.KERNELS) == sorted(notes)
     for fn in tops.KERNELS:

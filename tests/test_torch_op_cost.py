@@ -155,6 +155,9 @@ def _kernel_args(name, s):
     if name == "decode_attention":
         return (r(B, H, D), r(B, S, KH, D), r(B, S, KH, D),
                 torch.full((B,), S, dtype=torch.int32))
+    if name == "shared_tail_attention":
+        return (r(B, H, D), r(S, KH, D), r(S, KH, D),
+                torch.zeros(B, dtype=torch.int32))
     if name == "paged_decode_attention":
         bs, M = 16, S // 16
         table = torch.arange(B * M, dtype=torch.int32).view(B, M)
@@ -166,7 +169,7 @@ def _kernel_args(name, s):
 SHAPES = [(4, 8, 8, 2, 16, 32, 3, 64), (6, 16, 12, 4, 32, 64, 5, 96)]
 PRODUCT_KERNELS = ("shared_chunk_attention", "shared_chunk_attention_q8",
                    "decode_attention", "paged_decode_attention",
-                   "router_scores")
+                   "router_scores", "shared_tail_attention")
 
 
 @pytest.mark.parametrize("s", SHAPES, ids=["small", "larger"])
